@@ -13,7 +13,9 @@
 // the ~0.2-0.4 GB it must move. The design therefore puts the projections on
 // the tensor cores (bf16 wmma, fp32 accumulation, cp.async double-buffered
 // 128x128 tiles) and keeps each (row, head) score tile in shared memory, so
-// no score or probability tensor goes to device memory. The pre-LN prologue
+// no score or probability tensor goes to device memory; sequences longer
+// than 128 (ViT-B/16's 197 image tokens in BTIA) stream their keys through
+// an online softmax instead of holding the whole tile. The pre-LN prologue
 // and post-LN epilogue are single-pass row kernels. Fusing the chain into one
 // persistent kernel (the TPU kernel's one-pass form) is later work.
 //
@@ -25,6 +27,7 @@
 // added in bf16.
 
 #include "common.cuh"
+#include "masked_flash.cuh"
 
 using namespace nvcuda;
 
@@ -157,12 +160,19 @@ gemm_bias_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W, const f
 }
 
 // ---------------------------------------------------------------------------
-// Attention core: one block per (batch row, head), Sq, Sk <= 128, D = 64.
-// q is pre-scaled by scale*log2(e). q_bs == 0 shares one query table across
-// the batch (K2). mask: (B, Sk) f32 {0, 1} or null. o: (B, Sq, H*64).
+// Attention core, D = 64. q is pre-scaled by scale*log2(e). q_bs == 0 shares
+// one query table across the batch (K2). mask: (B, Sk) f32 {0, 1} or null.
+// o: (B, Sq, H*64). Two paths, chosen by btia_attn_core:
+//  * Sq, Sk <= 128: one block per (batch row, head) holding the whole score
+//    tile in shared memory (attn_core_kernel, the serving shapes);
+//  * anything larger (the reference admits any Sq*Sk <= 32768, e.g. the
+//    197 x 32 and 32 x 197 BTIA sites of ViT-B/16 configs): one block per
+//    (64-row q tile, head, batch row) streaming 64-key tiles through an
+//    online softmax (attn_core_tiled_kernel, masked_flash.cuh).
 // ---------------------------------------------------------------------------
 
 constexpr int AT_THREADS = 128;
+constexpr int kWholeTileSeq = 128;  // largest Sq / Sk of the whole-tile path
 constexpr int AT_LDH = kHeadDim + 8;  // bf16 row stride of q/k/v tiles
 
 struct CoreLayout {
@@ -288,6 +298,21 @@ attn_core_kernel(const bf16* __restrict__ q, long long q_bs, int q_rs, const bf1
   }
 }
 
+__global__ void __launch_bounds__(MF_THREADS)
+attn_core_tiled_kernel(const bf16* __restrict__ q, long long q_bs, int q_rs, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, long long kv_bs, int kv_rs, const float* __restrict__ mask,
+                       bf16* __restrict__ o, int H, int Sq, int Sk) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  MaskedFlashSmem& sm = *reinterpret_cast<MaskedFlashSmem*>(smem_raw);
+  const int nqt = (Sq + MF_T - 1) / MF_T;
+  const int q0 = (blockIdx.x % nqt) * MF_T, b = blockIdx.x / nqt, h = blockIdx.y;
+  const long long o_rs = static_cast<long long>(H) * kHeadDim;
+  masked_flash_tile(sm, q + b * q_bs + static_cast<long long>(q0) * q_rs + h * kHeadDim, q_rs,
+                    min(MF_T, Sq - q0), 1.f, k + b * kv_bs + h * kHeadDim, v + b * kv_bs + h * kHeadDim, kv_rs,
+                    Sk, mask != nullptr ? mask + static_cast<long long>(b) * Sk : nullptr,
+                    o + (static_cast<long long>(b) * Sq + q0) * o_rs + h * kHeadDim, o_rs);
+}
+
 // ---------------------------------------------------------------------------
 // C interface (pointers as void*, the stream as PyTorch's cudaStream_t).
 // Each entry returns cudaGetLastError() after its launch.
@@ -315,6 +340,17 @@ extern "C" int btia_gemm_bias(const void* A, const void* W, const void* bias, co
 extern "C" int btia_attn_core(const void* q, long long q_bs, int q_rs, const void* k, const void* v,
                               long long kv_bs, int kv_rs, const void* mask, void* o, int B, int H, int Sq,
                               int Sk, void* stream) {
+  if (Sq > kWholeTileSeq || Sk > kWholeTileSeq) {
+    const int bytes = static_cast<int>(sizeof(MaskedFlashSmem));
+    cudaError_t err =
+        cudaFuncSetAttribute(attn_core_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dim3 grid(B * ((Sq + MF_T - 1) / MF_T), H);
+    attn_core_tiled_kernel<<<grid, MF_THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const bf16*>(q), q_bs, q_rs, static_cast<const bf16*>(k), static_cast<const bf16*>(v), kv_bs,
+        kv_rs, static_cast<const float*>(mask), static_cast<bf16*>(o), H, Sq, Sk);
+    return static_cast<int>(cudaGetLastError());
+  }
   const CoreLayout L = core_layout(Sq, Sk);
   cudaError_t err = cudaFuncSetAttribute(attn_core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(L.bytes));

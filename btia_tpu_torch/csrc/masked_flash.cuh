@@ -1,0 +1,155 @@
+// Masked exp2 attention of one 64-row query tile of one head, shared by the
+// tiled K1/K2 attention core (fused_attn.cu) and K4 (fanout.cu).
+//
+// Both TPU kernels (btia_tpu/ops/fused_attn.py:_fused_kernel and
+// btia_tpu/ops/attention.py:_fanout_kernel) compute the same softmax:
+// scores in the log2 domain, a -1e9 bias on masked keys BEFORE the row max,
+// exp2 multiplied by the {0, 1} key mask, the denominator floored at 1e-30
+// and the division after PV, so a fully masked row gives exactly 0. The TPU
+// holds the whole score row in VMEM; a Hopper block has at most 227 KB of
+// shared memory, so here the keys stream through in 64-key tiles with an
+// online f32 softmax: the running max m starts at -inf and every tile
+// rescales the running sum and the PV accumulator by exp2(m_old - m_new).
+// Masked keys contribute exp2(.) * 0 = 0 to both, whatever the max, so the
+// result is the one-pass softmax up to the bf16 rounding of the
+// probabilities before PV. Keys beyond Sk (tile padding) are -inf and 0.
+//
+// Layout: four warps, each owning 16 query rows; bf16 wmma products with
+// fp32 accumulation; no score or probability tile reaches device memory.
+
+#pragma once
+
+#include "common.cuh"
+
+constexpr int MF_T = 64;           // query rows per block and keys per tile
+constexpr int MF_THREADS = 128;    // 4 warps x 16 query rows
+constexpr int MF_LDH = kHeadDim + 8;
+constexpr int MF_LDF = kHeadDim + 4;
+
+struct MaskedFlashSmem {
+  bf16 q[MF_T][MF_LDH];
+  bf16 k[MF_T][MF_LDH];
+  bf16 v[MF_T][MF_LDH];
+  float s[4][16][MF_LDF];  // per-warp scores, then per-warp PV partials
+  bf16 p[4][16][MF_LDH];   // per-warp probabilities
+  float o[4][16][MF_LDF];  // per-warp output accumulators
+};
+
+// qb: first of the tile's nq (<= 64) query rows of this head, row stride
+// q_rs elements; each value is multiplied by qscale in f32 and rounded to
+// bf16 (qscale = 1 for a query already in the log2 domain). kb / vb: key
+// and value row 0 of this head, row stride kv_rs. mrow: this batch row's
+// (Sk,) f32 {0, 1} key mask, or null for all keys valid. ob: output row 0
+// of the tile, row stride o_rs.
+__device__ __forceinline__ void masked_flash_tile(MaskedFlashSmem& sm, const bf16* __restrict__ qb, long long q_rs,
+                                                  int nq, float qscale, const bf16* __restrict__ kb,
+                                                  const bf16* __restrict__ vb, long long kv_rs, int Sk,
+                                                  const float* __restrict__ mrow, bf16* __restrict__ ob,
+                                                  long long o_rs) {
+  using namespace nvcuda;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // Warps whose 16 rows are all past nq skip the arithmetic (they still
+  // take part in the block's loads and barriers).
+  const bool active = warp * 16 < nq;
+
+  for (int c = tid; c < MF_T * kHeadDim; c += MF_THREADS) {
+    const int r = c / kHeadDim, col = c % kHeadDim;
+    const float x = r < nq ? __bfloat162float(qb[r * q_rs + col]) * qscale : 0.f;
+    sm.q[r][col] = __float2bfloat16(x);
+  }
+  for (int c = lane; c < 16 * kHeadDim; c += 32) sm.o[warp][c / kHeadDim][c % kHeadDim] = 0.f;
+  __syncthreads();
+
+  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[kHeadDim / 16];
+#pragma unroll
+  for (int kk = 0; kk < kHeadDim / 16; ++kk) wmma::load_matrix_sync(qa[kk], &sm.q[warp * 16][kk * 16], MF_LDH);
+
+  float m_run[16], l_run[16];
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    m_run[r] = -INFINITY;
+    l_run[r] = 0.f;
+  }
+
+  const int nkt = (Sk + MF_T - 1) / MF_T;
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int k0 = kt * MF_T;
+    const int nk = min(MF_T, Sk - k0);
+    __syncthreads();  // every warp is done with the previous K/V tile
+    load_head_rows(&sm.k[0][0], MF_LDH, kb + k0 * kv_rs, kv_rs, nk, MF_T, tid, MF_THREADS);
+    load_head_rows(&sm.v[0][0], MF_LDH, vb + k0 * kv_rs, kv_rs, nk, MF_T, tid, MF_THREADS);
+    __syncthreads();
+    if (!active) continue;
+
+    // S_w = Q_w K^T for this warp's 16 rows (log2 domain).
+#pragma unroll
+    for (int tj = 0; tj < MF_T / 16; ++tj) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+      wmma::fill_fragment(acc, 0.f);
+#pragma unroll
+      for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
+        wmma::load_matrix_sync(bt, &sm.k[tj * 16][kk * 16], MF_LDH);
+        wmma::mma_sync(acc, qa[kk], bt, acc);
+      }
+      wmma::store_matrix_sync(&sm.s[warp][0][tj * 16], acc, MF_LDF, wmma::mem_row_major);
+    }
+    __syncwarp();
+
+    // Online masked softmax; each lane owns keys `lane` and `lane + 32`.
+    const int j0 = lane, j1 = lane + 32;
+    const bool in0 = j0 < nk, in1 = j1 < nk;
+    const float cm0 = !in0 ? 0.f : (mrow != nullptr ? mrow[k0 + j0] : 1.f);
+    const float cm1 = !in1 ? 0.f : (mrow != nullptr ? mrow[k0 + j1] : 1.f);
+#pragma unroll
+    for (int r = 0; r < 16; ++r) {
+      const float s0 = in0 ? sm.s[warp][r][j0] - (1.f - cm0) * 1e9f : -INFINITY;
+      const float s1 = in1 ? sm.s[warp][r][j1] - (1.f - cm1) * 1e9f : -INFINITY;
+      const float m_new = fmaxf(m_run[r], warp_max(fmaxf(s0, s1)));
+      const float alpha = exp2f(m_run[r] - m_new);
+      const float e0 = in0 ? exp2f(s0 - m_new) * cm0 : 0.f;
+      const float e1 = in1 ? exp2f(s1 - m_new) * cm1 : 0.f;
+      l_run[r] = l_run[r] * alpha + warp_sum(e0 + e1);
+      m_run[r] = m_new;
+      sm.p[warp][r][j0] = __float2bfloat16(e0);
+      sm.p[warp][r][j1] = __float2bfloat16(e1);
+      sm.o[warp][r][j0] *= alpha;
+      sm.o[warp][r][j1] *= alpha;
+    }
+    __syncwarp();
+
+    // PV partial for this tile into the score buffer, then accumulate.
+#pragma unroll
+    for (int tj = 0; tj < kHeadDim / 16; ++tj) {
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+      wmma::fill_fragment(acc, 0.f);
+#pragma unroll
+      for (int kk = 0; kk < MF_T / 16; ++kk) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
+        wmma::load_matrix_sync(pa, &sm.p[warp][0][kk * 16], MF_LDH);
+        wmma::load_matrix_sync(bv, &sm.v[kk * 16][tj * 16], MF_LDH);
+        wmma::mma_sync(acc, pa, bv, acc);
+      }
+      wmma::store_matrix_sync(&sm.s[warp][0][tj * 16], acc, MF_LDF, wmma::mem_row_major);
+    }
+    __syncwarp();
+    for (int c = lane; c < 16 * kHeadDim; c += 32) {
+      const int r = c / kHeadDim, col = c % kHeadDim;
+      sm.o[warp][r][col] += sm.s[warp][r][col];
+    }
+    __syncwarp();
+  }
+
+  // Divide after PV, the denominator floored at 1e-30.
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const int row = warp * 16 + r;
+    if (row < nq) {
+      const float den = fmaxf(l_run[r], 1e-30f);
+      bf16* orow = ob + row * o_rs;
+      orow[lane] = __float2bfloat16(sm.o[warp][r][lane] / den);
+      orow[lane + 32] = __float2bfloat16(sm.o[warp][r][lane + 32] / den);
+    }
+  }
+}

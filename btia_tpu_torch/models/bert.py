@@ -2,7 +2,9 @@
 
 Post-LN with eps 1e-12; word + position + token-type (all zero) embeddings;
 mask = ids > 0 (WordPiece PAD = 0). The attention site is K1 with the
-residual and the post-LN ``ln_attn`` folded in (``bert.py:59-65``).
+residual and the post-LN ``ln_attn`` folded in (``bert.py:59-65``); under
+train-time dropout the site is a plain K1 and the dropout, residual and
+post-LN run outside it (``bert.py:66-71``), as in the reference.
 """
 
 from __future__ import annotations
@@ -14,7 +16,10 @@ import torch
 from torch import nn
 
 from btia_tpu_torch.core.dtypes import DTypePolicy
-from btia_tpu_torch.models.layers import Embed, LayerNorm, LayerNormParams, Mlp, MultiHeadAttention
+from btia_tpu_torch.models.layers import (
+    Dropout, Embed, LayerNorm, LayerNormParams, Mlp, MultiHeadAttention, maybe_drop,
+)
+from btia_tpu_torch.ops.norms import layernorm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,9 +43,14 @@ class BertLayer(nn.Module):
         self.mlp = Mlp(s.dim, s.mlp_dim, policy, device)
         self.ln_mlp = LayerNorm(s.dim, policy, s.ln_eps, device)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
-        x = self.attn(x, kv_mask=mask, residual=True, post_ln=self.ln_attn.triple())
-        return self.ln_mlp(x + self.mlp(x))
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
+                drop: Optional[Dropout] = None) -> torch.Tensor:
+        if drop is None:
+            x = self.attn(x, kv_mask=mask, residual=True, post_ln=self.ln_attn.triple())
+        else:
+            attn = drop(self.attn(x, kv_mask=mask))
+            x = layernorm(x + attn, *self.ln_attn.triple()).to(x.dtype)
+        return self.ln_mlp(x + maybe_drop(self.mlp(x), drop))
 
 
 class BertQuestionEncoder(nn.Module):
@@ -59,7 +69,8 @@ class BertQuestionEncoder(nn.Module):
             self.add_module(f"layer{i}", BertLayer(s, policy, device))
 
     def forward(
-        self, token_ids: torch.Tensor, mask: Optional[torch.Tensor] = None
+        self, token_ids: torch.Tensor, mask: Optional[torch.Tensor] = None,
+        drop: Optional[Dropout] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         if mask is None:
             mask = token_ids > 0
@@ -71,7 +82,7 @@ class BertQuestionEncoder(nn.Module):
             + self.pos_embed(pos_ids, cd)
             + self.type_embed(torch.zeros_like(token_ids), cd)
         )
-        x = self.ln_embed(x)
+        x = maybe_drop(self.ln_embed(x), drop)
         for i in range(self.spec.depth):
-            x = getattr(self, f"layer{i}")(x, mask)
+            x = getattr(self, f"layer{i}")(x, mask, drop)
         return x, mask

@@ -2,7 +2,8 @@
 
 Learned answer queries attend over the fused image+question tokens through
 K2 (``fused_static_q_attention``) with the kv LayerNorm and the query
-residual folded in (``heads.py:74-78``), then ln_mlp + Mlp + ln_out. Two
+residual folded in (``heads.py:74-78``), then ln_mlp + Mlp (with train-time
+dropout inside, ``heads.py:79-85``) + ln_out. Two
 modes: per-answer queries (``num_queries == 0``, one query scored against
 its own weight row) and factorized (K queries, mean-pooled, scored against
 an answer table).
@@ -16,7 +17,7 @@ import torch
 from torch import nn
 
 from btia_tpu_torch.core.dtypes import DTypePolicy
-from btia_tpu_torch.models.layers import Dense, LayerNorm, LayerNormParams, Mlp, _param
+from btia_tpu_torch.models.layers import Dense, Dropout, LayerNorm, LayerNormParams, Mlp, _param
 from btia_tpu_torch.ops.fused_attn import fused_static_q_attention
 
 
@@ -33,7 +34,7 @@ class ADHead(nn.Module):
         self.k_proj = Dense(dim, dim, policy, device)
         self.v_proj = Dense(dim, dim, policy, device)
         self.o_proj = Dense(dim, dim, policy, device)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), policy, device)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), policy, device, inner_dropout=True)
         self.ln_mlp = LayerNorm(dim, policy, device=device)
         self.ln_out = LayerNorm(dim, policy, device=device)
         if num_queries == 0:
@@ -42,7 +43,8 @@ class ADHead(nn.Module):
             self.answer_table = _param(vocab_size, dim, device=device)
         self.answer_bias = _param(vocab_size, device=device)
 
-    def forward(self, tokens: torch.Tensor, token_mask: Optional[torch.Tensor]) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, token_mask: Optional[torch.Tensor],
+                drop: Optional[Dropout] = None) -> torch.Tensor:
         cd, acc = self.policy.compute_dtype, self.policy.accum_dtype
         feats = fused_static_q_attention(
             self.answer_queries.to(cd), tokens.to(cd), token_mask,
@@ -50,7 +52,7 @@ class ADHead(nn.Module):
             self.v_proj.kernel, self.v_proj.bias, self.o_proj.kernel, self.o_proj.bias,
             self.num_heads, kv_ln=self.ln_kv.triple(), residual=True,
         )
-        feats = feats + self.mlp(self.ln_mlp(feats))
+        feats = feats + self.mlp(self.ln_mlp(feats), drop)
         feats = self.ln_out(feats)
         if self.num_queries == 0:
             logits = torch.einsum("bad,ad->ba", feats.to(acc), self.answer_weights.to(acc))

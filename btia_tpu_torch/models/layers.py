@@ -19,6 +19,26 @@ from btia_tpu_torch.ops.fused_attn import fused_dense_attention
 from btia_tpu_torch.ops.norms import layernorm
 
 
+class Dropout:
+    """Train-time dropout as flax's ``nn.Dropout``: keep each element with
+    probability 1 - rate, scaling kept ones by 1 / (1 - rate). The bits come
+    from an explicit ``torch.Generator`` (seeded per train step), so a run
+    and its resumption draw the same masks. Modules take ``drop=None`` for
+    the deterministic (eval) forward."""
+
+    def __init__(self, rate: float, generator: torch.Generator):
+        self.keep = 1.0 - rate
+        self.generator = generator
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        mask = torch.empty_like(x).bernoulli_(self.keep, generator=self.generator)
+        return x / self.keep * mask
+
+
+def maybe_drop(x: torch.Tensor, drop: Optional[Dropout]) -> torch.Tensor:
+    return x if drop is None else drop(x)
+
+
 def _param(*shape, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(*shape, dtype=torch.float32, device=device))
 
@@ -104,15 +124,21 @@ class MultiHeadAttention(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 -> GELU -> fc2. GELU is exact (erf) under the fp32 policy, the
-    parity rail, and the tanh form under bf16 (``layers.py:221-225``)."""
+    """fc1 -> GELU -> dropout -> fc2. GELU is exact (erf) under the fp32
+    policy, the parity rail, and the tanh form under bf16
+    (``layers.py:221-225``). ``inner_dropout`` is the flax module's own
+    ``dropout`` field: set for the ViT blocks and the AD head, off in BERT
+    and BTIA, whose dropout sits outside the Mlp (``layers.py:239-240``)."""
 
-    def __init__(self, dim: int, hidden_dim: int, policy: DTypePolicy, device=None):
+    def __init__(self, dim: int, hidden_dim: int, policy: DTypePolicy, device=None,
+                 inner_dropout: bool = False):
         super().__init__()
         self.policy = policy
+        self.inner_dropout = inner_dropout
         self.fc1 = Dense(dim, hidden_dim, policy, device)
         self.fc2 = Dense(hidden_dim, dim, policy, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, drop: Optional[Dropout] = None) -> torch.Tensor:
         exact = self.policy.compute_dtype == torch.float32
-        return self.fc2(F.gelu(self.fc1(x), approximate="none" if exact else "tanh"))
+        h = F.gelu(self.fc1(x), approximate="none" if exact else "tanh")
+        return self.fc2(maybe_drop(h, drop if self.inner_dropout else None))

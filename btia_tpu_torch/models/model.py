@@ -1,13 +1,22 @@
 """BTIAADNet — model assembly and the serving API (port of
 ``btia_tpu/models/model.py``).
 
-This slice carries the ViT + BERT + BTIA + AD-head configurations
+The port carries the ViT + BERT + BTIA + AD-head configurations
 (``streaming_vitl``, ``pathvqa_vit``, ``vqa_med_full``); the ResNet and LSTM
-encoders and the mlp head are still to be ported (ROADMAP Queue 1).
+encoders and the mlp head are still to be ported (ROADMAP Queue 1). On the
+card, under the bf16 policy, ``streaming_vitl`` is served through
+``Predictor`` (the serving entry points) and ``vqa_med_full`` trains and
+evaluates through ``train.trainer.Trainer`` (``forward`` with ``train`` on
+and off); ``chip_smoke.py`` drives both. ``pathvqa_vit`` takes the same
+kernels at its own shapes (its 197-token BTIA sites, like
+``vqa_med_full``'s, need the tiled attention core) but is not driven on the
+card yet. The fp32 policy runs on the CPU only.
 
 ``encode_image`` / ``answer_questions`` split the forward so that the image
 encoder runs once per image and only the question tower, fusion and head fan
-out per question.
+out per question. Every entry point takes ``train`` (dropout on, as the
+reference's ``train`` flag) and, when the config's dropout is above 0, the
+``torch.Generator`` the dropout masks are drawn from.
 """
 
 from __future__ import annotations
@@ -24,7 +33,7 @@ from btia_tpu_torch.core.dtypes import DTypePolicy, default_policy
 from btia_tpu_torch.models.bert import BertQuestionEncoder, BertSpec
 from btia_tpu_torch.models.btia import BTIA
 from btia_tpu_torch.models.heads import ADHead
-from btia_tpu_torch.models.layers import Dense, LayerNorm
+from btia_tpu_torch.models.layers import Dense, Dropout, LayerNorm
 from btia_tpu_torch.models.vit import VIT_SPECS, ViT
 from btia_tpu_torch.ops.ingest import preprocess_images, resize_matrix
 
@@ -45,6 +54,11 @@ def _check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             "the mlp head (SimpleClassifier) is not ported yet (ROADMAP Queue 1, "
             "'ResNet / LSTM / SimpleClassifier')"
+        )
+    if cfg.remat:
+        raise NotImplementedError(
+            "model.remat (rematerialised blocks in the backward pass) is not "
+            "ported yet (ROADMAP Queue 1, 'Training: remat')"
         )
     if cfg.int8_ffn:
         raise NotImplementedError(
@@ -100,25 +114,36 @@ class BTIAADNet(nn.Module):
         x = torch.einsum("wW,bhWc->bhwc", m, x)
         return torch.cat([cls, x.reshape(B, gt * gt, D)], dim=1)
 
-    def encode_image(self, images: torch.Tensor) -> torch.Tensor:
+    def _dropout(self, train: bool, generator: Optional[torch.Generator]) -> Optional[Dropout]:
+        if not train or self.cfg.dropout == 0.0:
+            return None
+        if generator is None:
+            raise ValueError("train=True with dropout > 0 needs a torch.Generator")
+        return Dropout(self.cfg.dropout, generator)
+
+    def encode_image(self, images: torch.Tensor, train: bool = False,
+                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """images: uint8/float (B, H, W, 3), any size -> (B, N_img, hidden)."""
         s = self.cfg.image_size
         x = preprocess_images(images, (s, s), out_dtype=self.policy.compute_dtype)
-        feats = self._pool_image_tokens(self.image_encoder(x))
-        return self.img_ln(self.img_proj(feats))
+        feats = self.image_encoder(x, self._dropout(train, generator))
+        return self.img_ln(self.img_proj(self._pool_image_tokens(feats)))
 
     def encode_question(
-        self, question_ids: torch.Tensor, mask: Optional[torch.Tensor] = None
+        self, question_ids: torch.Tensor, mask: Optional[torch.Tensor] = None,
+        train: bool = False, generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        feats, mask = self.question_encoder(question_ids, mask)
+        feats, mask = self.question_encoder(question_ids, mask, self._dropout(train, generator))
         return self.txt_ln(self.txt_proj(feats)), mask
 
-    def fuse_and_answer(self, img_tokens, txt_tokens, txt_mask) -> torch.Tensor:
-        img_f, txt_f = self.btia(img_tokens, txt_tokens, txt_mask)
+    def fuse_and_answer(self, img_tokens, txt_tokens, txt_mask, train: bool = False,
+                        generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        drop = self._dropout(train, generator)
+        img_f, txt_f = self.btia(img_tokens, txt_tokens, txt_mask, drop)
         tokens = torch.cat([img_f, txt_f], dim=1)
         img_valid = torch.ones(img_f.shape[:2], dtype=torch.bool, device=img_f.device)
         token_mask = torch.cat([img_valid, txt_mask], dim=1)
-        return self.head(tokens, token_mask)
+        return self.head(tokens, token_mask, drop)
 
     @staticmethod
     def _replicate(img_tokens: torch.Tensor, Q: int) -> torch.Tensor:
@@ -130,12 +155,16 @@ class BTIAADNet(nn.Module):
         img_tokens: torch.Tensor,  # (B, N_img, hidden) from encode_image
         question_ids: torch.Tensor,  # (B, Q, S)
         q_mask: Optional[torch.Tensor] = None,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """Fan out Q questions per encoded image -> (B, Q, vocab)."""
         B, Q, S = question_ids.shape
         flat_mask = q_mask.reshape(B * Q, S) if q_mask is not None else None
-        txt, txt_mask = self.encode_question(question_ids.reshape(B * Q, S), flat_mask)
-        logits = self.fuse_and_answer(self._replicate(img_tokens, Q), txt, txt_mask)
+        txt, txt_mask = self.encode_question(
+            question_ids.reshape(B * Q, S), flat_mask, train, generator)
+        logits = self.fuse_and_answer(
+            self._replicate(img_tokens, Q), txt, txt_mask, train, generator)
         return logits.reshape(B, Q, -1)
 
     def answer_questions_indexed(
@@ -143,14 +172,16 @@ class BTIAADNet(nn.Module):
         img_tokens: torch.Tensor,  # (B, N_img, hidden)
         unique_ids: torch.Tensor,  # (U, S) deduplicated question rows
         qmap: torch.Tensor,  # (B, Q) indices into the U axis
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """``answer_questions`` with the question tower run once per unique
         question; per-pair features are gathered -> (B, Q, vocab)."""
         B, Q = qmap.shape
-        txt_u, mask_u = self.encode_question(unique_ids)
+        txt_u, mask_u = self.encode_question(unique_ids, None, train, generator)
         flat = qmap.reshape(B * Q)
         logits = self.fuse_and_answer(
-            self._replicate(img_tokens, Q), txt_u[flat], mask_u[flat]
+            self._replicate(img_tokens, Q), txt_u[flat], mask_u[flat], train, generator
         )
         return logits.reshape(B, Q, -1)
 
@@ -160,17 +191,21 @@ class BTIAADNet(nn.Module):
         unique_ids: torch.Tensor,  # (U, S)
         pair_img: torch.Tensor,  # (P,) image index per pair
         pair_q: torch.Tensor,  # (P,) unique-question index per pair
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> torch.Tensor:
         """Packed pair-list fan-out -> (P, vocab)."""
-        txt_u, mask_u = self.encode_question(unique_ids)
-        return self.fuse_and_answer(img_tokens[pair_img], txt_u[pair_q], mask_u[pair_q])
+        txt_u, mask_u = self.encode_question(unique_ids, None, train, generator)
+        return self.fuse_and_answer(
+            img_tokens[pair_img], txt_u[pair_q], mask_u[pair_q], train, generator)
 
-    def forward(self, images, question_ids, q_mask=None) -> torch.Tensor:
+    def forward(self, images, question_ids, q_mask=None, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """(image, question) -> answer logits: images (B, H, W, 3), question
         ids (B, S) -> (B, vocab)."""
-        img = self.encode_image(images)
-        txt, txt_mask = self.encode_question(question_ids, q_mask)
-        return self.fuse_and_answer(img, txt, txt_mask)
+        img = self.encode_image(images, train, generator)
+        txt, txt_mask = self.encode_question(question_ids, q_mask, train, generator)
+        return self.fuse_and_answer(img, txt, txt_mask, train, generator)
 
 
 _SMALL_INIT = ("cls_token", "pos_embed", "answer_queries", "answer_table", "answer_weights")

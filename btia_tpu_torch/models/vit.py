@@ -3,18 +3,20 @@
 Patchify is a reshape in (p, p, C) order plus a Dense, as in the reference,
 not an NCHW convolution; pre-LN blocks; the self-attention site goes through
 ``MultiHeadAttention``, whose 577-token score tile takes the long-sequence
-road to K3.
+road to K3. Train-time dropout sits inside each block's Mlp
+(``vit.py:63-69``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 from torch import nn
 
 from btia_tpu_torch.core.dtypes import DTypePolicy
-from btia_tpu_torch.models.layers import Dense, LayerNorm, Mlp, MultiHeadAttention, _param
+from btia_tpu_torch.models.layers import Dense, Dropout, LayerNorm, Mlp, MultiHeadAttention, _param
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,11 +50,11 @@ class ViTBlock(nn.Module):
         self.ln1 = LayerNorm(dim, policy, device=device)
         self.attn = MultiHeadAttention(dim, num_heads, policy, device=device)
         self.ln2 = LayerNorm(dim, policy, device=device)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), policy, device)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), policy, device, inner_dropout=True)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, drop: Optional[Dropout] = None) -> torch.Tensor:
         x = x + self.attn(self.ln1(x))
-        return x + self.mlp(self.ln2(x))
+        return x + self.mlp(self.ln2(x), drop)
 
 
 class ViT(nn.Module):
@@ -70,7 +72,7 @@ class ViT(nn.Module):
             self.add_module(f"block{i}", ViTBlock(s.dim, s.num_heads, s.mlp_ratio, policy, device))
         self.ln_final = LayerNorm(s.dim, policy, device=device)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, drop: Optional[Dropout] = None) -> torch.Tensor:
         s = self.spec
         B, H, W, C = images.shape
         if H != s.image_size or W != s.image_size:
@@ -82,5 +84,5 @@ class ViT(nn.Module):
         cls = self.cls_token.to(x.dtype).expand(B, 1, s.dim)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(x.dtype)
         for i in range(s.depth):
-            x = getattr(self, f"block{i}")(x)
+            x = getattr(self, f"block{i}")(x, drop)
         return self.ln_final(x)

@@ -37,6 +37,7 @@ _SIGNATURES = {
     "btia_gemm_bias": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _P),
     "btia_attn_core": (_P, _LL, _I, _P, _P, _LL, _I, _P, _P, _I, _I, _I, _I, _P),
     "btia_flash_bshd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    "btia_fanout": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
 }
 
 
@@ -114,6 +115,19 @@ def timed_build() -> float:
     t0 = time.perf_counter()
     lib()
     return time.perf_counter() - t0
+
+
+def route(entry, t: torch.Tensor, cuda_fn, plain_fn, *args):
+    """Run a kernel entry by device: for a CUDA tensor `t`, launch the kernel
+    through `cuda_fn(*args)` and count it in ``entry.launches``; for a CPU
+    tensor, the plain PyTorch twin `plain_fn(*args)`. Nothing falls back."""
+    if t.is_cuda:
+        out = cuda_fn(*args)
+        entry.launches += 1
+        return out
+    if t.device.type != "cpu":
+        raise ValueError(f"{entry.__name__}: unsupported device {t.device}")
+    return plain_fn(*args)
 
 
 def check(code: int, what: str) -> None:

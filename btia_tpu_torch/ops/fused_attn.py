@@ -15,9 +15,17 @@ in:
 
 Routing is by device: a CUDA tensor launches the hand-written kernel chain in
 ``csrc/fused_attn.cu`` (counted in the entry's ``.launches``) or raises; a CPU
-tensor takes the plain PyTorch twin. The one gate kept from the reference is
-the score-tile size (a whole (Sq, Sk) tile per block): longer sequences take
-the unfused road of projections + ``mha_bshd``, as the reference does.
+tensor takes the plain PyTorch twin. The shape gate is the reference's
+(``core_admits``: Sq*Sk <= 32768 and D % 64 == 0); other sites take the
+unfused road of projections + ``mha_bshd``, as the reference does. The
+reference's batch floor (B >= 64) is not kept: the card's kernels win at any
+batch.
+
+Each site is a ``torch.autograd.Function`` whose backward mirrors the
+reference's ``custom_vjp`` (``_fused_bwd``, ``_fused_site_bwd``,
+``_staticq_bwd``, ``_staticq_site_bwd``): it recomputes the unfused road
+under autograd, so at a batch of 64 or more on the card the recomputed
+attention goes through K4. The key mask gets no gradient.
 """
 
 from __future__ import annotations
@@ -27,15 +35,20 @@ from typing import Optional, Tuple
 import torch
 
 from btia_tpu_torch.ops import _native
-from btia_tpu_torch.ops.attention import LOG2E, SMALL_SCORE_TILE, mha_bshd
+from btia_tpu_torch.ops.attention import LOG2E, SMALL_SCORE_TILE, attend_log2, mha_bshd
 from btia_tpu_torch.ops.norms import layernorm
 
 # A folded LayerNorm: (scale, bias, eps), or None for a disabled stage. The
 # reference's SiteCfg carried the eps values as static Pallas arguments;
 # here the triples themselves say which stages run.
 LN = Optional[Tuple[torch.Tensor, torch.Tensor, float]]
-# Largest Sq / Sk the attention-core kernel holds in shared memory.
-MAX_CORE_SEQ = 128
+
+
+def core_admits(sq: int, sk: int, head_dim: int) -> bool:
+    """Whether a site's attention fits the fused kernels: the reference's
+    shape gate (``btia_tpu/ops/fused_attn.py:1030-1031``). The CUDA core computes every
+    admitted shape at D = 64 (the one head width of the port's configs)."""
+    return sq * sk <= SMALL_SCORE_TILE and head_dim % 64 == 0
 
 
 def _ln_rows(x32, scale, bias, eps):
@@ -48,22 +61,6 @@ def _ln_rows(x32, scale, bias, eps):
 def _proj_plain(x, w, b, cd):
     """bf16-valued operands, f32 accumulation, f32 bias, one rounding."""
     return (x.float() @ w.to(cd).float() + b.float()).to(cd)
-
-
-def _attend_plain(q, k, v, colmask, num_heads, cd):
-    """q (B, Sq, HD) pre-scaled into the log2 domain, k/v (B, Sk, HD),
-    colmask (B, Sk) f32 {0, 1} -> (B, Sq, HD) in cd."""
-    B, Sq, HD = q.shape
-    Sk = k.shape[1]
-    D = HD // num_heads
-    heads = lambda x, S: x.reshape(x.shape[0], S, num_heads, D).transpose(1, 2).float()
-    s = heads(q, Sq) @ heads(k, Sk).transpose(-1, -2)  # (B, H, Sq, Sk)
-    cm = colmask[:, None, None, :]
-    s = s - (1.0 - cm) * 1e9
-    e = torch.exp2(s - s.amax(-1, keepdim=True)) * cm
-    denom = torch.clamp_min(e.sum(-1, keepdim=True), 1e-30)
-    acc = e.to(cd).float() @ heads(v, Sk)
-    return (acc / denom).to(cd).transpose(1, 2).reshape(B, Sq, HD)
 
 
 def _colmask(kv_mask, x_kv):
@@ -82,7 +79,7 @@ def _fused_dense_plain(x_q, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
     q = _proj_plain(xq, (wq.float() * c).to(cd), bq.float() * c, cd)
     k = _proj_plain(xkv, wk, bk, cd)
     v = _proj_plain(xkv, wv, bv, cd)
-    attn = _attend_plain(q, k, v, _colmask(kv_mask, x_kv), num_heads, cd)
+    attn = attend_log2(q, k, v, _colmask(kv_mask, x_kv), num_heads)
     out = _proj_plain(attn, wo, bo, cd)
     if residual:
         out = x_q.to(cd) + out
@@ -132,10 +129,11 @@ def _gemm_cuda(a2, w, b, resid=None, resid_rows=0):
 def _core_cuda(q, q_bs, kv, B, Sq, Sk, HD, num_heads, colmask):
     """Attention core over q rows (stride HD; q_bs elements between batch
     rows, 0 for a shared table) and kv = [k | v] rows of width 2*HD."""
-    if HD != num_heads * 64:
-        raise ValueError(f"attention core takes head width 64, got {HD // num_heads}")
-    if Sq > MAX_CORE_SEQ or Sk > MAX_CORE_SEQ:
-        raise ValueError(f"attention core takes Sq, Sk <= {MAX_CORE_SEQ}, got {Sq}, {Sk}")
+    if HD != num_heads * 64 or not core_admits(Sq, Sk, 64):
+        raise ValueError(
+            f"attention core takes head width 64 and Sq*Sk <= {SMALL_SCORE_TILE}, "
+            f"got D = {HD // num_heads}, Sq = {Sq}, Sk = {Sk}"
+        )
     out = torch.empty((B * Sq, HD), dtype=q.dtype, device=q.device)
     mask = None if colmask is None else colmask.to(torch.float32).contiguous()
     _native.check(
@@ -193,6 +191,8 @@ def _unfused(x_q, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
 
 def _unfused_site(x_q, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
                   num_heads, q_ln, kv_ln, residual, post_ln):
+    """The unfused mirror of K1 (``fused_attn.py:_unfused_site``): the
+    semantics oracle and the backward's recompute."""
     xq_in = layernorm(x_q, *q_ln) if q_ln else x_q
     xkv_in = layernorm(x_kv, *kv_ln) if kv_ln else x_kv
     out = _unfused(xq_in, xkv_in, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo, num_heads)
@@ -201,6 +201,63 @@ def _unfused_site(x_q, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
     if post_ln:
         out = layernorm(out, *post_ln)
     return out
+
+
+def _ln_args(*lns: LN):
+    """LN triples -> (scale, bias) tensors for ``Function.apply`` (None for
+    a disabled stage) and their eps values."""
+    tensors = [t for ln in lns for t in ((None, None) if ln is None else ln[:2])]
+    return tensors, tuple(None if ln is None else ln[2] for ln in lns)
+
+
+def _ln_triples(tensors, eps):
+    return [None if e is None else (tensors[2 * i], tensors[2 * i + 1], e)
+            for i, e in enumerate(eps)]
+
+
+def _recompute_grads(ctx, unfused, g):
+    """The reference's vjp policy: recompute `unfused` (a function of the
+    saved tensors, the key mask at index 2) under autograd and
+    differentiate it. Returns one gradient per saved tensor, None for the
+    mask and for every input that needs none."""
+    saved = ctx.saved_tensors
+    leaves = [
+        None if t is None or i == 2 else t.detach().requires_grad_(ctx.needs_input_grad[i])
+        for i, t in enumerate(saved)
+    ]
+    leaves[2] = None if saved[2] is None else saved[2].detach()
+    wanted = [t for t in leaves if t is not None and t.requires_grad]
+    with torch.enable_grad():
+        out = unfused(*leaves)
+        grads = iter(torch.autograd.grad(out, wanted, g, allow_unused=True))
+    return [next(grads) if t is not None and t.requires_grad else None for t in leaves]
+
+
+class _FusedDense(torch.autograd.Function):
+    """K1: the kernel (or its twin) forward; the backward recomputes
+    ``_unfused_site`` (``_fused_bwd`` / ``_fused_site_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, x_q, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
+                qls, qlb, kls, klb, pos, pob, num_heads, eps, residual):
+        ctx.save_for_backward(x_q, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
+                              qls, qlb, kls, klb, pos, pob)
+        ctx.site = (num_heads, eps, residual)
+        q_ln, kv_ln, post_ln = _ln_triples((qls, qlb, kls, klb, pos, pob), eps)
+        return _native.route(fused_dense_attention, x_q, _fused_dense_cuda, _fused_dense_plain,
+                             x_q, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
+                             num_heads, q_ln, kv_ln, residual, post_ln)
+
+    @staticmethod
+    def backward(ctx, g):
+        num_heads, eps, residual = ctx.site
+
+        def unfused(x_q, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo, *lns):
+            q_ln, kv_ln, post_ln = _ln_triples(lns, eps)
+            return _unfused_site(x_q, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
+                                 num_heads, q_ln, kv_ln, residual, post_ln)
+
+        return (*_recompute_grads(ctx, unfused, g), None, None, None)
 
 
 def fused_dense_attention(
@@ -220,17 +277,12 @@ def fused_dense_attention(
     site; residual adds the raw x_q to the projected output."""
     if (residual or post_ln is not None) and wo.shape[1] != x_q.shape[-1]:
         raise ValueError("residual / post-LN need Dout == Din of x_q")
-    args = (x_q, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo, num_heads,
-            q_ln, kv_ln, residual, post_ln)
-    if x_q.shape[1] * x_kv.shape[1] > SMALL_SCORE_TILE:
-        return _unfused_site(*args)
-    if x_q.is_cuda:
-        out = _fused_dense_cuda(*args)
-        fused_dense_attention.launches += 1
-        return out
-    if x_q.device.type != "cpu":
-        raise ValueError(f"fused_dense_attention: unsupported device {x_q.device}")
-    return _fused_dense_plain(*args)
+    if not core_admits(x_q.shape[1], x_kv.shape[1], wq.shape[1] // num_heads):
+        return _unfused_site(x_q, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
+                             num_heads, q_ln, kv_ln, residual, post_ln)
+    lns, eps = _ln_args(q_ln, kv_ln, post_ln)
+    return _FusedDense.apply(x_q, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
+                             *lns, num_heads, eps, residual)
 
 
 fused_dense_attention.launches = 0
@@ -254,7 +306,7 @@ def _static_q_plain(queries, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
     k = _proj_plain(xkv, wk, bk, cd)
     v = _proj_plain(xkv, wv, bv, cd)
     q = q2[None].expand(B, K, q2.shape[1])
-    attn = _attend_plain(q, k, v, _colmask(kv_mask, x_kv), num_heads, cd)
+    attn = attend_log2(q, k, v, _colmask(kv_mask, x_kv), num_heads)
     out = _proj_plain(attn, wo, bo, cd)
     if residual:
         out = queries.to(cd)[None] + out
@@ -281,6 +333,43 @@ def _static_q_cuda(queries, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
     return out.view(B, K, wo.shape[1])
 
 
+def _static_q_unfused_site(queries, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
+                           num_heads, kv_ln, residual):
+    """The unfused mirror of K2 (``_staticq_unfused_site``): the queries
+    broadcast over the batch through ``_unfused``."""
+    B = x_kv.shape[0]
+    q_tokens = queries[None].to(x_kv.dtype).expand(B, *queries.shape)
+    xkv_in = layernorm(x_kv, *kv_ln) if kv_ln else x_kv
+    out = _unfused(q_tokens, xkv_in, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo, num_heads)
+    return q_tokens + out if residual else out
+
+
+class _StaticQ(torch.autograd.Function):
+    """K2: the kernel (or its twin) forward; the backward recomputes
+    ``_static_q_unfused_site`` (``_staticq_bwd`` / ``_staticq_site_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, queries, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
+                kls, klb, num_heads, eps, residual):
+        ctx.save_for_backward(queries, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo, kls, klb)
+        ctx.site = (num_heads, eps, residual)
+        (kv_ln,) = _ln_triples((kls, klb), eps)
+        return _native.route(fused_static_q_attention, x_kv, _static_q_cuda, _static_q_plain,
+                             queries, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
+                             num_heads, kv_ln, residual)
+
+    @staticmethod
+    def backward(ctx, g):
+        num_heads, eps, residual = ctx.site
+
+        def unfused(queries, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo, *lns):
+            (kv_ln,) = _ln_triples(lns, eps)
+            return _static_q_unfused_site(queries, x_kv, kv_mask, wq, bq, wk, bk, wv, bv,
+                                          wo, bo, num_heads, kv_ln, residual)
+
+        return (*_recompute_grads(ctx, unfused, g), None, None, None)
+
+
 def fused_static_q_attention(
     queries: torch.Tensor,
     x_kv: torch.Tensor,
@@ -296,21 +385,12 @@ def fused_static_q_attention(
     raw query table to the projected output."""
     if residual and wo.shape[1] != queries.shape[1]:
         raise ValueError("residual needs Dout == Din of the queries")
-    args = (queries, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo, num_heads,
-            kv_ln, residual)
-    if queries.shape[0] * x_kv.shape[1] > SMALL_SCORE_TILE:
-        B = x_kv.shape[0]
-        q_tokens = queries[None].to(x_kv.dtype).expand(B, *queries.shape)
-        xkv_in = layernorm(x_kv, *kv_ln) if kv_ln else x_kv
-        out = _unfused(q_tokens, xkv_in, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo, num_heads)
-        return q_tokens + out if residual else out
-    if x_kv.is_cuda:
-        out = _static_q_cuda(*args)
-        fused_static_q_attention.launches += 1
-        return out
-    if x_kv.device.type != "cpu":
-        raise ValueError(f"fused_static_q_attention: unsupported device {x_kv.device}")
-    return _static_q_plain(*args)
+    if not core_admits(queries.shape[0], x_kv.shape[1], wq.shape[1] // num_heads):
+        return _static_q_unfused_site(queries, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
+                                      num_heads, kv_ln, residual)
+    lns, eps = _ln_args(kv_ln)
+    return _StaticQ.apply(queries, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
+                          *lns, num_heads, eps, residual)
 
 
 fused_static_q_attention.launches = 0

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``btia_tpu_torch``
-loads neither JAX nor any module of ``btia_tpu``, and its entry points do not
-fall back to the CPU when no GPU is present."""
+(the model, kernels, data, training and checkpoint modules) loads neither JAX
+nor any module of ``btia_tpu``, and its entry points, serving and training
+alike, do not fall back to the CPU when no GPU is present."""
 
 import subprocess
 import sys
@@ -13,6 +14,7 @@ from btia_tpu_torch.configs import get_config
 from btia_tpu_torch.core.device import resolve_device
 from btia_tpu_torch.infer.predict import Predictor
 from btia_tpu_torch.models.model import build_model
+from btia_tpu_torch.train.trainer import Trainer
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -36,7 +38,7 @@ def test_no_jax_and_no_reference_package_imported():
     )
     assert res.returncode == 0, res.stderr
     lines = dict(line.split(" ", 1) for line in res.stdout.strip().splitlines())
-    assert int(lines["LOADED"]) >= 20
+    assert int(lines["LOADED"]) >= 30
     assert lines["BAD"] == "[]"
 
 
@@ -51,3 +53,31 @@ def test_entry_points_raise_without_a_gpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+_TRAIN_MODULES = (
+    "btia_tpu_torch.train.steps", "btia_tpu_torch.train.trainer", "btia_tpu_torch.train.checkpoint",
+    "btia_tpu_torch.train.metrics", "btia_tpu_torch.utils.logging", "btia_tpu_torch.data.builder",
+    "btia_tpu_torch.data.datasets", "btia_tpu_torch.data.pipeline", "btia_tpu_torch.data.image",
+    "btia_tpu_torch.data.dicom", "btia_tpu_torch.data.synthetic", "btia_tpu_torch.data.native",
+)
+
+
+def test_training_modules_import_alone():
+    """Each training and data module, imported by itself, pulls in no JAX."""
+    probe = (
+        "import importlib, sys\n"
+        f"for m in {_TRAIN_MODULES!r}: importlib.import_module(m)\n"
+        "print(sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'flax', 'btia_tpu')))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", probe], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
+
+
+def test_training_entry_points_raise_without_a_gpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU; the check is for hosts without one")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(get_config("vqa_med_full"), tmp_path / "run")
+    assert not (tmp_path / "run").exists()
