@@ -44,13 +44,13 @@ class BertLayer(nn.Module):
         self.ln_mlp = LayerNorm(s.dim, policy, s.ln_eps, device)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor],
-                drop: Optional[Dropout] = None) -> torch.Tensor:
+                drop: Optional[Dropout] = None, train: bool = False) -> torch.Tensor:
         if drop is None:
             x = self.attn(x, kv_mask=mask, residual=True, post_ln=self.ln_attn.triple())
         else:
             attn = drop(self.attn(x, kv_mask=mask))
             x = layernorm(x + attn, *self.ln_attn.triple()).to(x.dtype)
-        return self.ln_mlp(x + maybe_drop(self.mlp(x), drop))
+        return self.ln_mlp(x + maybe_drop(self.mlp(x, train=train), drop))
 
 
 class BertQuestionEncoder(nn.Module):
@@ -70,7 +70,7 @@ class BertQuestionEncoder(nn.Module):
 
     def forward(
         self, token_ids: torch.Tensor, mask: Optional[torch.Tensor] = None,
-        drop: Optional[Dropout] = None,
+        drop: Optional[Dropout] = None, train: bool = False,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         if mask is None:
             mask = token_ids > 0
@@ -84,5 +84,5 @@ class BertQuestionEncoder(nn.Module):
         )
         x = maybe_drop(self.ln_embed(x), drop)
         for i in range(self.spec.depth):
-            x = getattr(self, f"layer{i}")(x, mask, drop)
+            x = getattr(self, f"layer{i}")(x, mask, drop, train)
         return x, mask

@@ -51,8 +51,8 @@ class BTIALayer(nn.Module):
             o.kernel, o.bias, self.num_heads, q_ln=q_ln, kv_ln=kv_ln, residual=residual,
         )
 
-    def forward(self, img, txt, txt_mask,
-                drop: Optional[Dropout] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, img, txt, txt_mask, drop: Optional[Dropout] = None,
+                train: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
         cd = self.policy.compute_dtype
         img_c, txt_c = img.to(cd), txt.to(cd)
         ln_i, ln_t = self.ln_img.triple(), self.ln_txt.triple()
@@ -63,8 +63,8 @@ class BTIALayer(nn.Module):
             img, txt = out_i, out_t
         else:
             img, txt = img + drop(out_i), txt + drop(out_t)
-        img = img + maybe_drop(self.mlp_img(self.ln_img2(img)), drop)
-        txt = txt + maybe_drop(self.mlp_txt(self.ln_txt2(txt)), drop)
+        img = img + maybe_drop(self.mlp_img(self.ln_img2(img), train=train), drop)
+        txt = txt + maybe_drop(self.mlp_txt(self.ln_txt2(txt), train=train), drop)
         return img, txt
 
 
@@ -76,7 +76,8 @@ class BTIA(nn.Module):
         for i in range(num_layers):
             self.add_module(f"layer{i}", BTIALayer(dim, num_heads, mlp_ratio, policy, device))
 
-    def forward(self, img, txt, txt_mask: Optional[torch.Tensor], drop: Optional[Dropout] = None):
+    def forward(self, img, txt, txt_mask: Optional[torch.Tensor], drop: Optional[Dropout] = None,
+                train: bool = False):
         for i in range(self.num_layers):
-            img, txt = getattr(self, f"layer{i}")(img, txt, txt_mask, drop)
+            img, txt = getattr(self, f"layer{i}")(img, txt, txt_mask, drop, train)
         return img, txt

@@ -44,7 +44,7 @@ class ADHead(nn.Module):
         self.answer_bias = _param(vocab_size, device=device)
 
     def forward(self, tokens: torch.Tensor, token_mask: Optional[torch.Tensor],
-                drop: Optional[Dropout] = None) -> torch.Tensor:
+                drop: Optional[Dropout] = None, train: bool = False) -> torch.Tensor:
         cd, acc = self.policy.compute_dtype, self.policy.accum_dtype
         feats = fused_static_q_attention(
             self.answer_queries.to(cd), tokens.to(cd), token_mask,
@@ -52,7 +52,7 @@ class ADHead(nn.Module):
             self.v_proj.kernel, self.v_proj.bias, self.o_proj.kernel, self.o_proj.bias,
             self.num_heads, kv_ln=self.ln_kv.triple(), residual=True,
         )
-        feats = feats + self.mlp(self.ln_mlp(feats), drop)
+        feats = feats + self.mlp(self.ln_mlp(feats), drop, train)
         feats = self.ln_out(feats)
         if self.num_queries == 0:
             logits = torch.einsum("bad,ad->ba", feats.to(acc), self.answer_weights.to(acc))

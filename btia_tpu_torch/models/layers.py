@@ -17,6 +17,7 @@ from torch import nn
 from btia_tpu_torch.core.dtypes import DTypePolicy
 from btia_tpu_torch.ops.fused_attn import fused_dense_attention
 from btia_tpu_torch.ops.norms import layernorm
+from btia_tpu_torch.ops.quant import apply_act, int8_matmul_fused, quantize_weight
 
 
 class Dropout:
@@ -44,8 +45,11 @@ def _param(*shape, device) -> nn.Parameter:
 
 
 class Dense(nn.Module):
-    """nn.Dense / QuantizableDense fp path: rows flattened to 2-D, operands
-    in the compute dtype, bias added in the compute dtype."""
+    """nn.Dense / QuantizableDense: rows flattened to 2-D. The fp path runs
+    the operands and the bias add in the compute dtype. With ``int8`` the
+    product goes through K8 (``int8_matmul_fused``) with ``act`` (None or
+    ``"gelu_tanh"``) in its epilogue; the fp32 kernel is quantized on every
+    call, as the reference does (``layers.py:172-177``)."""
 
     def __init__(self, in_dim: int, features: int, policy: DTypePolicy, device=None):
         super().__init__()
@@ -53,10 +57,14 @@ class Dense(nn.Module):
         self.kernel = _param(in_dim, features, device=device)
         self.bias = _param(features, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, int8: bool = False, act: Optional[str] = None) -> torch.Tensor:
         cd = self.policy.compute_dtype
         x2 = x.reshape(-1, x.shape[-1]).to(cd)
-        y = torch.matmul(x2, self.kernel.to(cd)) + self.bias.to(cd)
+        if int8:
+            w_i8, w_scale = quantize_weight(self.kernel)
+            y = int8_matmul_fused(x2, w_i8, w_scale, self.bias.float(), act=act, out_dtype=cd)
+        else:
+            y = apply_act(torch.matmul(x2, self.kernel.to(cd)) + self.bias.to(cd), act)
         return y.reshape(*x.shape[:-1], self.kernel.shape[1])
 
 
@@ -128,7 +136,12 @@ class Mlp(nn.Module):
     policy, the parity rail, and the tanh form under bf16
     (``layers.py:221-225``). ``inner_dropout`` is the flax module's own
     ``dropout`` field: set for the ViT blocks and the AD head, off in BERT
-    and BTIA, whose dropout sits outside the Mlp (``layers.py:239-240``)."""
+    and BTIA, whose dropout sits outside the Mlp (``layers.py:239-240``).
+
+    Under ``policy.int8`` a deterministic forward (``train`` False) runs both
+    products through K8 with the tanh-GELU in fc1's epilogue
+    (``layers.py:228-233``). The branch keys on ``train``, not on ``drop``:
+    a train forward at dropout 0 has no Dropout and stays on the fp path."""
 
     def __init__(self, dim: int, hidden_dim: int, policy: DTypePolicy, device=None,
                  inner_dropout: bool = False):
@@ -138,7 +151,10 @@ class Mlp(nn.Module):
         self.fc1 = Dense(dim, hidden_dim, policy, device)
         self.fc2 = Dense(hidden_dim, dim, policy, device)
 
-    def forward(self, x: torch.Tensor, drop: Optional[Dropout] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, drop: Optional[Dropout] = None,
+                train: bool = False) -> torch.Tensor:
+        if self.policy.int8 and not train:
+            return self.fc2(self.fc1(x, int8=True, act="gelu_tanh"), int8=True)
         exact = self.policy.compute_dtype == torch.float32
         h = F.gelu(self.fc1(x), approximate="none" if exact else "tanh")
         return self.fc2(maybe_drop(h, drop if self.inner_dropout else None))

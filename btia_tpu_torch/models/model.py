@@ -10,7 +10,10 @@ evaluates through ``train.trainer.Trainer`` (``forward`` with ``train`` on
 and off); ``chip_smoke.py`` drives both. ``pathvqa_vit`` takes the same
 kernels at its own shapes (its 197-token BTIA sites, like
 ``vqa_med_full``'s, need the tiled attention core) but is not driven on the
-card yet. The fp32 policy runs on the CPU only.
+card yet. The fp32 policy runs on the CPU only. With ``int8_ffn`` under the
+bf16 policy, every Mlp of a deterministic forward runs its two products
+through K8 (``ops/quant.py``); a train forward stays on the fp path, as in
+the reference (``model.py:36-43``).
 
 ``encode_image`` / ``answer_questions`` split the forward so that the image
 encoder runs once per image and only the question tower, fusion and head fan
@@ -21,6 +24,7 @@ reference's ``train`` flag) and, when the config's dropout is above 0, the
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Optional, Tuple
 
@@ -60,10 +64,6 @@ def _check_supported(cfg: ModelConfig) -> None:
             "model.remat (rematerialised blocks in the backward pass) is not "
             "ported yet (ROADMAP Queue 1, 'Training: remat')"
         )
-    if cfg.int8_ffn:
-        raise NotImplementedError(
-            "int8_ffn needs K8 (ops/quant.py), not ported yet (ROADMAP Queue 2)"
-        )
 
 
 class BTIAADNet(nn.Module):
@@ -72,6 +72,8 @@ class BTIAADNet(nn.Module):
         _check_supported(cfg)
         self.cfg = cfg
         policy = default_policy(cfg.mixed_precision)
+        if cfg.int8_ffn and cfg.mixed_precision:  # serving-only int8 FFNs (K8)
+            policy = dataclasses.replace(policy, int8=True)
         self.policy: DTypePolicy = policy
         self.image_encoder = ViT(VIT_SPECS[cfg.image_encoder], policy, device)
         self.question_encoder = BertQuestionEncoder(
@@ -126,24 +128,24 @@ class BTIAADNet(nn.Module):
         """images: uint8/float (B, H, W, 3), any size -> (B, N_img, hidden)."""
         s = self.cfg.image_size
         x = preprocess_images(images, (s, s), out_dtype=self.policy.compute_dtype)
-        feats = self.image_encoder(x, self._dropout(train, generator))
+        feats = self.image_encoder(x, self._dropout(train, generator), train)
         return self.img_ln(self.img_proj(self._pool_image_tokens(feats)))
 
     def encode_question(
         self, question_ids: torch.Tensor, mask: Optional[torch.Tensor] = None,
         train: bool = False, generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        feats, mask = self.question_encoder(question_ids, mask, self._dropout(train, generator))
+        feats, mask = self.question_encoder(question_ids, mask, self._dropout(train, generator), train)
         return self.txt_ln(self.txt_proj(feats)), mask
 
     def fuse_and_answer(self, img_tokens, txt_tokens, txt_mask, train: bool = False,
                         generator: Optional[torch.Generator] = None) -> torch.Tensor:
         drop = self._dropout(train, generator)
-        img_f, txt_f = self.btia(img_tokens, txt_tokens, txt_mask, drop)
+        img_f, txt_f = self.btia(img_tokens, txt_tokens, txt_mask, drop, train)
         tokens = torch.cat([img_f, txt_f], dim=1)
         img_valid = torch.ones(img_f.shape[:2], dtype=torch.bool, device=img_f.device)
         token_mask = torch.cat([img_valid, txt_mask], dim=1)
-        return self.head(tokens, token_mask, drop)
+        return self.head(tokens, token_mask, drop, train)
 
     @staticmethod
     def _replicate(img_tokens: torch.Tensor, Q: int) -> torch.Tensor:

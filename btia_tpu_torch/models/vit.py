@@ -52,9 +52,10 @@ class ViTBlock(nn.Module):
         self.ln2 = LayerNorm(dim, policy, device=device)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), policy, device, inner_dropout=True)
 
-    def forward(self, x: torch.Tensor, drop: Optional[Dropout] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, drop: Optional[Dropout] = None,
+                train: bool = False) -> torch.Tensor:
         x = x + self.attn(self.ln1(x))
-        return x + self.mlp(self.ln2(x), drop)
+        return x + self.mlp(self.ln2(x), drop, train)
 
 
 class ViT(nn.Module):
@@ -72,7 +73,8 @@ class ViT(nn.Module):
             self.add_module(f"block{i}", ViTBlock(s.dim, s.num_heads, s.mlp_ratio, policy, device))
         self.ln_final = LayerNorm(s.dim, policy, device=device)
 
-    def forward(self, images: torch.Tensor, drop: Optional[Dropout] = None) -> torch.Tensor:
+    def forward(self, images: torch.Tensor, drop: Optional[Dropout] = None,
+                train: bool = False) -> torch.Tensor:
         s = self.spec
         B, H, W, C = images.shape
         if H != s.image_size or W != s.image_size:
@@ -84,5 +86,5 @@ class ViT(nn.Module):
         cls = self.cls_token.to(x.dtype).expand(B, 1, s.dim)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(x.dtype)
         for i in range(s.depth):
-            x = getattr(self, f"block{i}")(x, drop)
+            x = getattr(self, f"block{i}")(x, drop, train)
         return self.ln_final(x)

@@ -38,6 +38,7 @@ _SIGNATURES = {
     "btia_attn_core": (_P, _LL, _I, _P, _P, _LL, _I, _P, _P, _I, _I, _I, _I, _P),
     "btia_flash_bshd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     "btia_fanout": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    "btia_int8_mm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 

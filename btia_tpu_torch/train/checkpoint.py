@@ -124,3 +124,6 @@ class Checkpointer:
 
     def save_config(self, cfg: Config) -> None:
         (self.directory / "config.json").write_text(cfg.to_json())
+
+    def load_config(self) -> Config:
+        return Config.from_json((self.directory / "config.json").read_text())

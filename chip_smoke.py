@@ -13,31 +13,46 @@ Phases, each fatal on failure:
    of the ``streaming_vitl`` serving step (16 images x 128 questions); K1 at
    the ``vqa_med_full`` training sites (BERT 64 x 32, BTIA 197 x 32 and
    32 x 197) and K4 at its three training shapes; then the backward pass of
-   each autograd Function (K1-K4) against autograd through its twin;
+   each autograd Function (K1-K4) against autograd through its twin; then
+   K8 (the int8 FFN product) at the eight FFN shapes of the int8 serve step,
+   each element within one bf16 step, timed beside ``torch._int_mm`` on the
+   pre-quantized operands and a bf16 ``torch.matmul``;
 3. serve a few requests through ``Predictor.predict_answers`` on the
    full-width ``streaming_vitl`` with seeded random weights, check the
    logits are finite and agree with the same model run on the CPU;
 4. run the bench-shaped serve step (encode_image -> answer_questions ->
    top-k) with every launch counter set to 0 just before one step and read
-   just after: K1 = 20, K2 = 1, K3 = 24, K4 = 0 launches; then time a few
-   steps;
+   just after: K1 = 20, K2 = 1, K3 = 24, K4 = 0, K8 = 0 launches; then time
+   a few steps;
+4b. the same step on ``streaming_vitl`` with ``model.int8_ffn`` (same
+   seeded weights): K1 = 20, K2 = 1, K3 = 24, K4 = 0, K8 = 90 launches,
+   timed steps and peak memory, logits against the same model on the CPU,
+   and top-1 agreement with the bf16 model (reported only);
+4c. ``StreamingServer`` over the int8 model (16 x 128, top-5, two decode
+   threads) on 40 requests of 1-128 template questions with ingest-size
+   arrays, off-size arrays, JPEG bytes, DICOM bytes and one corrupt DICOM:
+   plain, ``dedup_questions``, ``pack_pairs`` (pair budget 1024) and
+   ``max_wait_ms`` on a sparse trickle. Each mode answers every good
+   request exactly once, records exactly the corrupt one and agrees with
+   ``Predictor`` on a sample; pairs/s and ``latency_summary()`` per mode;
 5. train full-width ``vqa_med_full`` at batch 64 through ``Trainer`` on a
    synthetic VQA-Med corpus (64 images, 128 training pairs): one epoch with
    its val evaluation and checkpoint, ten steps on one repeated batch (the
    loss must be finite and fall), one of them with every counter set to 0
-   just before and read just after (K1 = 20, K2 = 0, K3 = 13, K4 = 20: K4
-   runs in the backward of every K1 site), a timed run of steps, the test
-   evaluation at batch 128 (K1 = 20, K3 = 13, K4 = 0), a checkpoint restore
-   round trip, and one step's loss and gradients on the card against the
-   same step on the CPU (full depth, dropout 0).
+   just before and read just after (K1 = 20, K2 = 0, K3 = 13, K4 = 20,
+   K8 = 0: K4 runs in the backward of every K1 site), a timed run of steps,
+   the test evaluation at batch 128 (K1 = 20, K3 = 13, K4 = 0), a checkpoint
+   restore round trip, and one step's loss and gradients on the card
+   against the same step on the CPU (full depth, dropout 0).
 
-With ``--profile`` it also runs one serve step and one train step under
-``torch.profiler`` and prints the device time by kernel and the device's
-idle share.
+With ``--profile`` it also runs one serve step, one int8 serve step and one
+train step under ``torch.profiler`` and prints the device time by kernel and
+the device's idle share.
 
-It prints a ``kernels`` JSON line (``launches`` is a kernel's count summed
-over the two main-path runs, the serve step and the train step, and
-``launches_by_path`` splits it), the card's name and power limit, and as its
+It prints a ``summary`` line, a ``kernels`` JSON line (``launches`` is a
+kernel's count summed over the three main-path runs, the serve step, the
+int8 serve step and the train step, and ``launches_by_path`` splits it), the
+card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``. It exits non-zero, and prints no
 result, when no CUDA device is present or the package is missing.
 """
@@ -54,8 +69,9 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 
-# H100 SXM dense peaks (NVIDIA data sheet): bf16 tensor cores and HBM3.
+# H100 SXM dense peaks (NVIDIA data sheet): bf16 and int8 tensor cores, HBM3.
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_BYTES = 3.35e12
 
 B_IMG, N_Q, SEQ, N_IMG_TOK = 16, 128, 32, 50  # serving-step shape
@@ -65,7 +81,22 @@ REPEATS, TIMED_TRAIN_STEPS = 10, 5
 # Launches (K1, K2, K3, K4) of one vqa_med_full step. Train: 12 BERT + 8 BTIA
 # K1 sites, 12 ViT blocks + the AD head's 2048 x 229 attention on K3 (score
 # tiles above 32768), and K4 in the backward of each K1 site (batch 64).
-TRAIN_COUNTS, EVAL_COUNTS = [20, 0, 13, 20], [20, 0, 13, 0]
+TRAIN_COUNTS, EVAL_COUNTS = [20, 0, 13, 20, 0], [20, 0, 13, 0, 0]
+# K8 (int8_matmul_fused) at the FFN products of one int8 serve step of
+# streaming_vitl, 16 images x 128 questions: (site, M, K, N, activation,
+# launches per step). BERT's 12 Mlps and BTIA's 4 mlp_txt share the
+# 2048 x 32-token shape; 90 launches in all.
+INT8_SITES = (
+    ("vit_fc1", B_IMG * 577, 1024, 4096, "gelu_tanh", 24),
+    ("vit_fc2", B_IMG * 577, 4096, 1024, None, 24),
+    ("txt_fc1", B_IMG * N_Q * SEQ, 768, 3072, "gelu_tanh", 16),
+    ("txt_fc2", B_IMG * N_Q * SEQ, 3072, 768, None, 16),
+    ("img_fc1", B_IMG * N_Q * N_IMG_TOK, 768, 3072, "gelu_tanh", 4),
+    ("img_fc2", B_IMG * N_Q * N_IMG_TOK, 3072, 768, None, 4),
+    ("head_fc1", B_IMG * N_Q * 64, 768, 1536, "gelu_tanh", 1),
+    ("head_fc2", B_IMG * N_Q * 64, 1536, 768, None, 1),
+)
+SERVE_COUNTS, INT8_COUNTS = [20, 1, 24, 0, 0], [20, 1, 24, 0, 90]
 
 
 def log(*a):
@@ -87,8 +118,8 @@ def cuda_time_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -362,8 +393,72 @@ def check_training_kernels(torch, dev, randn, weights, ln, question_mask, run_ca
     return rows
 
 
+def check_int8_kernel(torch, dev):
+    """Phase 2, int8: K8 against its plain twin at each FFN shape of the
+    int8 serve step, in bf16 on the card. The integer product is exact on
+    both sides and the epilogue is the same f32 arithmetic, so each element
+    must agree to one bf16 step at its magnitude; a floor of 1e-6 of the
+    largest magnitude covers the tanh-GELU's cancelling 1 + tanh(z) (z < -4,
+    outputs below 3e-5), where the two f32 tanh differ in the last place.
+    Times: the kernel (its wrapper: the weight's (N, K) copy included), the
+    twin, ``torch._int_mm`` on the pre-quantized operands (the int8 product
+    only, the library yardstick) and a bf16 ``torch.matmul``."""
+    from btia_tpu_torch.ops import quant as Q
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    rows = {}
+    launches_before = Q.int8_matmul_fused.launches
+    for name, M, K, N, act, per_step in INT8_SITES:
+        x = (torch.randn(M, K, generator=g, device=dev) * 2).to(torch.bfloat16)
+        w = torch.randn(K, N, generator=g, device=dev) * K**-0.5
+        b = torch.randn(N, generator=g, device=dev) * 0.02
+        w_i8, ws = Q.quantize_weight(w)
+        kernel = lambda: Q.int8_matmul_fused(x, w_i8, ws, b, act=act)
+        plain = lambda: Q._int8_mm_plain(x, w_i8, ws, b, act, torch.bfloat16)
+        out = kernel()
+        torch.cuda.synchronize()
+        ref = plain()
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(out.float()).all()):
+            raise AssertionError(f"K8 {name}: kernel output is not finite")
+        diff = (out.float() - ref.float()).abs()
+        mag = ref.float().abs()
+        step = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - 7)
+        bad = int((diff > step + 1e-6 * mag.max()).sum())
+        x_i8 = Q.quantize_activation(x)[0]
+        w_col = w_i8.t().contiguous().t()  # (K, N), column-major
+        try:
+            torch._int_mm(x_i8, w_col)
+            library = lambda: torch._int_mm(x_i8, w_col)
+        except RuntimeError as e:
+            log(f"  K8 {name}: torch._int_mm refused the shape: {e}")
+            library = None
+        w_bf = w.to(torch.bfloat16)
+        row = {
+            "shape": [M, K, N], "act": act, "launches_per_step": per_step,
+            "max_abs_err": diff.max().item(), "elements_off": bad,
+            "ms": cuda_time_ms(kernel, 10), "plain_ms": cuda_time_ms(plain, 3),
+            "library_ms": None if library is None else cuda_time_ms(library, 10),
+            "library": "torch._int_mm (int8 product only)",
+            "bf16_matmul_ms": cuda_time_ms(lambda: x @ w_bf, 10),
+        }
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            2 * M * K * N, nbytes(x, w_i8, ws, b) + M * N * 2, PEAK_INT8_OPS)
+        log(f"  K8 {name} ({M} x {K} -> {N}, {act}): err {row['max_abs_err']:.4g}, {bad} elements "
+            f"beyond one bf16 step; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"_int_mm {row['library_ms']}, bf16 matmul {row['bf16_matmul_ms']:.4f} ms, "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        if bad:
+            raise AssertionError(f"K8 {name}: {bad} elements disagree with the plain twin")
+        rows[name] = row
+        del x, w, out, ref, diff, mag, step, x_i8, w_col, w_bf
+    Q.int8_matmul_fused.launches = launches_before  # not main-path launches
+    torch.cuda.empty_cache()
+    return rows
+
+
 _PORTED = ("gemm_bias_kernel", "attn_core_kernel", "attn_core_tiled_kernel", "ln_rows_kernel",
-           "flash_bshd_kernel", "fanout_kernel")
+           "flash_bshd_kernel", "fanout_kernel", "int8_mm_kernel")
 
 
 def profile_step(torch, step, smi, what="serve_step"):
@@ -399,8 +494,10 @@ def profile_step(torch, step, smi, what="serve_step"):
             groups["other"] += ms
     busy = sum(groups.values())
     top = sorted(kernels, key=lambda r: -r[2])[:15]
-    ported = {p: [sum(c for n, c, _ in kernels if n.startswith(p + "(")),
-                  sum(ms for n, _, ms in kernels if n.startswith(p + "("))] for p in _PORTED}
+    # A template kernel's name reads "void int8_mm_kernel<...>(...)".
+    own = lambda p, n: n.removeprefix("void ").startswith((p + "(", p + "<"))
+    ported = {p: [sum(c for n, c, _ in kernels if own(p, n)),
+                  sum(ms for n, _, ms in kernels if own(p, n))] for p in _PORTED}
     log(json.dumps({"profile": {
         "step": what, "step_wall_ms": wall_ms, "device_busy_ms": busy,
         "idle_share": max(0.0, 1.0 - busy / wall_ms), "by_group_ms": groups,
@@ -467,7 +564,7 @@ def train_phase(torch, dev, smi, counters):
         if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
             raise AssertionError(f"the loss is not finite or does not fall: {losses}")
         log(f"  one train step launched K1 {counts[0]}, K2 {counts[1]}, K3 {counts[2]}, "
-            f"K4 {counts[3]} times")
+            f"K4 {counts[3]}, K8 {counts[4]} times")
         if counts != TRAIN_COUNTS:
             raise AssertionError(f"train-step launch counts {counts} != {TRAIN_COUNTS}")
         out["train_counts"] = counts
@@ -505,7 +602,7 @@ def train_phase(torch, dev, smi, counters):
             "config": "vqa_med_full", "batch": B_TRAIN, "steps": TIMED_TRAIN_STEPS,
             "ms_per_step": step_ms, "examples_per_s": B_TRAIN / (step_ms / 1e3),
             "peak_mem_gib": peak, "losses_repeated_batch": losses, "fit": row, "eval": metrics,
-            "launches": dict(zip(("K1", "K2", "K3", "K4"), counts)), "card": smi,
+            "launches": dict(zip(("K1", "K2", "K3", "K4", "K8"), counts)), "card": smi,
         }
         del trainer, state, snapshot, batch
     torch.cuda.empty_cache()
@@ -571,7 +668,7 @@ def train_step_vs_cpu(torch, dev, counters):
         "median_rel_l2": float(np.median(list(rel.values()))), "tensors_held": len(big),
         "tensors": len(names), "worst_rel_l2": rel[worst], "worst_param": worst,
         "worst_rel_l2_small": max(rel[n] for n in names if n not in big),
-        "cpu_seconds": cpu_s, "launches": dict(zip(("K1", "K2", "K3", "K4"), counts)),
+        "cpu_seconds": cpu_s, "launches": dict(zip(("K1", "K2", "K3", "K4", "K8"), counts)),
     }
     log(f"  {json.dumps(res)}")
     # bf16 on both sides, rounded at other places by the kernels and the
@@ -585,6 +682,203 @@ def train_step_vs_cpu(torch, dev, counters):
     if counts != TRAIN_COUNTS:
         raise AssertionError(f"card-vs-CPU step launch counts {counts} != {TRAIN_COUNTS}")
     return res
+
+
+def serve_step_fn(torch, dev, model, host_imgs, host_qids, limit):
+    """The bench-shaped serve step on `model`: batch i of the two host
+    batches, encode_image -> answer_questions -> top-5, fetched to the host."""
+    from btia_tpu_torch.ops.answers import topk_real
+
+    @torch.inference_mode()
+    def step(i):
+        imgs = torch.from_numpy(host_imgs[i % 2]).to(dev)
+        qids = torch.from_numpy(host_qids[i % 2]).to(dev)
+        vals, idx = topk_real(model.answer_questions(model.encode_image(imgs), qids), 5, limit)
+        return vals.cpu().numpy(), idx.cpu().numpy()
+
+    return step
+
+
+def int8_serve_phase(torch, dev, smi, bf16_model, host_imgs, host_qids, counters):
+    """Phase 4b: full-width streaming_vitl with int8_ffn, the same seeded
+    weights as the bf16 model: one 16 x 128 step with every counter set to
+    0 just before and read just after (K1 20, K2 1, K3 24, K4 0, K8 90),
+    timed steps, logits against the same model on the CPU, and top-1
+    agreement with the bf16 model (reported, not held)."""
+    import numpy as np
+
+    from btia_tpu_torch.configs import get_config
+    from btia_tpu_torch.models.model import build_model
+    from btia_tpu_torch.ops.answers import argmax_real
+
+    cfg = get_config("streaming_vitl", **{"model.int8_ffn": True})
+    model = build_model(cfg.model, device=dev, seed=0)
+    if not model.policy.int8:
+        raise AssertionError("int8_ffn did not turn the int8 policy on")
+    limit = cfg.model.answer_vocab_size
+    step = serve_step_fn(torch, dev, model, host_imgs, host_qids, limit)
+    torch.cuda.synchronize()
+    _zero(counters)
+    vals, _ = step(0)
+    torch.cuda.synchronize()
+    counts = [f.launches for f in counters]
+    log(f"phase 4b: one int8 serve step launched K1 {counts[0]}, K2 {counts[1]}, K3 {counts[2]}, "
+        f"K4 {counts[3]}, K8 {counts[4]} times")
+    if counts != INT8_COUNTS:
+        raise AssertionError(f"int8 serve-step launch counts {counts} != {INT8_COUNTS}")
+    if vals.shape != (B_IMG, N_Q, 5) or not np.isfinite(vals).all():
+        raise AssertionError("int8 serve step: bad top-k")
+    step(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for i in range(TIMED_STEPS):
+        step(i)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / TIMED_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if "--profile" in sys.argv[1:]:
+        profile_step(torch, lambda: step(0), smi, "int8_serve_step")
+
+    with torch.inference_mode():
+        imgs, qids = torch.from_numpy(host_imgs[0]).to(dev), torch.from_numpy(host_qids[0]).to(dev)
+        top8 = argmax_real(model.answer_questions(model.encode_image(imgs), qids), limit)
+        top16 = argmax_real(bf16_model.answer_questions(bf16_model.encode_image(imgs), qids), limit)
+        agree = (top8 == top16).float().mean().item()
+        # The same int8 model on the CPU (plain twins) as the reference.
+        ref = copy.deepcopy(model).to("cpu")
+        img1, ids = imgs[:1].cpu(), qids[:1, :2].cpu()
+        out_gpu = model.answer_questions(model.encode_image(img1.to(dev)), ids.to(dev)).cpu()
+        out_cpu = ref.answer_questions(ref.encode_image(img1), ids)
+        del ref
+    err, scale = (out_gpu - out_cpu).abs().max().item(), out_cpu.abs().max().item()
+    res = {
+        "config": "streaming_vitl + model.int8_ffn", "images": B_IMG, "questions_per_image": N_Q,
+        "steps": TIMED_STEPS, "ms_per_step": step_ms, "pairs_per_s": B_IMG * N_Q / (step_ms / 1e3),
+        "peak_mem_gib": peak, "launches": dict(zip(("K1", "K2", "K3", "K4", "K8"), counts)),
+        "top1_agreement_with_bf16": agree, "card_vs_cpu_max_abs_err": err,
+        "card_vs_cpu_max_logit": scale, "card": smi,
+    }
+    log(json.dumps({"int8_serve_step": res}))
+    # As phase 3: bf16 roundings differ between the kernels and the twins
+    # in every layer, and a rounding can move an int8 quantization step.
+    if not err <= 0.1 * scale:
+        raise AssertionError(f"int8: card and CPU logits disagree: {err} > {0.1 * scale}")
+    return model, cfg, counts, res
+
+
+# Template questions for the streaming phase: radiology-style VQA stems
+# over organs, findings and sides; requests draw from them with repeats.
+_STEMS = ("is there a {f} in the {o}", "is the {o} normal", "what abnormality is seen in the {o}",
+          "which side is the {f} on", "does the {o} show {f}", "is the {f} in the {s} {o}")
+_ORGANS = ("lung", "liver", "kidney", "brain", "heart", "spleen")
+_FINDINGS = ("mass", "fracture", "effusion", "lesion", "nodule", "cyst")
+
+
+def streaming_phase(torch, dev, smi, model, cfg):
+    """Phase 4c: StreamingServer over the int8 model, B 16, Q 128, top-5,
+    two decode threads, in four modes: plain, dedup_questions, pack_pairs
+    with pair_budget B*Q/2, and max_wait_ms on a sparse trickle. Each mode
+    must answer every good request exactly once, record exactly the corrupt
+    one, and agree with Predictor on a sample of requests."""
+    import io
+    import itertools
+
+    import numpy as np
+    from PIL import Image
+
+    from btia_tpu_torch.data.dicom import write_dicom
+    from btia_tpu_torch.data.vocab import AnswerVocab
+    from btia_tpu_torch.data.wordpiece import WordPieceTokenizer
+    from btia_tpu_torch.infer.predict import Predictor
+    from btia_tpu_torch.infer.streaming import StreamingServer
+    from btia_tpu_torch.ops.answers import argmax_real, real_limit
+
+    corpus = sorted({t.format(o=o, f=f, s=sd) for t, o, f, sd in itertools.product(
+        _STEMS, _ORGANS, _FINDINGS, ("left", "right"))})
+    pred = Predictor(model, None, WordPieceTokenizer.toy_vocab(corpus),
+                     AnswerVocab([f"answer {i}" for i in range(300)]), cfg, device=dev)
+    rng = np.random.RandomState(5)
+    S = pred.ingest_size
+
+    def jpeg(a):
+        buf = io.BytesIO()
+        Image.fromarray(a).save(buf, format="JPEG", quality=90)
+        return buf.getvalue()
+
+    pools = {
+        "ingest_array": [rng.randint(0, 256, (S, S, 3)).astype(np.uint8) for _ in range(4)],
+        "offsize_array": [rng.randint(0, 256, (300 + 40 * i, 420, 3)).astype(np.uint8) for i in range(4)],
+        "jpeg_bytes": [jpeg(rng.randint(0, 256, (512, 400, 3)).astype(np.uint8)) for _ in range(4)],
+        "dicom_bytes": [write_dicom(None, (rng.rand(256, 256) * 3000).astype(np.uint16)) for _ in range(4)],
+    }
+    kinds = list(pools)
+    corrupt = 7
+    reqs = []
+    for i in range(40):
+        if i == corrupt:
+            blob = pools["dicom_bytes"][0]
+            reqs.append((blob[: len(blob) // 2], ["is the lung normal"]))
+            continue
+        n = int(rng.randint(1, N_Q + 1))
+        reqs.append((pools[kinds[i % 4]][(i // 4) % 4], [corpus[j] for j in rng.randint(0, len(corpus), n)]))
+    good = {i: len(q) for i, (_, q) in enumerate(reqs) if i != corrupt}
+
+    def trickle(n_req=9, gap_s=0.25):
+        for r in reqs[:n_req]:
+            yield r
+            time.sleep(gap_s)
+
+    limit = real_limit(len(pred.answer_vocab), cfg.model.answer_vocab_size)
+    sample = [0, 5, 10, 19]  # an ingest array, an off-size array, JPEG and DICOM bytes
+    refs = {i: pred.predict_batch(*reqs[i]) for i in sample}
+    modes = (
+        ("plain", {}, lambda: iter(reqs), good),
+        ("dedup_questions", {"dedup_questions": True}, lambda: iter(reqs), good),
+        ("pack_pairs", {"pack_pairs": True, "pair_budget": B_IMG * N_Q // 2}, lambda: iter(reqs), good),
+        ("max_wait_ms", {"max_wait_ms": 50}, trickle, {i: n for i, n in good.items() if i < 9}),
+    )
+    out = {}
+    for mode, kw, source, expected in modes:
+        server = StreamingServer(pred, image_batch=B_IMG, questions_per_image=N_Q, topk=5,
+                                 decode_threads=2, **kw)
+        warm_s = server.warmup()
+        got = {}
+        for idx, (vals, ids), n in server.serve(source()):
+            if idx in got:
+                raise AssertionError(f"stream {mode}: request {idx} answered twice")
+            got[idx] = (vals[:n], ids[:n], n)
+        if set(got) != set(expected) or any(got[i][2] != n for i, n in expected.items()):
+            raise AssertionError(f"stream {mode}: answered {sorted(got)} with counts "
+                                 f"{[got[i][2] for i in sorted(got)]}, expected {expected}")
+        if [i for i, _ in server.errors] != [corrupt]:
+            raise AssertionError(f"stream {mode}: errors {server.errors}, expected request {corrupt}")
+        errs, top1 = [], []
+        for i in sample:
+            if i not in got:
+                continue
+            vals, ids, n = got[i]
+            logits = refs[i]
+            # Same device and kernels, other batch shapes (a library GEMM may
+            # take another algorithm): the values of the stream's top-5
+            # answers in the Predictor's logits, within 1 % of the largest
+            # logit (an H100 run: 2.5e-6 at a largest logit of ~2).
+            err = float(np.abs(np.take_along_axis(logits, ids, -1) - vals).max())
+            if not err <= 0.01 * float(np.abs(logits).max()):
+                raise AssertionError(f"stream {mode}: request {i} disagrees with Predictor by {err}")
+            errs.append(err)
+            top1.append(float((ids[:, 0] == argmax_real(logits, limit)).mean()))
+        out[mode] = {
+            "requests": len(got), "pairs": server.pairs_processed,
+            "pairs_per_s": server.pairs_per_second, "wall_s": server.wall_seconds,
+            "warmup_s": warm_s, "latency": server.latency_summary(),
+            "vs_predictor_max_abs_err": max(errs), "vs_predictor_top1": float(np.mean(top1)),
+        }
+        log(f"  stream {mode}: {json.dumps(out[mode])}")
+    log(json.dumps({"stream": {"config": "streaming_vitl + model.int8_ffn", "image_batch": B_IMG,
+                               "questions_per_image": N_Q, "topk": 5, "decode_threads": 2,
+                               "modes": out, "card": smi}}))
+    return out
 
 
 def main() -> int:
@@ -613,7 +907,7 @@ def main() -> int:
     from btia_tpu_torch.ops import _native
     from btia_tpu_torch.ops import attention as A
     from btia_tpu_torch.ops import fused_attn as FA
-    from btia_tpu_torch.ops.answers import topk_real
+    from btia_tpu_torch.ops.quant import int8_matmul_fused
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -628,6 +922,7 @@ def main() -> int:
     # Phase 2: kernels against their plain twins.
     log("phase 2: kernels vs plain twins (bf16, serving-step shapes)")
     rows = check_kernels(torch, dev)
+    int8_rows = check_int8_kernel(torch, dev)
 
     # Phase 3: Predictor on full-width streaming_vitl.
     cfg = get_config("streaming_vitl")
@@ -648,7 +943,7 @@ def main() -> int:
     size = pred.ingest_size
     images = [rng.randint(0, 256, (size, size, 3)).astype(np.uint8) for _ in range(3)]
     counters = (FA.fused_dense_attention, FA.fused_static_q_attention, A.bshd_flash_attention,
-                A.fanout_attention)
+                A.fanout_attention, int8_matmul_fused)
     _zero(counters)
     for img, n in zip(images, (1, 5, 8)):
         logits = pred.predict_batch(img, corpus[:n])
@@ -659,8 +954,8 @@ def main() -> int:
             raise AssertionError(f"predict_answers returned {got}")
         log(f"  image of {n} question(s): {got}")
     counts = [f.launches for f in counters]
-    if counts != [20 * 6, 1 * 6, 24 * 6, 0]:
-        raise AssertionError(f"Predictor launch counts {counts} != [120, 6, 144, 0]")
+    if counts != [20 * 6, 1 * 6, 24 * 6, 0, 0]:
+        raise AssertionError(f"Predictor launch counts {counts} != [120, 6, 144, 0, 0]")
     # The same model on the CPU (plain twins) as the reference.
     ref_model = copy.deepcopy(model).to("cpu")
     with torch.inference_mode():
@@ -683,15 +978,7 @@ def main() -> int:
     host_imgs = [rng.randint(0, 256, (B_IMG, size, size, 3)).astype(np.uint8) for _ in range(2)]
     host_qids = [rng.randint(1, cfg.model.bert_vocab_size, (B_IMG, N_Q, L)).astype(np.int64)
                  for _ in range(2)]
-    limit = cfg.model.answer_vocab_size
-
-    @torch.inference_mode()
-    def serve_step(i):
-        imgs = torch.from_numpy(host_imgs[i % 2]).to(dev)
-        qids = torch.from_numpy(host_qids[i % 2]).to(dev)
-        logits = model.answer_questions(model.encode_image(imgs), qids)
-        vals, idx = topk_real(logits, 5, limit)
-        return vals.cpu().numpy(), idx.cpu().numpy()
+    serve_step = serve_step_fn(torch, dev, model, host_imgs, host_qids, cfg.model.answer_vocab_size)
 
     torch.cuda.synchronize()
     _zero(counters)
@@ -699,9 +986,9 @@ def main() -> int:
     torch.cuda.synchronize()
     counts = [f.launches for f in counters]
     log(f"phase 4: one serve step launched K1 {counts[0]}, K2 {counts[1]}, K3 {counts[2]}, "
-        f"K4 {counts[3]} times")
-    if counts != [20, 1, 24, 0]:
-        raise AssertionError(f"serve-step launch counts {counts} != [20, 1, 24, 0]")
+        f"K4 {counts[3]}, K8 {counts[4]} times")
+    if counts != SERVE_COUNTS:
+        raise AssertionError(f"serve-step launch counts {counts} != {SERVE_COUNTS}")
     if vals.shape != (B_IMG, N_Q, 5) or not np.isfinite(vals).all():
         raise AssertionError("serve step: bad top-k")
     main_counts = counts
@@ -728,7 +1015,13 @@ def main() -> int:
         }
     }))
 
+    # Phases 4b and 4c: int8 serving, a timed step and the streaming server.
+    model8, cfg8, int8_counts, int8_res = int8_serve_phase(
+        torch, dev, smi, model, host_imgs, host_qids, counters)
     del pred, model
+    torch.cuda.empty_cache()
+    stream = streaming_phase(torch, dev, smi, model8, cfg8)
+    del model8
     torch.cuda.empty_cache()
 
     # Phase 5: train vqa_med_full.
@@ -736,7 +1029,8 @@ def main() -> int:
     train["train_step"]["card_vs_cpu"] = train_step_vs_cpu(torch, dev, counters)
     log(json.dumps({"train_step": train["train_step"]}))
 
-    by_path = [{"serve_step": a, "train_step": b} for a, b in zip(main_counts, train["train_counts"])]
+    by_path = [{"serve_step": a, "int8_serve_step": c, "train_step": b}
+               for a, b, c in zip(main_counts, train["train_counts"], int8_counts)]
     k1_sites = ("bert", "btia_i2t", "btia_t2i", "med_bert", "med_i2t", "med_t2i")
     entries = [
         ("fused_dense_attention", "btia_tpu_torch/csrc/fused_attn.cu",
@@ -759,6 +1053,23 @@ def main() -> int:
         if sites:
             e["sites"] = {s: rows[s] for s in sites}
         kernels.append(e)
+    r = int8_rows["txt_fc1"]  # the BERT / BTIA-text fc1 shape, 16 launches a step
+    kernels.append({
+        "name": "int8_matmul_fused", "route": "cuda", "source": "btia_tpu_torch/csrc/int8_mm.cu",
+        "replaces": "btia_tpu/ops/quant.py:87", "launches": sum(by_path[4].values()),
+        "launches_by_path": by_path[4], "max_abs_err": max(x["max_abs_err"] for x in int8_rows.values()),
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"], "library": r["library"], "bf16_matmul_ms": r["bf16_matmul_ms"],
+        "ms_per_step": sum(x["ms"] * x["launches_per_step"] for x in int8_rows.values()),
+        "bound_ms_per_step": sum(x["bound_ms"] * x["launches_per_step"] for x in int8_rows.values()),
+        "sites": int8_rows,
+    })
+    log(json.dumps({"summary": {
+        "serve_ms": step_ms, "int8_serve_ms": int8_res["ms_per_step"],
+        "train_ms": train["train_step"]["ms_per_step"],
+        "stream_pairs_per_s": {m: v["pairs_per_s"] for m, v in stream.items()},
+        "stream_p50_p99_ms": {m: [v["latency"]["p50_ms"], v["latency"]["p99_ms"]] for m, v in stream.items()},
+    }}))
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -81,3 +81,47 @@ def test_training_entry_points_raise_without_a_gpu(tmp_path):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Trainer(get_config("vqa_med_full"), tmp_path / "run")
     assert not (tmp_path / "run").exists()
+
+
+_SERVING_MODULES = (
+    "btia_tpu_torch.ops.quant", "btia_tpu_torch.infer.predict", "btia_tpu_torch.infer.streaming",
+)
+
+
+def test_serving_modules_import_alone():
+    """K8's module and the serving modules, imported by themselves, pull in
+    no JAX and no module of the reference package."""
+    probe = (
+        "import importlib, sys\n"
+        f"for m in {_SERVING_MODULES!r}: importlib.import_module(m)\n"
+        "print(sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'flax', 'btia_tpu')))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", probe], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]"
+
+
+def test_chip_smoke_imports_no_jax():
+    import ast
+
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert "btia_tpu_torch" in roots and "torch" in roots
+    assert not roots & {"jax", "flax", "btia_tpu"}, roots
+
+
+def test_int8_kernel_entry_has_no_fallback():
+    """K8 takes its plain twin only for a CPU tensor; any other device
+    launches the kernel (CUDA) or raises, never a quiet plain product."""
+    from btia_tpu_torch.ops.quant import int8_matmul_fused
+
+    x = torch.empty(4, 16, device="meta", dtype=torch.bfloat16)
+    w = torch.empty(16, 8, device="meta", dtype=torch.int8)
+    with pytest.raises(ValueError, match="unsupported device"):
+        int8_matmul_fused(x, w, torch.empty(8, device="meta"))
+    assert int8_matmul_fused.launches == 0
