@@ -16,7 +16,8 @@
 // no score or probability tensor goes to device memory; sequences longer
 // than 128 (ViT-B/16's 197 image tokens in BTIA) stream their keys through
 // an online softmax instead of holding the whole tile. The pre-LN prologue
-// and post-LN epilogue are single-pass row kernels. Fusing the chain into one
+// and post-LN epilogue are K7's single-pass row kernel (layernorm.cu),
+// launched by the wrapper. Fusing the chain into one
 // persistent kernel (the TPU kernel's one-pass form) is later work.
 //
 // Semantics follow the TPU kernel exactly: f32 LayerNorm with the fast
@@ -30,34 +31,6 @@
 #include "masked_flash.cuh"
 
 using namespace nvcuda;
-
-// ---------------------------------------------------------------------------
-// Row LayerNorm (f32 statistics), one warp per row. In place is allowed.
-// ---------------------------------------------------------------------------
-
-__global__ void ln_rows_kernel(const bf16* __restrict__ x, bf16* y, const float* __restrict__ scale,
-                               const float* __restrict__ bias, int M, int D, float eps) {
-  int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  int lane = threadIdx.x & 31;
-  if (row >= M) return;
-  const bf16* xr = x + static_cast<long long>(row) * D;
-  bf16* yr = y + static_cast<long long>(row) * D;
-  float s = 0.f, s2 = 0.f;
-  for (int i = lane; i < D; i += 32) {
-    float v = __bfloat162float(xr[i]);
-    s += v;
-    s2 += v * v;
-  }
-  s = warp_sum(s);
-  s2 = warp_sum(s2);
-  float mean = s / D;
-  float var = fmaxf(0.f, s2 / D - mean * mean);
-  float inv = rsqrtf(var + eps);
-  for (int i = lane; i < D; i += 32) {
-    float v = __bfloat162float(xr[i]);
-    yr[i] = __float2bfloat16((v - mean) * inv * scale[i] + bias[i]);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // C[M, N] = bf16(A[M, K] @ W[K, N] + bias[N])  (+ resid[row % resid_rows, N]
@@ -317,16 +290,6 @@ attn_core_tiled_kernel(const bf16* __restrict__ q, long long q_bs, int q_rs, con
 // C interface (pointers as void*, the stream as PyTorch's cudaStream_t).
 // Each entry returns cudaGetLastError() after its launch.
 // ---------------------------------------------------------------------------
-
-extern "C" int btia_ln_rows(const void* x, void* y, const void* scale, const void* bias, int M, int D, float eps,
-                            void* stream) {
-  const int rows_per_block = 8;
-  dim3 grid((M + rows_per_block - 1) / rows_per_block);
-  ln_rows_kernel<<<grid, rows_per_block * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<bf16*>(y), static_cast<const float*>(scale),
-      static_cast<const float*>(bias), M, D, eps);
-  return static_cast<int>(cudaGetLastError());
-}
 
 extern "C" int btia_gemm_bias(const void* A, const void* W, const void* bias, const void* resid, int resid_rows,
                               void* C, int M, int N, int K, void* stream) {

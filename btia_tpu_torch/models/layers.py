@@ -82,14 +82,17 @@ class LayerNormParams(nn.Module):
 
 
 class LayerNorm(LayerNormParams):
-    """Fast-variance f32 LayerNorm, output in the compute dtype."""
+    """Fast-variance f32 LayerNorm, output in the compute dtype. ``fast`` is
+    passed as the reference passes it (``layers.py:260-261``); ``layernorm``
+    ignores it, as the reference's does."""
 
     def __init__(self, dim: int, policy: DTypePolicy, eps: float = 1e-6, device=None):
         super().__init__(dim, eps, device)
         self.policy = policy
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layernorm(x, self.scale, self.bias, self.eps).to(self.policy.compute_dtype)
+        cd = self.policy.compute_dtype
+        return layernorm(x, self.scale, self.bias, self.eps, fast=cd == torch.bfloat16).to(cd)
 
 
 class Embed(nn.Module):

@@ -17,9 +17,10 @@ Routing is by device: a CUDA tensor launches the hand-written kernel chain in
 ``csrc/fused_attn.cu`` (counted in the entry's ``.launches``) or raises; a CPU
 tensor takes the plain PyTorch twin. The shape gate is the reference's
 (``core_admits``: Sq*Sk <= 32768 and D % 64 == 0); other sites take the
-unfused road of projections + ``mha_bshd``, as the reference does. The
-reference's batch floor (B >= 64) is not kept: the card's kernels win at any
-batch.
+unfused road of projections + ``mha_bshd``, as the reference does, and so do
+all sites under ``set_attention_impl("xla")`` or inside ``disable_fused()``.
+The reference's batch floor (B >= 64) is not kept: the card's kernels win at
+any batch.
 
 Each site is a ``torch.autograd.Function`` whose backward mirrors the
 reference's ``custom_vjp`` (``_fused_bwd``, ``_fused_site_bwd``,
@@ -30,18 +31,37 @@ attention goes through K4. The key mask gets no gradient.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
 
 from btia_tpu_torch.ops import _native
-from btia_tpu_torch.ops.attention import LOG2E, SMALL_SCORE_TILE, attend_log2, mha_bshd
-from btia_tpu_torch.ops.norms import layernorm
+from btia_tpu_torch.ops.attention import (
+    LOG2E, SMALL_SCORE_TILE, _resolved_impl, attend_log2, mha_bshd,
+)
+from btia_tpu_torch.ops.norms import _layernorm_cuda, _ln_exact, layernorm
 
 # A folded LayerNorm: (scale, bias, eps), or None for a disabled stage. The
 # reference's SiteCfg carried the eps values as static Pallas arguments;
 # here the triples themselves say which stages run.
 LN = Optional[Tuple[torch.Tensor, torch.Tensor, float]]
+
+_ENABLED = True
+
+
+@contextlib.contextmanager
+def disable_fused():
+    """Route ``fused_dense_attention`` / ``fused_static_q_attention`` through
+    the unfused road for every call inside this context, whatever the shape
+    or the attention switch (``fused_attn.py:disable_fused``)."""
+    global _ENABLED
+    old = _ENABLED
+    _ENABLED = False
+    try:
+        yield
+    finally:
+        _ENABLED = old
 
 
 def core_admits(sq: int, sk: int, head_dim: int) -> bool:
@@ -51,11 +71,11 @@ def core_admits(sq: int, sk: int, head_dim: int) -> bool:
     return sq * sk <= SMALL_SCORE_TILE and head_dim % 64 == 0
 
 
-def _ln_rows(x32, scale, bias, eps):
-    mean = x32.mean(-1, keepdim=True)
-    mean2 = (x32 * x32).mean(-1, keepdim=True)
-    var = torch.clamp_min(mean2 - mean * mean, 0.0)
-    return (x32 - mean) * torch.rsqrt(var + eps) * scale.float() + bias.float()
+def _fuses(sq: int, sk: int, head_dim: int) -> bool:
+    """The reference's gate at a site (``fused_attn.py:1027-1038``, without
+    the batch floor and the mesh): fusion on, the switch on the kernels, and
+    a shape the core admits."""
+    return _ENABLED and _resolved_impl() == "pallas" and core_admits(sq, sk, head_dim)
 
 
 def _proj_plain(x, w, b, cd):
@@ -74,8 +94,8 @@ def _fused_dense_plain(x_q, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
     """K1's plain twin (``_fused_kernel`` arithmetic)."""
     cd = x_q.dtype
     c = (1.0 / (wq.shape[1] // num_heads) ** 0.5) * LOG2E
-    xq = _ln_rows(x_q.float(), *q_ln).to(cd) if q_ln else x_q
-    xkv = _ln_rows(x_kv.float(), *kv_ln).to(cd) if kv_ln else x_kv
+    xq = _ln_exact(x_q, *q_ln) if q_ln else x_q
+    xkv = _ln_exact(x_kv, *kv_ln).to(cd) if kv_ln else x_kv
     q = _proj_plain(xq, (wq.float() * c).to(cd), bq.float() * c, cd)
     k = _proj_plain(xkv, wk, bk, cd)
     v = _proj_plain(xkv, wv, bv, cd)
@@ -84,23 +104,7 @@ def _fused_dense_plain(x_q, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
     if residual:
         out = x_q.to(cd) + out
     if post_ln:
-        out = _ln_rows(out.float(), *post_ln).to(cd)
-    return out
-
-
-def _ln_cuda(x2, ln, out=None):
-    scale, bias, eps = ln
-    out = torch.empty_like(x2) if out is None else out
-    scale = scale.float().contiguous()
-    bias = bias.float().contiguous()
-    M, D = x2.shape
-    _native.check(
-        _native.lib().btia_ln_rows(
-            x2.data_ptr(), out.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            M, D, float(eps), _native.stream(x2),
-        ),
-        "btia_ln_rows",
-    )
+        out = _ln_exact(out, *post_ln)
     return out
 
 
@@ -164,14 +168,15 @@ def _fused_dense_cuda(x_q, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
     c = (1.0 / (HD // num_heads) ** 0.5) * LOG2E
     xq2 = x_q.view(B * Sq, Din)
     xkv2 = x_kv.view(B * Sk, x_kv.shape[2])
-    xq_in = _ln_cuda(xq2, q_ln) if q_ln else xq2
-    xkv_in = _ln_cuda(xkv2, kv_ln) if kv_ln else xkv2
+    # The LN prologue and post-LN are K7's kernel, launched as part of K1.
+    xq_in = _layernorm_cuda(xq2, *q_ln) if q_ln else xq2
+    xkv_in = _layernorm_cuda(xkv2, *kv_ln) if kv_ln else xkv2
     q = _gemm_cuda(xq_in, (wq.float() * c).to(cd), bq.float() * c)
     kv = _gemm_cuda(xkv_in, torch.cat([wk, wv], dim=1), torch.cat([bk, bv]))
     attn = _core_cuda(q, Sq * HD, kv, B, Sq, Sk, HD, num_heads, kv_mask)
     out = _gemm_cuda(attn, wo, bo, resid=xq2 if residual else None, resid_rows=B * Sq)
     if post_ln:
-        _ln_cuda(out, post_ln, out=out)
+        _layernorm_cuda(out, *post_ln, out=out)
     return out.view(B, Sq, wo.shape[1])
 
 
@@ -277,7 +282,7 @@ def fused_dense_attention(
     site; residual adds the raw x_q to the projected output."""
     if (residual or post_ln is not None) and wo.shape[1] != x_q.shape[-1]:
         raise ValueError("residual / post-LN need Dout == Din of x_q")
-    if not core_admits(x_q.shape[1], x_kv.shape[1], wq.shape[1] // num_heads):
+    if not _fuses(x_q.shape[1], x_kv.shape[1], wq.shape[1] // num_heads):
         return _unfused_site(x_q, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
                              num_heads, q_ln, kv_ln, residual, post_ln)
     lns, eps = _ln_args(q_ln, kv_ln, post_ln)
@@ -302,7 +307,7 @@ def _static_q_plain(queries, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
     B = x_kv.shape[0]
     K = queries.shape[0]
     q2 = _static_q_table(queries, wq, bq, num_heads, cd)
-    xkv = _ln_rows(x_kv.float(), *kv_ln).to(cd) if kv_ln else x_kv
+    xkv = _ln_exact(x_kv, *kv_ln) if kv_ln else x_kv
     k = _proj_plain(xkv, wk, bk, cd)
     v = _proj_plain(xkv, wv, bv, cd)
     q = q2[None].expand(B, K, q2.shape[1])
@@ -325,7 +330,7 @@ def _static_q_cuda(queries, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
     _native.require(x_kv, "fused_static_q_attention x_kv")
     q2 = _static_q_table(queries, wq, bq, num_heads, cd).contiguous()
     xkv2 = x_kv.view(B * Sk, Din)
-    xkv_in = _ln_cuda(xkv2, kv_ln) if kv_ln else xkv2
+    xkv_in = _layernorm_cuda(xkv2, *kv_ln) if kv_ln else xkv2
     kv = _gemm_cuda(xkv_in, torch.cat([wk, wv], dim=1), torch.cat([bk, bv]))
     attn = _core_cuda(q2, 0, kv, B, K, Sk, HD, num_heads, kv_mask)
     qraw = queries.to(cd).contiguous() if residual else None
@@ -385,7 +390,7 @@ def fused_static_q_attention(
     raw query table to the projected output."""
     if residual and wo.shape[1] != queries.shape[1]:
         raise ValueError("residual needs Dout == Din of the queries")
-    if not core_admits(queries.shape[0], x_kv.shape[1], wq.shape[1] // num_heads):
+    if not _fuses(queries.shape[0], x_kv.shape[1], wq.shape[1] // num_heads):
         return _static_q_unfused_site(queries, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
                                       num_heads, kv_ln, residual)
     lns, eps = _ln_args(kv_ln)

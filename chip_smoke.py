@@ -17,15 +17,33 @@ Phases, each fatal on failure:
    K8 (the int8 FFN product) at the eight FFN shapes of the int8 serve step,
    each element within one bf16 step, timed beside ``torch._int_mm`` on the
    pre-quantized operands and a bf16 ``torch.matmul``;
+2b. the ops API at full width: one run through ``mha(impl="pallas")`` and
+   ``mha()`` under ``set_attention_impl("pallas")`` at ViT-L/336
+   self-attention, ``mha_bshd``'s long road at D = 96 (the AD head of
+   ``vqa_med_full`` with ``model.num_heads=8``), ``bicross_attention(impl=
+   "pallas")`` at the pooled BTIA shape, ``bicross_bshd`` on an unpooled
+   577 x 64 tile and ``layernorm_fast`` at the serve step's LayerNorm shapes
+   (and in f32), with every counter set to 0 just before and read just after
+   (K5 = 3, K6 = 2, K7 = 5, the others 0); then K5, K6 and K7 against their
+   plain twins (attention within max|twin|/32, K7 within one bf16 step per
+   element or 1e-5 of the largest value), timed beside the twin, a library
+   yardstick (SDPA, two SDPA calls, ``F.layer_norm``) and the bound; every
+   head-width template of K5/K6 and K7's block-per-row kernel at small
+   shapes; each Function's backward against autograd through its twin;
 3. serve a few requests through ``Predictor.predict_answers`` on the
    full-width ``streaming_vitl`` with seeded random weights, check the
    logits are finite and agree with the same model run on the CPU;
 4. run the bench-shaped serve step (encode_image -> answer_questions ->
    top-k) with every launch counter set to 0 just before one step and read
-   just after: K1 = 20, K2 = 1, K3 = 24, K4 = 0, K8 = 0 launches; then time
-   a few steps;
+   just after: K1 = 20, K2 = 1, K3 = 24, the others 0 launches; then time
+   a few steps; the same step under ``set_attention_impl("xla")`` (every
+   counter 0) and under ``disable_fused()`` (K3 = 24, K4 = 21, the others
+   0), each timed, its logits within a tenth of the largest logit of the
+   default step's; then the step's 74 standalone LayerNorms (the plain
+   formula) counted by shape, and K7, the plain formula and
+   ``F.layer_norm`` timed at each;
 4b. the same step on ``streaming_vitl`` with ``model.int8_ffn`` (same
-   seeded weights): K1 = 20, K2 = 1, K3 = 24, K4 = 0, K8 = 90 launches,
+   seeded weights): K1 = 20, K2 = 1, K3 = 24, K8 = 90, the others 0,
    timed steps and peak memory, logits against the same model on the CPU,
    and top-1 agreement with the bf16 model (reported only);
 4c. ``StreamingServer`` over the int8 model (16 x 128, top-5, two decode
@@ -39,8 +57,8 @@ Phases, each fatal on failure:
    synthetic VQA-Med corpus (64 images, 128 training pairs): one epoch with
    its val evaluation and checkpoint, ten steps on one repeated batch (the
    loss must be finite and fall), one of them with every counter set to 0
-   just before and read just after (K1 = 20, K2 = 0, K3 = 13, K4 = 20,
-   K8 = 0: K4 runs in the backward of every K1 site), a timed run of steps,
+   just before and read just after (K1 = 20, K3 = 13, K4 = 20, the others
+   0: K4 runs in the backward of every K1 site), a timed run of steps,
    the test evaluation at batch 128 (K1 = 20, K3 = 13, K4 = 0), a checkpoint
    restore round trip, and one step's loss and gradients on the card
    against the same step on the CPU (full depth, dropout 0).
@@ -49,9 +67,10 @@ With ``--profile`` it also runs one serve step, one int8 serve step and one
 train step under ``torch.profiler`` and prints the device time by kernel and
 the device's idle share.
 
-It prints a ``summary`` line, a ``kernels`` JSON line (``launches`` is a
-kernel's count summed over the three main-path runs, the serve step, the
-int8 serve step and the train step, and ``launches_by_path`` splits it), the
+It prints a ``summary`` line, a ``kernels`` JSON line of all eight kernels
+(``launches`` is a kernel's count summed over the four main-path runs, the
+serve step, the int8 serve step, the train step and the ops API run of phase
+2b, and ``launches_by_path`` splits it), the
 card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``. It exits non-zero, and prints no
 result, when no CUDA device is present or the package is missing.
@@ -59,6 +78,7 @@ result, when no CUDA device is present or the package is missing.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import subprocess
@@ -81,7 +101,7 @@ REPEATS, TIMED_TRAIN_STEPS = 10, 5
 # Launches (K1, K2, K3, K4) of one vqa_med_full step. Train: 12 BERT + 8 BTIA
 # K1 sites, 12 ViT blocks + the AD head's 2048 x 229 attention on K3 (score
 # tiles above 32768), and K4 in the backward of each K1 site (batch 64).
-TRAIN_COUNTS, EVAL_COUNTS = [20, 0, 13, 20, 0], [20, 0, 13, 0, 0]
+TRAIN_COUNTS, EVAL_COUNTS = [20, 0, 13, 20, 0, 0, 0, 0], [20, 0, 13, 0, 0, 0, 0, 0]
 # K8 (int8_matmul_fused) at the FFN products of one int8 serve step of
 # streaming_vitl, 16 images x 128 questions: (site, M, K, N, activation,
 # launches per step). BERT's 12 Mlps and BTIA's 4 mlp_txt share the
@@ -96,7 +116,36 @@ INT8_SITES = (
     ("head_fc1", B_IMG * N_Q * 64, 768, 1536, "gelu_tanh", 1),
     ("head_fc2", B_IMG * N_Q * 64, 1536, 768, None, 1),
 )
-SERVE_COUNTS, INT8_COUNTS = [20, 1, 24, 0, 0], [20, 1, 24, 0, 90]
+SERVE_COUNTS, INT8_COUNTS = [20, 1, 24, 0, 0, 0, 0, 0], [20, 1, 24, 0, 0, 0, 0, 90]
+# Counts are listed K1..K8 (KERNELS). The serve step with the fused sites
+# disabled: each K1/K2 site's unfused road sends its short attention
+# (2048 rows, D = 64) to K4: 12 BERT + 8 BTIA + 1 AD head; ViT keeps K3.
+NO_FUSED_COUNTS = [0, 0, 24, 21, 0, 0, 0, 0]
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
+# Phase 2b, the ops API at full width, on registered configs' shapes: K5 at
+# ViT-L/336 self-attention (mha(impl="pallas")) and at the AD head of
+# vqa_med_full with model.num_heads=8 (D = 96: 2048 answer queries over
+# 197 + 32 tokens at batch 64, mha_bshd's long road); K6 at the pooled BTIA
+# serving shape and on an unpooled ViT-L tile with model.max_question_len=64
+# (bicross_bshd's long road); K7 at the serve step's standalone LayerNorms.
+K5_VITL = (B_IMG, 16, 577, 577, 64)  # (B, H, Sq, Sk, D)
+K5_HEAD = (B_TRAIN, 8, 2048, N_VIT_B + SEQ, 96)
+K6_POOLED = (B_IMG * N_Q, 12, N_IMG_TOK, SEQ, 64)  # (B, H, Ni, Nt, D)
+K6_LONG = (B_IMG, 12, 577, 64, 64)
+K7_SHAPES = (("vit_l", B_IMG * 577, 1024), ("btia_image", B_IMG * N_Q * N_IMG_TOK, 768),
+             ("text", B_IMG * N_Q * SEQ, 768), ("head", B_IMG * N_Q * 64, 768))
+# The phase's main-path run: mha(impl="pallas"), mha() under
+# set_attention_impl("pallas") and mha_bshd at D = 96 on K5;
+# bicross_attention(impl="pallas") and bicross_bshd on K6; layernorm_fast at
+# the four K7 shapes in bf16 and at ViT-L's in f32.
+OPS_COUNTS = [0, 0, 0, 0, 3, 2, 5, 0]
+# Standalone LayerNorms (the plain formula) of one bf16 serve step, by
+# (rows, width): ViT-L's 24 x 2 + final; BERT's embedding LN and 12 ln_mlp,
+# txt_ln and BTIA's 4 ln_txt2 on the 2048 x 32 text tokens; img_ln on the
+# 16 x 50 pooled tokens; BTIA's 4 ln_img2; the AD head's ln_mlp and ln_out.
+SERVE_LN_CENSUS = {(B_IMG * 577, 1024): 49, (B_IMG * N_IMG_TOK, 768): 1,
+                   (B_IMG * N_Q * SEQ, 768): 18, (B_IMG * N_Q * N_IMG_TOK, 768): 4,
+                   (B_IMG * N_Q * 64, 768): 2}
 
 
 def log(*a):
@@ -125,6 +174,47 @@ def bound_ms(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def _flat_f32(out):
+    """A kernel's output (a tensor, or a tuple of them) as one f32 vector."""
+    import torch
+
+    outs = out if isinstance(out, tuple) else (out,)
+    return torch.cat([t.float().flatten() for t in outs])
+
+
+def run_case(name, kernel, plain, library, flops, nbytes_, iters=10):
+    """Hold an attention kernel against its plain twin and time the kernel,
+    the twin and the library yardstick (CUDA events) beside the bound."""
+    import torch
+
+    out = _flat_f32(kernel())
+    torch.cuda.synchronize()
+    ref = _flat_f32(plain())
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{name}: kernel output is not finite")
+    err = (out - ref).abs().max().item()
+    # Eight bf16 steps at the output's largest magnitude: the kernel and
+    # its twin round the bf16 projections after sums taken in another
+    # order, and a flipped rounding propagates through the softmax.
+    tol = ref.abs().max().item() / 32
+    del out, ref
+    row = {
+        "max_abs_err": err,
+        "tol": tol,
+        "ms": cuda_time_ms(kernel, iters),
+        "plain_ms": cuda_time_ms(plain, max(2, iters // 4)),
+        "library_ms": None if library is None else cuda_time_ms(library, iters),
+    }
+    row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes_)
+    log(f"  {name}: err {err:.4g} (tol {tol:.4g}) kernel {row['ms']:.4f} ms, "
+        f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']}, "
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    if not err <= tol:
+        raise AssertionError(f"{name}: kernel disagrees with its plain twin: {err} > {tol}")
+    return row
 
 
 def check_kernels(torch, dev):
@@ -172,34 +262,6 @@ def check_kernels(torch, dev):
             q, kv, kv, q.shape[-1], nheads, bias_k=None, bias_v=None, add_zero_attn=False,
             dropout_p=0.0, training=False, key_padding_mask=kpm, need_weights=False, **args,
         )
-
-    def run_case(name, kernel, plain, library, flops, nbytes_, iters=10):
-        out = kernel()
-        torch.cuda.synchronize()
-        ref = plain()
-        torch.cuda.synchronize()
-        if not bool(torch.isfinite(out.float()).all()):
-            raise AssertionError(f"{name}: kernel output is not finite")
-        err = (out.float() - ref.float()).abs().max().item()
-        # Eight bf16 steps at the output's largest magnitude: the kernel and
-        # its twin round the bf16 projections after sums taken in another
-        # order, and a flipped rounding propagates through the softmax.
-        tol = ref.float().abs().max().item() / 32
-        ok = err <= tol
-        row = {
-            "max_abs_err": err,
-            "tol": tol,
-            "ms": cuda_time_ms(kernel, iters),
-            "plain_ms": cuda_time_ms(plain, max(2, iters // 4)),
-            "library_ms": None if library is None else cuda_time_ms(library, iters),
-        }
-        row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes_)
-        log(f"  {name}: err {err:.4g} (tol {tol:.4g}) kernel {row['ms']:.4f} ms, "
-            f"plain {row['plain_ms']:.4f} ms, library {row['library_ms']}, "
-            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
-        if not ok:
-            raise AssertionError(f"{name}: kernel disagrees with its plain twin: {err} > {tol}")
-        return row
 
     counters = (FA.fused_dense_attention, FA.fused_static_q_attention, A.bshd_flash_attention,
                 A.fanout_attention)
@@ -268,14 +330,13 @@ def check_kernels(torch, dev):
         lambda: F.scaled_dot_product_attention(split(q), split(k), split(v)),
         flops, nbytes(q, k, v) + nbytes(q), iters=20,
     )
-    rows.update(check_training_kernels(torch, dev, randn, weights, ln, question_mask, run_case,
-                                       mha_yardstick))
+    rows.update(check_training_kernels(torch, dev, randn, weights, ln, question_mask, mha_yardstick))
     for f, before in zip(counters, launches_before):
         f.launches = before  # comparison launches are not main-path launches
     return rows
 
 
-def check_training_kernels(torch, dev, randn, weights, ln, question_mask, run_case, mha_yardstick):
+def check_training_kernels(torch, dev, randn, weights, ln, question_mask, mha_yardstick):
     """Phase 2, training shapes: K1 at the vqa_med_full sites, K4 at its
     three shapes (the backward recompute of those sites), and the backward
     pass of each autograd Function against autograd through its twin."""
@@ -369,28 +430,38 @@ def check_training_kernels(torch, dev, randn, weights, ln, question_mask, run_ca
     }
     g = torch.Generator(device=dev).manual_seed(1)
     for name, (fn, twin, inputs, bk) in cases.items():
-        leaves = lambda: [t.detach().clone().requires_grad_(True) for t in inputs]
-        a, b = leaves(), leaves()
-        out = fn(*a)
-        cot = torch.randn(out.shape, generator=g, device=dev).to(out.dtype)
-        got = torch.autograd.grad(out, a, cot)
-        want = torch.autograd.grad(twin(*b), b, cot)
-        torch.cuda.synchronize()
-        errs, tols = [], []
-        for i, (x, y) in enumerate(zip(got, want)):
-            if not bool(torch.isfinite(x.float()).all()):
-                raise AssertionError(f"{name} backward: gradient {i} is not finite")
-            # bk's true gradient is 0 (a constant shift of a score row); both
-            # sides give rounding noise, held to bv's tolerance.
-            ref = want[i + 2] if i == bk else y
-            errs.append((x.float() - y.float()).abs().max().item())
-            tols.append(ref.float().abs().max().item() / 32)
-        log(f"  {name} backward vs autograd through its twin: max abs err / tol per input "
-            + ", ".join(f"{e:.3g}/{t:.3g}" for e, t in zip(errs, tols)))
-        if any(e > t for e, t in zip(errs, tols)):
-            raise AssertionError(f"{name} backward disagrees with autograd through its twin")
-        rows[f"{name}_backward"] = {"max_abs_err": errs, "tol": tols}
+        rows[f"{name}_backward"] = check_backward(torch, name, fn, twin, inputs, g, bk)
     return rows
+
+
+def check_backward(torch, name, fn, twin, inputs, gen, bk=None, tol_div=32):
+    """A Function's backward (the reference's vjp policy) against autograd
+    through its plain twin, on the card, with one random cotangent per
+    output; each gradient within its largest magnitude / tol_div. bk is the
+    index of a key-projection bias, whose true gradient is 0 (a constant
+    shift of a score row): both sides give rounding noise there, held to
+    the value projection bias's tolerance (index bk + 2)."""
+    leaves = lambda: [t.detach().clone().requires_grad_(True) for t in inputs]
+    a, b = leaves(), leaves()
+    out = fn(*a)
+    outs = out if isinstance(out, tuple) else (out,)
+    cot = [torch.randn(o.shape, generator=gen, device=o.device).to(o.dtype) for o in outs]
+    got = torch.autograd.grad(outs, a, cot)
+    ref_out = twin(*b)
+    want = torch.autograd.grad(ref_out if isinstance(ref_out, tuple) else (ref_out,), b, cot)
+    torch.cuda.synchronize()
+    errs, tols = [], []
+    for i, (x, y) in enumerate(zip(got, want)):
+        if not bool(torch.isfinite(x.float()).all()):
+            raise AssertionError(f"{name} backward: gradient {i} is not finite")
+        ref = want[i + 2] if i == bk else y
+        errs.append((x.float() - y.float()).abs().max().item())
+        tols.append(ref.float().abs().max().item() / tol_div)
+    log(f"  {name} backward vs autograd through its twin: max abs err / tol per input "
+        + ", ".join(f"{e:.3g}/{t:.3g}" for e, t in zip(errs, tols)))
+    if any(e > t for e, t in zip(errs, tols)):
+        raise AssertionError(f"{name} backward disagrees with autograd through its twin")
+    return {"max_abs_err": errs, "tol": tols}
 
 
 def check_int8_kernel(torch, dev):
@@ -457,8 +528,316 @@ def check_int8_kernel(torch, dev):
     return rows
 
 
-_PORTED = ("gemm_bias_kernel", "attn_core_kernel", "attn_core_tiled_kernel", "ln_rows_kernel",
-           "flash_bshd_kernel", "fanout_kernel", "int8_mm_kernel")
+def _question_mask(torch, dev, g, n, s):
+    """(n, s) question masks of 4..s real tokens; the last row all PAD, as
+    Predictor's bucket padding makes."""
+    lengths = torch.randint(4, s + 1, (n,), generator=g, device=dev)
+    m = torch.arange(s, device=dev)[None, :] < lengths[:, None]
+    m[-1] = False
+    return m
+
+
+def check_layernorm(torch, name, x, scale, bias, eps=1e-6, iters=20):
+    """K7 against its plain twin (``_ln_exact``): in bf16 each element within
+    one bf16 step at its magnitude, in f32 within 1e-5 of the largest
+    magnitude, and in bf16 too within that (an output near 0, where the
+    bias cancels, whose f32 value differs by a rounding before the cast).
+    Times the kernel, the twin and ``F.layer_norm`` (timing only: its
+    variance is the two-pass one), with the bound (bytes)."""
+    import torch.nn.functional as F
+
+    from btia_tpu_torch.ops import norms as N
+
+    out = N.layernorm_fast(x, scale, bias, eps)
+    ref = N._ln_exact(x, scale, bias, eps)
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(out.float()).all()):
+        raise AssertionError(f"K7 {name}: kernel output is not finite")
+    diff = (out.float() - ref.float()).abs()
+    mag = ref.float().abs()
+    floor = 1e-5 * mag.max().item()
+    if x.dtype == torch.bfloat16:
+        step = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - 7)
+        bad = int((diff > step + floor).sum())
+    else:
+        bad = int((diff > floor).sum())
+    D = x.shape[-1]
+    ws, wb = scale.to(x.dtype), bias.to(x.dtype)
+    row = {
+        "shape": list(x.shape), "dtype": str(x.dtype).removeprefix("torch."),
+        "max_abs_err": diff.max().item(), "elements_off": bad,
+        "ms": cuda_time_ms(lambda: N.layernorm_fast(x, scale, bias, eps), iters),
+        "plain_ms": cuda_time_ms(lambda: N._ln_exact(x, scale, bias, eps), max(2, iters // 4)),
+        "library_ms": cuda_time_ms(lambda: F.layer_norm(x, (D,), ws, wb, eps), iters),
+    }
+    row["bound_ms"], row["bound_by"] = bound_ms(8 * x.numel(), 2 * nbytes(x) + nbytes(scale, bias))
+    log(f"  K7 {name} {tuple(x.shape)} {row['dtype']}: err {row['max_abs_err']:.4g}, {bad} elements "
+        f"beyond the limit; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        f"F.layer_norm {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    if bad:
+        raise AssertionError(f"K7 {name}: {bad} elements disagree with the plain twin")
+    return row
+
+
+def ops_api_phase(torch, dev, counters):
+    """Phase 2b: the ops API at full width. One main-path run through the
+    entry points a caller uses (``mha``, ``mha_bshd``, ``bicross_attention``,
+    ``bicross_bshd``, ``layernorm_fast``, and ``set_attention_impl``) with
+    every counter set to 0 just before and read just after (OPS_COUNTS);
+    then K5, K6 and K7 against their plain twins, timed beside the twin, a
+    library yardstick and the bound, and each Function's backward against
+    autograd through its twin."""
+    import torch.nn.functional as F
+
+    import btia_tpu_torch.ops as O
+    from btia_tpu_torch.ops import attention as A
+    from btia_tpu_torch.ops import bicross as BX
+    from btia_tpu_torch.ops import norms as N
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    bf = torch.bfloat16
+    randn = lambda *shape: torch.randn(*shape, generator=g, device=dev).to(bf)
+    t = lambda x: x.transpose(1, 2)  # (B, S, H, D) <-> (B, H, S, D), a view
+    ones = lambda b, n: torch.ones(b, n, dtype=torch.bool, device=dev)
+
+    B5, H5, S5, _, D5 = K5_VITL
+    q5, k5, v5 = (randn(B5, H5, S5, D5) for _ in range(3))
+    Bh, Hh, Sqh, Skh, Dh = K5_HEAD
+    qh, kh, vh = randn(Bh, Sqh, Hh, Dh), randn(Bh, Skh, Hh, Dh), randn(Bh, Skh, Hh, Dh)
+    mh = torch.cat([ones(Bh, N_VIT_B), _question_mask(torch, dev, g, Bh, SEQ)], 1)
+    Bp, Hp, Nip, Ntp, Dp = K6_POOLED
+    pooled = [randn(Bp, Hp, n, Dp) for n in (Nip, Nip, Nip, Ntp, Ntp, Ntp)]
+    mp = _question_mask(torch, dev, g, Bp, Ntp)
+    Bl, Hl, Nil, Ntl, Dl = K6_LONG
+    long_bshd = [randn(Bl, n, Hl, Dl) for n in (Nil, Nil, Nil, Ntl, Ntl, Ntl)]
+    ml = _question_mask(torch, dev, g, Bl, Ntl)
+    ln_in = {}
+    for name, M, D in K7_SHAPES:
+        x = (torch.randn(M, D, generator=g, device=dev) * 2 + 0.5).to(bf)
+        ln_in[name] = (x, 1 + 0.2 * torch.randn(D, generator=g, device=dev),
+                       0.1 * torch.randn(D, generator=g, device=dev))
+    x, sc, bi = ln_in["vit_l"]
+    ln_in["vit_l_f32"] = (x.float(), sc, bi)
+
+    # The main-path run.
+    torch.cuda.synchronize()
+    _zero(counters)
+    outs = {"k5_vitl": O.mha(q5, k5, v5, impl="pallas")}
+    O.set_attention_impl("pallas")
+    try:
+        outs["k5_switch"] = O.mha(q5, k5, v5)
+    finally:
+        O.set_attention_impl("auto")
+    outs["k5_head"] = O.mha_bshd(qh, kh, vh, mh)
+    outs["k6_pooled"] = O.bicross_attention(*pooled, mp, impl="pallas")
+    outs["k6_long"] = O.bicross_bshd(*long_bshd, ml)
+    for name, (x, sc, bi) in ln_in.items():
+        outs[f"k7_{name}"] = N.layernorm_fast(x, sc, bi, 1e-6)
+    torch.cuda.synchronize()
+    counts = [f.launches for f in counters]
+    log("phase 2b: the ops API's main-path run launched "
+        + ", ".join(f"{k} {c}" for k, c in zip(KERNELS, counts)))
+    if counts != OPS_COUNTS:
+        raise AssertionError(f"ops API launch counts {counts} != {OPS_COUNTS}")
+    shapes = {"k5_vitl": q5.shape, "k5_switch": q5.shape, "k5_head": qh.shape,
+              "k6_pooled": (pooled[0].shape, pooled[3].shape),
+              "k6_long": (long_bshd[0].shape, long_bshd[3].shape),
+              **{f"k7_{n}": x.shape for n, (x, _, _) in ln_in.items()}}
+    for name, out in outs.items():
+        got = tuple(o.shape for o in out) if isinstance(out, tuple) else out.shape
+        if got != shapes[name] or not bool(torch.isfinite(_flat_f32(out)).all()):
+            raise AssertionError(f"ops API {name}: shape {got} (expected {shapes[name]}) or not finite")
+    if not torch.equal(outs["k5_switch"], outs["k5_vitl"]):
+        raise AssertionError("mha() under set_attention_impl('pallas') differs from mha(impl='pallas')")
+    del outs
+
+    # Each kernel against its twin, timed.
+    rows = {}
+    sdpa = F.scaled_dot_product_attention
+    key_mask = lambda m: m[:, None, None, :]
+    rows["k5_vitl"] = run_case(
+        "K5 ViT-L mha(impl='pallas') (16 x 16 heads x 577, D 64)",
+        lambda: A.mha_bhsd_attention(q5, k5, v5),
+        lambda: A._mha_bhsd_plain(q5, k5, v5, None),
+        lambda: sdpa(q5, k5, v5),
+        4 * B5 * H5 * S5 * S5 * D5, nbytes(q5, k5, v5) + nbytes(q5), iters=20,
+    )
+    rows["k5_head"] = run_case(
+        "K5 AD head, mha_bshd long road (64 x 2048 <- 229, 8 heads, D 96)",
+        lambda: A.mha_bhsd_attention(t(qh), t(kh), t(vh), mh),
+        lambda: A._mha_bhsd_plain(t(qh), t(kh), t(vh), mh),
+        lambda: sdpa(t(qh), t(kh), t(vh), attn_mask=key_mask(mh)),
+        4 * Bh * Hh * Sqh * Skh * Dh, nbytes(qh, kh, vh, mh) + nbytes(qh), iters=10,
+    )
+    qi, ki, vi, qt, kt, vt = pooled
+    rows["k6_pooled"] = run_case(
+        "K6 bicross_attention(impl='pallas'), pooled BTIA (2048 x 12 heads, 50 <-> 32)",
+        lambda: BX.bicross_bhsd_attention(*pooled, mp),
+        lambda: BX._bicross_plain(*pooled, mp),
+        lambda: (sdpa(qi, kt, vt, attn_mask=key_mask(mp)), sdpa(qt, ki, vi)),
+        2 * 4 * Bp * Hp * Nip * Ntp * Dp, nbytes(*pooled, mp) + nbytes(qi, qt), iters=10,
+    )
+    lv = [t(x) for x in long_bshd]
+    rows["k6_long"] = run_case(
+        "K6 bicross_bshd long tile (16 x 12 heads, 577 <-> 64)",
+        lambda: BX.bicross_bhsd_attention(*lv, ml),
+        lambda: BX._bicross_plain(*lv, ml),
+        lambda: (sdpa(lv[0], lv[4], lv[5], attn_mask=key_mask(ml)), sdpa(lv[3], lv[1], lv[2])),
+        2 * 4 * Bl * Hl * Nil * Ntl * Dl, nbytes(*long_bshd, ml) + nbytes(lv[0], lv[3]), iters=20,
+    )
+    for name, (x, sc, bi) in ln_in.items():
+        rows[f"k7_{name}"] = check_layernorm(torch, name, x, sc, bi)
+    # K7's block-per-row kernel (1024 < D <= 4096), at widths no main path
+    # has: the largest it takes and a ragged one.
+    for M, D in ((4096, 4096), (3000, 1500)):
+        x = (torch.randn(M, D, generator=g, device=dev) * 2 + 0.5).to(bf)
+        sc, bi = 1 + 0.2 * torch.randn(D, generator=g, device=dev), 0.1 * torch.randn(D, generator=g, device=dev)
+        rows[f"k7_wide_{D}"] = check_layernorm(torch, f"wide {D}", x, sc, bi, iters=5)
+    # Every head-width template of K5 and K6 (D 16..128; the main paths run
+    # 64 and 96) at a small masked shape, each within max|twin| / 32.
+    widths = {}
+    for D in (16, 32, 48, 80, 112, 128):
+        q, k, v = randn(2, 4, 200, D), randn(2, 4, 300, D), randn(2, 4, 300, D)
+        m = torch.cat([ones(2, 1), _question_mask(torch, dev, g, 2, 299)], 1)
+        # K6 on strided views: 200 image tokens, 40 text tokens.
+        both = (q, k[:, :, :200], v[:, :, :200], *(x[:, :, :40] for x in (k, q, v)))
+        pairs = {"K5": (A.mha_bhsd_attention(q, k, v, m), A._mha_bhsd_plain(q, k, v, m)),
+                 "K6": (BX.bicross_bhsd_attention(*both, m[:, :40]), BX._bicross_plain(*both, m[:, :40]))}
+        for kname, (out, ref) in pairs.items():
+            out, ref = _flat_f32(out), _flat_f32(ref)
+            err, tol = (out - ref).abs().max().item(), ref.abs().max().item() / 32
+            widths[f"{kname}_D{D}"] = [err, tol]
+            if not (bool(torch.isfinite(out).all()) and err <= tol):
+                raise AssertionError(f"{kname} at D = {D}: err {err} > {tol} or not finite")
+    log("  K5 / K6 at every head-width template, max abs err / tol: "
+        + ", ".join(f"{n} {e:.3g}/{t:.3g}" for n, (e, t) in widths.items()))
+    rows["head_widths"] = widths
+
+    gb = torch.Generator(device=dev).manual_seed(4)
+    rows["K5_backward"] = check_backward(
+        torch, "K5", lambda a, b, c: O.mha(a, b, c, impl="pallas"),
+        lambda a, b, c: A._mha_bhsd_plain(a, b, c, None), [q5, k5, v5], gb)
+    rows["K6_backward"] = check_backward(
+        torch, "K6", lambda *xs: O.bicross_attention(*xs, mp, impl="pallas"),
+        lambda *xs: BX._bicross_plain(*xs, mp), pooled, gb)
+    # K7's backward is the vjp of _ln_exact, which is its twin: the same
+    # arithmetic, held to 1e-5 of each gradient's largest magnitude.
+    x, sc, bi = ln_in["vit_l"]
+    rows["K7_backward"] = check_backward(
+        torch, "K7", lambda a, b, c: N.layernorm_fast(a, b, c, 1e-6),
+        lambda a, b, c: N._ln_exact(a, b, c, 1e-6), [x, sc, bi], gb, tol_div=1e5)
+    torch.cuda.empty_cache()
+    return rows, counts
+
+
+def layernorm_census(torch, dev, step, counters):
+    """The standalone LayerNorms (the plain formula, ``ops/norms.py:
+    layernorm``) that one bf16 serve step runs, by (rows, width); then K7,
+    the plain formula and ``F.layer_norm`` timed at each shape, summed over
+    the step's count (what routing the model's LayerNorms through K7 would
+    change; the reference keeps them on the plain formula)."""
+    from btia_tpu_torch.models import bert, layers
+
+    census, dtypes = {}, set()
+    real = layers.layernorm
+
+    def spy(x, *a, **kw):
+        key = (x.numel() // x.shape[-1], x.shape[-1])
+        census[key] = census.get(key, 0) + 1
+        dtypes.add(str(x.dtype).removeprefix("torch."))
+        return real(x, *a, **kw)
+
+    layers.layernorm = bert.layernorm = spy
+    try:
+        step(0)
+    finally:
+        layers.layernorm = bert.layernorm = real
+    n = sum(census.values())
+    log(f"phase 4: one bf16 serve step runs {n} standalone LayerNorms ({sorted(dtypes)}): "
+        + ", ".join(f"{c} x ({m}, {d})" for (m, d), c in sorted(census.items())))
+    if census != SERVE_LN_CENSUS:
+        raise AssertionError(f"LayerNorm census {census} != {SERVE_LN_CENSUS}")
+    g = torch.Generator(device=dev).manual_seed(5)
+    launches = [f.launches for f in counters]
+    per_shape = {}
+    for (m, d), c in sorted(census.items()):
+        x = (torch.randn(m, d, generator=g, device=dev) * 2 + 0.5).to(torch.bfloat16)
+        sc, bi = 1 + 0.2 * torch.randn(d, generator=g, device=dev), 0.1 * torch.randn(d, generator=g, device=dev)
+        row = check_layernorm(torch, f"serve {m} x {d}", x, sc, bi)
+        per_shape[f"{m}x{d}"] = {"count": c, **{k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
+    for f, before in zip(counters, launches):
+        f.launches = before  # comparison launches are not main-path launches
+    total = lambda key: sum(r["count"] * r[key] for r in per_shape.values())
+    res = {"standalone_layernorms": n, "dtype": sorted(dtypes), "shapes": per_shape,
+           "k7_ms_per_step": total("ms"), "plain_ms_per_step": total("plain_ms"),
+           "library_ms_per_step": total("library_ms"), "bound_ms_per_step": total("bound_ms")}
+    log(json.dumps({"serve_step_layernorms": res}))
+    return res
+
+
+def switch_step(torch, step, counters, expected, what):
+    """One serve step under a routing switch (already set by the caller),
+    with every counter set to 0 just before and read just after."""
+    torch.cuda.synchronize()
+    _zero(counters)
+    vals, _ = step(0)
+    torch.cuda.synchronize()
+    counts = [f.launches for f in counters]
+    log(f"phase 4: one serve step under {what} launched "
+        + ", ".join(f"{k} {c}" for k, c in zip(KERNELS, counts)))
+    if counts != expected:
+        raise AssertionError(f"{what}: serve-step launch counts {counts} != {expected}")
+    if vals.shape != (B_IMG, N_Q, 5):
+        raise AssertionError(f"{what}: bad top-k")
+    step(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(TIMED_STEPS):
+        step(i)
+    torch.cuda.synchronize()
+    return counts, 1e3 * (time.perf_counter() - t0) / TIMED_STEPS
+
+
+def routing_switches_phase(torch, dev, smi, model, host_imgs, host_qids, serve_step, counters):
+    """Phase 4, switches: the bf16 serve step under set_attention_impl("xla")
+    (the plain road, K1-K8 launch 0 times) and under disable_fused() (K1, K2
+    0; K3 24 and K4 21 from the unfused sites' routing), each timed, and
+    each step's logits against the default step's within a tenth of the
+    largest logit."""
+    import btia_tpu_torch.ops as O
+
+    @torch.inference_mode()
+    def logits():
+        imgs = torch.from_numpy(host_imgs[0]).to(dev)
+        qids = torch.from_numpy(host_qids[0]).to(dev)
+        return model.answer_questions(model.encode_image(imgs), qids).float()
+
+    base = logits()
+    scale = base.abs().max().item()
+    res = {}
+    for what, expected in (("set_attention_impl('xla')", [0] * 8), ("disable_fused()", NO_FUSED_COUNTS)):
+        xla = what.startswith("set")
+        O.set_attention_impl("xla" if xla else "auto")
+        try:
+            with contextlib.nullcontext() if xla else O.disable_fused():
+                counts, ms = switch_step(torch, serve_step, counters, expected, what)
+                err = (logits() - base).abs().max().item()
+        finally:
+            O.set_attention_impl("auto")
+        res[what] = {"ms_per_step": ms, "pairs_per_s": B_IMG * N_Q / (ms / 1e3),
+                     "launches": dict(zip(KERNELS, counts)), "logits_max_abs_err_vs_default": err,
+                     "max_logit": scale}
+        # As phase 3: the plain road and the kernels round bf16 at other
+        # places in every one of the 40 layers.
+        if not err <= 0.1 * scale:
+            raise AssertionError(f"{what}: logits differ from the default step's by {err} > {0.1 * scale}")
+    log(json.dumps({"serve_step_switches": {**res, "card": smi}}))
+    return res
+
+
+_PORTED = ("gemm_bias_kernel", "attn_core_kernel", "attn_core_tiled_kernel", "ln_warp_kernel",
+           "ln_block_kernel", "flash_bshd_kernel", "fanout_kernel", "mha_bhsd_kernel", "bicross_kernel",
+           "int8_mm_kernel")
 
 
 def profile_step(torch, step, smi, what="serve_step"):
@@ -505,6 +884,19 @@ def profile_step(torch, step, smi, what="serve_step"):
         "top_kernels": [{"name": n[:90], "count": c, "ms": ms} for n, c, ms in top],
         "card": smi,
     }}))
+
+
+def launch_counters():
+    """The kernel entries' launch counters, K1..K8 (KERNELS)."""
+    from btia_tpu_torch.ops import attention as A
+    from btia_tpu_torch.ops import bicross as BX
+    from btia_tpu_torch.ops import fused_attn as FA
+    from btia_tpu_torch.ops import norms as N
+    from btia_tpu_torch.ops.quant import int8_matmul_fused
+
+    return (FA.fused_dense_attention, FA.fused_static_q_attention, A.bshd_flash_attention,
+            A.fanout_attention, A.mha_bhsd_attention, BX.bicross_bhsd_attention, N.layernorm_fast,
+            int8_matmul_fused)
 
 
 def _zero(counters) -> None:
@@ -563,8 +955,7 @@ def train_phase(torch, dev, smi, counters):
         log(f"  {REPEATS} steps on one batch of {B_TRAIN}: loss {[round(x, 4) for x in losses]}")
         if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
             raise AssertionError(f"the loss is not finite or does not fall: {losses}")
-        log(f"  one train step launched K1 {counts[0]}, K2 {counts[1]}, K3 {counts[2]}, "
-            f"K4 {counts[3]}, K8 {counts[4]} times")
+        log("  one train step launched " + ", ".join(f"{k} {c}" for k, c in zip(KERNELS, counts)))
         if counts != TRAIN_COUNTS:
             raise AssertionError(f"train-step launch counts {counts} != {TRAIN_COUNTS}")
         out["train_counts"] = counts
@@ -586,8 +977,8 @@ def train_phase(torch, dev, smi, counters):
         metrics = trainer.evaluate("test")
         torch.cuda.synchronize()
         eval_counts = [f.launches for f in counters]
-        log(f"  evaluate('test') at batch {cfg.train.eval_batch_size}: {json.dumps(metrics)}; "
-            f"launched K1 {eval_counts[0]}, K2 {eval_counts[1]}, K3 {eval_counts[2]}, K4 {eval_counts[3]}")
+        log(f"  evaluate('test') at batch {cfg.train.eval_batch_size}: {json.dumps(metrics)}; launched "
+            + ", ".join(f"{k} {c}" for k, c in zip(KERNELS, eval_counts)))
         if not 0.0 <= metrics.get("accuracy", -1.0) <= 1.0 or eval_counts != EVAL_COUNTS:
             raise AssertionError(f"evaluate: {metrics}, launch counts {eval_counts} != {EVAL_COUNTS}")
 
@@ -602,7 +993,7 @@ def train_phase(torch, dev, smi, counters):
             "config": "vqa_med_full", "batch": B_TRAIN, "steps": TIMED_TRAIN_STEPS,
             "ms_per_step": step_ms, "examples_per_s": B_TRAIN / (step_ms / 1e3),
             "peak_mem_gib": peak, "losses_repeated_batch": losses, "fit": row, "eval": metrics,
-            "launches": dict(zip(("K1", "K2", "K3", "K4", "K8"), counts)), "card": smi,
+            "launches": dict(zip(KERNELS, counts)), "card": smi,
         }
         del trainer, state, snapshot, batch
     torch.cuda.empty_cache()
@@ -668,7 +1059,7 @@ def train_step_vs_cpu(torch, dev, counters):
         "median_rel_l2": float(np.median(list(rel.values()))), "tensors_held": len(big),
         "tensors": len(names), "worst_rel_l2": rel[worst], "worst_param": worst,
         "worst_rel_l2_small": max(rel[n] for n in names if n not in big),
-        "cpu_seconds": cpu_s, "launches": dict(zip(("K1", "K2", "K3", "K4", "K8"), counts)),
+        "cpu_seconds": cpu_s, "launches": dict(zip(KERNELS, counts)),
     }
     log(f"  {json.dumps(res)}")
     # bf16 on both sides, rounded at other places by the kernels and the
@@ -702,7 +1093,7 @@ def serve_step_fn(torch, dev, model, host_imgs, host_qids, limit):
 def int8_serve_phase(torch, dev, smi, bf16_model, host_imgs, host_qids, counters):
     """Phase 4b: full-width streaming_vitl with int8_ffn, the same seeded
     weights as the bf16 model: one 16 x 128 step with every counter set to
-    0 just before and read just after (K1 20, K2 1, K3 24, K4 0, K8 90),
+    0 just before and read just after (K1 20, K2 1, K3 24, K8 90, the others 0),
     timed steps, logits against the same model on the CPU, and top-1
     agreement with the bf16 model (reported, not held)."""
     import numpy as np
@@ -722,8 +1113,7 @@ def int8_serve_phase(torch, dev, smi, bf16_model, host_imgs, host_qids, counters
     vals, _ = step(0)
     torch.cuda.synchronize()
     counts = [f.launches for f in counters]
-    log(f"phase 4b: one int8 serve step launched K1 {counts[0]}, K2 {counts[1]}, K3 {counts[2]}, "
-        f"K4 {counts[3]}, K8 {counts[4]} times")
+    log("phase 4b: one int8 serve step launched " + ", ".join(f"{k} {c}" for k, c in zip(KERNELS, counts)))
     if counts != INT8_COUNTS:
         raise AssertionError(f"int8 serve-step launch counts {counts} != {INT8_COUNTS}")
     if vals.shape != (B_IMG, N_Q, 5) or not np.isfinite(vals).all():
@@ -755,7 +1145,7 @@ def int8_serve_phase(torch, dev, smi, bf16_model, host_imgs, host_qids, counters
     res = {
         "config": "streaming_vitl + model.int8_ffn", "images": B_IMG, "questions_per_image": N_Q,
         "steps": TIMED_STEPS, "ms_per_step": step_ms, "pairs_per_s": B_IMG * N_Q / (step_ms / 1e3),
-        "peak_mem_gib": peak, "launches": dict(zip(("K1", "K2", "K3", "K4", "K8"), counts)),
+        "peak_mem_gib": peak, "launches": dict(zip(KERNELS, counts)),
         "top1_agreement_with_bf16": agree, "card_vs_cpu_max_abs_err": err,
         "card_vs_cpu_max_logit": scale, "card": smi,
     }
@@ -905,9 +1295,6 @@ def main() -> int:
     from btia_tpu_torch.infer.predict import Predictor
     from btia_tpu_torch.models.model import build_model
     from btia_tpu_torch.ops import _native
-    from btia_tpu_torch.ops import attention as A
-    from btia_tpu_torch.ops import fused_attn as FA
-    from btia_tpu_torch.ops.quant import int8_matmul_fused
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -923,6 +1310,9 @@ def main() -> int:
     log("phase 2: kernels vs plain twins (bf16, serving-step shapes)")
     rows = check_kernels(torch, dev)
     int8_rows = check_int8_kernel(torch, dev)
+    counters = launch_counters()
+    ops_rows, ops_counts = ops_api_phase(torch, dev, counters)
+    rows.update(ops_rows)
 
     # Phase 3: Predictor on full-width streaming_vitl.
     cfg = get_config("streaming_vitl")
@@ -942,8 +1332,6 @@ def main() -> int:
     rng = np.random.RandomState(0)
     size = pred.ingest_size
     images = [rng.randint(0, 256, (size, size, 3)).astype(np.uint8) for _ in range(3)]
-    counters = (FA.fused_dense_attention, FA.fused_static_q_attention, A.bshd_flash_attention,
-                A.fanout_attention, int8_matmul_fused)
     _zero(counters)
     for img, n in zip(images, (1, 5, 8)):
         logits = pred.predict_batch(img, corpus[:n])
@@ -954,8 +1342,8 @@ def main() -> int:
             raise AssertionError(f"predict_answers returned {got}")
         log(f"  image of {n} question(s): {got}")
     counts = [f.launches for f in counters]
-    if counts != [20 * 6, 1 * 6, 24 * 6, 0, 0]:
-        raise AssertionError(f"Predictor launch counts {counts} != [120, 6, 144, 0, 0]")
+    if counts != [6 * c for c in SERVE_COUNTS]:
+        raise AssertionError(f"Predictor launch counts {counts} != {[6 * c for c in SERVE_COUNTS]}")
     # The same model on the CPU (plain twins) as the reference.
     ref_model = copy.deepcopy(model).to("cpu")
     with torch.inference_mode():
@@ -985,8 +1373,7 @@ def main() -> int:
     vals, idx = serve_step(0)
     torch.cuda.synchronize()
     counts = [f.launches for f in counters]
-    log(f"phase 4: one serve step launched K1 {counts[0]}, K2 {counts[1]}, K3 {counts[2]}, "
-        f"K4 {counts[3]}, K8 {counts[4]} times")
+    log("phase 4: one serve step launched " + ", ".join(f"{k} {c}" for k, c in zip(KERNELS, counts)))
     if counts != SERVE_COUNTS:
         raise AssertionError(f"serve-step launch counts {counts} != {SERVE_COUNTS}")
     if vals.shape != (B_IMG, N_Q, 5) or not np.isfinite(vals).all():
@@ -1014,6 +1401,8 @@ def main() -> int:
             "card": smi,
         }
     }))
+    switches = routing_switches_phase(torch, dev, smi, model, host_imgs, host_qids, serve_step, counters)
+    ln_census = layernorm_census(torch, dev, serve_step, counters)
 
     # Phases 4b and 4c: int8 serving, a timed step and the streaming server.
     model8, cfg8, int8_counts, int8_res = int8_serve_phase(
@@ -1029,8 +1418,8 @@ def main() -> int:
     train["train_step"]["card_vs_cpu"] = train_step_vs_cpu(torch, dev, counters)
     log(json.dumps({"train_step": train["train_step"]}))
 
-    by_path = [{"serve_step": a, "int8_serve_step": c, "train_step": b}
-               for a, b, c in zip(main_counts, train["train_counts"], int8_counts)]
+    by_path = [{"serve_step": a, "int8_serve_step": c, "train_step": b, "ops_api": d}
+               for a, b, c, d in zip(main_counts, train["train_counts"], int8_counts, ops_counts)]
     k1_sites = ("bert", "btia_i2t", "btia_t2i", "med_bert", "med_i2t", "med_t2i")
     entries = [
         ("fused_dense_attention", "btia_tpu_torch/csrc/fused_attn.cu",
@@ -1042,6 +1431,12 @@ def main() -> int:
         ("fanout_attention", "btia_tpu_torch/csrc/fanout.cu",
          "btia_tpu/ops/attention.py:349", 3, rows["k4_bert"], ("k4_bert", "k4_i2t", "k4_t2i"),
          "K4_backward"),
+        ("mha_bhsd_attention", "btia_tpu_torch/csrc/mha_bhsd.cu",
+         "btia_tpu/ops/attention.py:160", 4, rows["k5_vitl"], ("k5_vitl", "k5_head"), "K5_backward"),
+        ("bicross_bhsd_attention", "btia_tpu_torch/csrc/bicross.cu",
+         "btia_tpu/ops/bicross.py:87", 5, rows["k6_pooled"], ("k6_pooled", "k6_long"), "K6_backward"),
+        ("layernorm_fast", "btia_tpu_torch/csrc/layernorm.cu", "btia_tpu/ops/norms.py:30", 6,
+         rows["k7_head"], tuple(f"k7_{n}" for n, _, _ in K7_SHAPES) + ("k7_vit_l_f32",), "K7_backward"),
     ]
     kernels = []
     for name, src, replaces, i, r, sites, bwd in entries:
@@ -1053,11 +1448,12 @@ def main() -> int:
         if sites:
             e["sites"] = {s: rows[s] for s in sites}
         kernels.append(e)
+    kernels[6]["serve_step_layernorms"] = ln_census
     r = int8_rows["txt_fc1"]  # the BERT / BTIA-text fc1 shape, 16 launches a step
     kernels.append({
         "name": "int8_matmul_fused", "route": "cuda", "source": "btia_tpu_torch/csrc/int8_mm.cu",
-        "replaces": "btia_tpu/ops/quant.py:87", "launches": sum(by_path[4].values()),
-        "launches_by_path": by_path[4], "max_abs_err": max(x["max_abs_err"] for x in int8_rows.values()),
+        "replaces": "btia_tpu/ops/quant.py:87", "launches": sum(by_path[7].values()),
+        "launches_by_path": by_path[7], "max_abs_err": max(x["max_abs_err"] for x in int8_rows.values()),
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": r["library_ms"], "library": r["library"], "bf16_matmul_ms": r["bf16_matmul_ms"],
         "ms_per_step": sum(x["ms"] * x["launches_per_step"] for x in int8_rows.values()),
@@ -1067,6 +1463,9 @@ def main() -> int:
     log(json.dumps({"summary": {
         "serve_ms": step_ms, "int8_serve_ms": int8_res["ms_per_step"],
         "train_ms": train["train_step"]["ms_per_step"],
+        "serve_ms_by_switch": {w: v["ms_per_step"] for w, v in switches.items()},
+        "serve_layernorms": [ln_census["standalone_layernorms"], ln_census["k7_ms_per_step"],
+                             ln_census["plain_ms_per_step"]],
         "stream_pairs_per_s": {m: v["pairs_per_s"] for m, v in stream.items()},
         "stream_p50_p99_ms": {m: [v["latency"]["p50_ms"], v["latency"]["p99_ms"]] for m, v in stream.items()},
     }}))

@@ -101,6 +101,29 @@ def test_serving_modules_import_alone():
     assert res.stdout.strip() == "[]"
 
 
+_OPS_MODULES = (
+    "btia_tpu_torch.ops.bicross", "btia_tpu_torch.ops.norms", "btia_tpu_torch.ops.attention",
+    "btia_tpu_torch.ops",
+)
+
+
+@pytest.mark.parametrize("module", _OPS_MODULES)
+def test_ops_api_modules_import_alone(module):
+    """The ops API (K5's, K6's and K7's modules, and the package that exports
+    the reference's names), imported by itself, pulls in no JAX and no module
+    of the reference package, and builds nothing."""
+    probe = (
+        "import importlib, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "from btia_tpu_torch.ops import _native\n"
+        "print(sorted(k for k in sys.modules if k.split('.')[0] in ('jax', 'flax', 'btia_tpu')),"
+        " _native.lib.cache_info().currsize)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", probe], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[] 0"
+
+
 def test_chip_smoke_imports_no_jax():
     import ast
 
