@@ -8,10 +8,6 @@
 
 typedef __nv_bfloat16 bf16;
 
-// Head width every attention kernel here is written for (ViT-L, BERT-base,
-// BTIA and the AD head all use D = 64); the Python wrappers raise otherwise.
-constexpr int kHeadDim = 64;
-
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
@@ -38,13 +34,15 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Copy `rows` x 64 bf16 (one head slice per row) from global memory with row
+// Copy `rows` x D bf16 (one head slice per row) from global memory with row
 // stride `stride` elements into shared memory with row stride `lds`; rows in
-// [rows, rows_pad) are zero-filled. 16-byte chunks, 8 per row.
+// [rows, rows_pad) are zero-filled. 16-byte chunks, D / 8 per row.
+template <int D>
 __device__ __forceinline__ void load_head_rows(bf16* dst, int lds, const bf16* src, long long stride,
                                                int rows, int rows_pad, int tid, int nthreads) {
-  for (int c = tid; c < rows_pad * 8; c += nthreads) {
-    int r = c >> 3, col = (c & 7) * 8;
+  constexpr int CH = D / 8;
+  for (int c = tid; c < rows_pad * CH; c += nthreads) {
+    int r = c / CH, col = (c % CH) * 8;
     uint4 val = make_uint4(0u, 0u, 0u, 0u);
     if (r < rows) val = *reinterpret_cast<const uint4*>(src + r * stride + col);
     *reinterpret_cast<uint4*>(dst + r * lds + col) = val;

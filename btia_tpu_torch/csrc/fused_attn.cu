@@ -133,20 +133,25 @@ gemm_bias_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W, const f
 }
 
 // ---------------------------------------------------------------------------
-// Attention core, D = 64. q is pre-scaled by scale*log2(e). q_bs == 0 shares
-// one query table across the batch (K2). mask: (B, Sk) f32 {0, 1} or null.
-// o: (B, Sq, H*64). Two paths, chosen by btia_attn_core:
-//  * Sq, Sk <= 128: one block per (batch row, head) holding the whole score
-//    tile in shared memory (attn_core_kernel, the serving shapes);
-//  * anything larger (the reference admits any Sq*Sk <= 32768, e.g. the
+// Attention core at head width D = 64, 128, 192 or 256 (a template
+// parameter). q is pre-scaled by scale*log2(e). q_bs == 0 shares one query
+// table across the batch (K2). mask: (B, Sk) f32 {0, 1} or null. o:
+// (B, Sq, H*D). Two paths, chosen by btia_attn_core:
+//  * Sq, Sk <= 128 where the block's tiles fit in the 232,448 bytes of
+//    shared memory a block may use: one block per (batch row, head) holding
+//    the whole score tile (attn_core_kernel, the serving shapes). At
+//    Sq = Sk = 128 that holds up to D = 128 (207,360 bytes); at D = 192 or
+//    256 it holds the short sites (the 32 x 32 text and 64 x 82 answer
+//    tiles), and 128 x 128 takes the tiled path;
+//  * anything else (the reference admits any Sq*Sk <= 32768, e.g. the
 //    197 x 32 and 32 x 197 BTIA sites of ViT-B/16 configs): one block per
 //    (64-row q tile, head, batch row) streaming 64-key tiles through an
 //    online softmax (attn_core_tiled_kernel, masked_flash.cuh).
 // ---------------------------------------------------------------------------
 
 constexpr int AT_THREADS = 128;
-constexpr int kWholeTileSeq = 128;  // largest Sq / Sk of the whole-tile path
-constexpr int AT_LDH = kHeadDim + 8;  // bf16 row stride of q/k/v tiles
+constexpr int kWholeTileSeq = 128;   // largest Sq / Sk of the whole-tile path
+constexpr size_t kMaxSmem = 232448;  // dynamic shared memory one block may use
 
 struct CoreLayout {
   int sqp, skp, lds, ldp;
@@ -155,16 +160,19 @@ struct CoreLayout {
 
 __host__ __device__ inline size_t align128(size_t x) { return (x + 127) & ~static_cast<size_t>(127); }
 
+// D + 8: the bf16 row stride of the q/k/v tiles.
+template <int D>
 __host__ __device__ inline CoreLayout core_layout(int Sq, int Sk) {
+  constexpr int LDH = D + 8;
   CoreLayout L;
   L.sqp = (Sq + 15) / 16 * 16;
   L.skp = (Sk + 15) / 16 * 16;
-  L.lds = (L.skp > kHeadDim ? L.skp : kHeadDim) + 4;  // f32 scores, then f32 PV output
-  L.ldp = L.skp + 8;                                   // bf16 probabilities
+  L.lds = (L.skp > D ? L.skp : D) + 4;  // f32 scores, then f32 PV output
+  L.ldp = L.skp + 8;                    // bf16 probabilities
   size_t off = 0;
-  L.q_off = off; off = align128(off + sizeof(bf16) * L.sqp * AT_LDH);
-  L.k_off = off; off = align128(off + sizeof(bf16) * L.skp * AT_LDH);
-  L.v_off = off; off = align128(off + sizeof(bf16) * L.skp * AT_LDH);
+  L.q_off = off; off = align128(off + sizeof(bf16) * L.sqp * LDH);
+  L.k_off = off; off = align128(off + sizeof(bf16) * L.skp * LDH);
+  L.v_off = off; off = align128(off + sizeof(bf16) * L.skp * LDH);
   L.s_off = off; off = align128(off + sizeof(float) * L.sqp * L.lds);
   L.p_off = off; off = align128(off + sizeof(bf16) * L.sqp * L.ldp);
   L.d_off = off; off = align128(off + sizeof(float) * L.sqp);
@@ -172,12 +180,14 @@ __host__ __device__ inline CoreLayout core_layout(int Sq, int Sk) {
   return L;
 }
 
+template <int D>
 __global__ void __launch_bounds__(AT_THREADS)
 attn_core_kernel(const bf16* __restrict__ q, long long q_bs, int q_rs, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, long long kv_bs, int kv_rs, const float* __restrict__ mask,
                  bf16* __restrict__ o, int H, int Sq, int Sk) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const CoreLayout L = core_layout(Sq, Sk);
+  constexpr int LDH = D + 8;
+  const CoreLayout L = core_layout<D>(Sq, Sk);
   bf16* qs = reinterpret_cast<bf16*>(smem + L.q_off);
   bf16* ks = reinterpret_cast<bf16*>(smem + L.k_off);
   bf16* vs = reinterpret_cast<bf16*>(smem + L.v_off);
@@ -189,9 +199,9 @@ attn_core_kernel(const bf16* __restrict__ q, long long q_bs, int q_rs, const bf1
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int nwarps = AT_THREADS / 32;
 
-  load_head_rows(qs, AT_LDH, q + b * q_bs + h * kHeadDim, q_rs, Sq, L.sqp, tid, AT_THREADS);
-  load_head_rows(ks, AT_LDH, k + b * kv_bs + h * kHeadDim, kv_rs, Sk, L.skp, tid, AT_THREADS);
-  load_head_rows(vs, AT_LDH, v + b * kv_bs + h * kHeadDim, kv_rs, Sk, L.skp, tid, AT_THREADS);
+  load_head_rows<D>(qs, LDH, q + b * q_bs + h * D, q_rs, Sq, L.sqp, tid, AT_THREADS);
+  load_head_rows<D>(ks, LDH, k + b * kv_bs + h * D, kv_rs, Sk, L.skp, tid, AT_THREADS);
+  load_head_rows<D>(vs, LDH, v + b * kv_bs + h * D, kv_rs, Sk, L.skp, tid, AT_THREADS);
   __syncthreads();
 
   // S = q k^T (log2 domain), f32 in shared memory.
@@ -201,11 +211,11 @@ attn_core_kernel(const bf16* __restrict__ q, long long q_bs, int q_rs, const bf1
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
     wmma::fill_fragment(acc, 0.f);
 #pragma unroll
-    for (int kk = 0; kk < kHeadDim; kk += 16) {
+    for (int kk = 0; kk < D; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
       wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
-      wmma::load_matrix_sync(a, qs + ti * 16 * AT_LDH + kk, AT_LDH);
-      wmma::load_matrix_sync(bt, ks + tj * 16 * AT_LDH + kk, AT_LDH);
+      wmma::load_matrix_sync(a, qs + ti * 16 * LDH + kk, LDH);
+      wmma::load_matrix_sync(bt, ks + tj * 16 * LDH + kk, LDH);
       wmma::mma_sync(acc, a, bt, acc);
     }
     wmma::store_matrix_sync(ss + ti * 16 * L.lds + tj * 16, acc, L.lds, wmma::mem_row_major);
@@ -249,41 +259,42 @@ attn_core_kernel(const bf16* __restrict__ q, long long q_bs, int q_rs, const bf1
   __syncthreads();
 
   // O = P V, f32 into the (now free) score buffer.
-  for (int t = warp; t < tq * (kHeadDim / 16); t += nwarps) {
-    const int ti = t / (kHeadDim / 16), tj = t % (kHeadDim / 16);
+  for (int t = warp; t < tq * (D / 16); t += nwarps) {
+    const int ti = t / (D / 16), tj = t % (D / 16);
     wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
     wmma::fill_fragment(acc, 0.f);
     for (int kk = 0; kk < L.skp; kk += 16) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
       wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
       wmma::load_matrix_sync(a, ps + ti * 16 * L.ldp + kk, L.ldp);
-      wmma::load_matrix_sync(bv, vs + kk * AT_LDH + tj * 16, AT_LDH);
+      wmma::load_matrix_sync(bv, vs + kk * LDH + tj * 16, LDH);
       wmma::mma_sync(acc, a, bv, acc);
     }
     wmma::store_matrix_sync(ss + ti * 16 * L.lds + tj * 16, acc, L.lds, wmma::mem_row_major);
   }
   __syncthreads();
 
-  bf16* ob = o + (static_cast<long long>(b) * Sq * H + h) * kHeadDim;
-  for (int idx = tid; idx < Sq * kHeadDim; idx += AT_THREADS) {
-    const int r = idx / kHeadDim, c = idx % kHeadDim;
-    ob[static_cast<long long>(r) * H * kHeadDim + c] = __float2bfloat16(ss[r * L.lds + c] / den[r]);
+  bf16* ob = o + (static_cast<long long>(b) * Sq * H + h) * D;
+  for (int idx = tid; idx < Sq * D; idx += AT_THREADS) {
+    const int r = idx / D, c = idx % D;
+    ob[static_cast<long long>(r) * H * D + c] = __float2bfloat16(ss[r * L.lds + c] / den[r]);
   }
 }
 
+template <int D>
 __global__ void __launch_bounds__(MF_THREADS)
 attn_core_tiled_kernel(const bf16* __restrict__ q, long long q_bs, int q_rs, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, long long kv_bs, int kv_rs, const float* __restrict__ mask,
                        bf16* __restrict__ o, int H, int Sq, int Sk) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  MaskedFlashSmem& sm = *reinterpret_cast<MaskedFlashSmem*>(smem_raw);
+  MaskedFlashSmem<D>& sm = *reinterpret_cast<MaskedFlashSmem<D>*>(smem_raw);
   const int nqt = (Sq + MF_T - 1) / MF_T;
   const int q0 = (blockIdx.x % nqt) * MF_T, b = blockIdx.x / nqt, h = blockIdx.y;
-  const long long o_rs = static_cast<long long>(H) * kHeadDim;
-  masked_flash_tile(sm, q + b * q_bs + static_cast<long long>(q0) * q_rs + h * kHeadDim, q_rs,
-                    min(MF_T, Sq - q0), 1.f, k + b * kv_bs + h * kHeadDim, v + b * kv_bs + h * kHeadDim, kv_rs,
-                    Sk, mask != nullptr ? mask + static_cast<long long>(b) * Sk : nullptr,
-                    o + (static_cast<long long>(b) * Sq + q0) * o_rs + h * kHeadDim, o_rs);
+  const long long o_rs = static_cast<long long>(H) * D;
+  masked_flash_tile<D>(sm, q + b * q_bs + static_cast<long long>(q0) * q_rs + h * D, q_rs, min(MF_T, Sq - q0), 1.f,
+                       k + b * kv_bs + h * D, v + b * kv_bs + h * D, kv_rs, Sk,
+                       mask != nullptr ? mask + static_cast<long long>(b) * Sk : nullptr,
+                       o + (static_cast<long long>(b) * Sq + q0) * o_rs + h * D, o_rs);
 }
 
 // ---------------------------------------------------------------------------
@@ -300,26 +311,38 @@ extern "C" int btia_gemm_bias(const void* A, const void* W, const void* bias, co
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int btia_attn_core(const void* q, long long q_bs, int q_rs, const void* k, const void* v,
-                              long long kv_bs, int kv_rs, const void* mask, void* o, int B, int H, int Sq,
-                              int Sk, void* stream) {
-  if (Sq > kWholeTileSeq || Sk > kWholeTileSeq) {
-    const int bytes = static_cast<int>(sizeof(MaskedFlashSmem));
+template <int D>
+static int launch_attn_core(const void* q, long long q_bs, int q_rs, const void* k, const void* v, long long kv_bs,
+                            int kv_rs, const void* mask, void* o, int B, int H, int Sq, int Sk, cudaStream_t stream) {
+  const CoreLayout L = core_layout<D>(Sq, Sk);
+  if (Sq > kWholeTileSeq || Sk > kWholeTileSeq || L.bytes > kMaxSmem) {
+    const int bytes = static_cast<int>(sizeof(MaskedFlashSmem<D>));
     cudaError_t err =
-        cudaFuncSetAttribute(attn_core_tiled_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+        cudaFuncSetAttribute(attn_core_tiled_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return static_cast<int>(err);
     dim3 grid(B * ((Sq + MF_T - 1) / MF_T), H);
-    attn_core_tiled_kernel<<<grid, MF_THREADS, bytes, static_cast<cudaStream_t>(stream)>>>(
+    attn_core_tiled_kernel<D><<<grid, MF_THREADS, bytes, stream>>>(
         static_cast<const bf16*>(q), q_bs, q_rs, static_cast<const bf16*>(k), static_cast<const bf16*>(v), kv_bs,
         kv_rs, static_cast<const float*>(mask), static_cast<bf16*>(o), H, Sq, Sk);
     return static_cast<int>(cudaGetLastError());
   }
-  const CoreLayout L = core_layout(Sq, Sk);
-  cudaError_t err = cudaFuncSetAttribute(attn_core_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(attn_core_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(L.bytes));
   if (err != cudaSuccess) return static_cast<int>(err);
-  attn_core_kernel<<<B * H, AT_THREADS, L.bytes, static_cast<cudaStream_t>(stream)>>>(
+  attn_core_kernel<D><<<B * H, AT_THREADS, L.bytes, stream>>>(
       static_cast<const bf16*>(q), q_bs, q_rs, static_cast<const bf16*>(k), static_cast<const bf16*>(v), kv_bs,
       kv_rs, static_cast<const float*>(mask), static_cast<bf16*>(o), H, Sq, Sk);
   return static_cast<int>(cudaGetLastError());
+}
+
+// D is 64, 128, 192 or 256.
+extern "C" int btia_attn_core(const void* q, long long q_bs, int q_rs, const void* k, const void* v,
+                              long long kv_bs, int kv_rs, const void* mask, void* o, int B, int H, int D, int Sq,
+                              int Sk, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64) return launch_attn_core<64>(q, q_bs, q_rs, k, v, kv_bs, kv_rs, mask, o, B, H, Sq, Sk, s);
+  if (D == 128) return launch_attn_core<128>(q, q_bs, q_rs, k, v, kv_bs, kv_rs, mask, o, B, H, Sq, Sk, s);
+  if (D == 192) return launch_attn_core<192>(q, q_bs, q_rs, k, v, kv_bs, kv_rs, mask, o, B, H, Sq, Sk, s);
+  if (D == 256) return launch_attn_core<256>(q, q_bs, q_rs, k, v, kv_bs, kv_rs, mask, o, B, H, Sq, Sk, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }

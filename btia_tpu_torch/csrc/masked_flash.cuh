@@ -15,7 +15,10 @@
 // probabilities before PV. Keys beyond Sk (tile padding) are -inf and 0.
 //
 // Layout: four warps, each owning 16 query rows; bf16 wmma products with
-// fp32 accumulation; no score or probability tile reaches device memory.
+// fp32 accumulation, PV accumulated straight into the warp's f32 output rows
+// in shared memory; no score or probability tile reaches device memory.
+// The head width D is a template parameter, a multiple of 64 up to 256
+// (at D = 256 the block holds 194,560 bytes).
 
 #pragma once
 
@@ -23,16 +26,19 @@
 
 constexpr int MF_T = 64;           // query rows per block and keys per tile
 constexpr int MF_THREADS = 128;    // 4 warps x 16 query rows
-constexpr int MF_LDH = kHeadDim + 8;
-constexpr int MF_LDF = kHeadDim + 4;
 
+template <int D>
 struct MaskedFlashSmem {
-  bf16 q[MF_T][MF_LDH];
-  bf16 k[MF_T][MF_LDH];
-  bf16 v[MF_T][MF_LDH];
-  float s[4][16][MF_LDF];  // per-warp scores, then per-warp PV partials
-  bf16 p[4][16][MF_LDH];   // per-warp probabilities
-  float o[4][16][MF_LDF];  // per-warp output accumulators
+  static constexpr int LDH = D + 8;                        // bf16 q/k/v rows
+  static constexpr int LDP = MF_T + 8;                     // bf16 probabilities
+  static constexpr int LDF = MF_T + 4;                     // f32 scores
+  static constexpr int LDO = D + 4;                        // f32 accumulators
+  bf16 q[MF_T][LDH];
+  bf16 k[MF_T][LDH];
+  bf16 v[MF_T][LDH];
+  float s[4][16][LDF];  // per-warp scores
+  bf16 p[4][16][LDP];   // per-warp probabilities
+  float o[4][16][LDO];  // per-warp output accumulators
 };
 
 // qb: first of the tile's nq (<= 64) query rows of this head, row stride
@@ -41,28 +47,30 @@ struct MaskedFlashSmem {
 // and value row 0 of this head, row stride kv_rs. mrow: this batch row's
 // (Sk,) f32 {0, 1} key mask, or null for all keys valid. ob: output row 0
 // of the tile, row stride o_rs.
-__device__ __forceinline__ void masked_flash_tile(MaskedFlashSmem& sm, const bf16* __restrict__ qb, long long q_rs,
+template <int D>
+__device__ __forceinline__ void masked_flash_tile(MaskedFlashSmem<D>& sm, const bf16* __restrict__ qb, long long q_rs,
                                                   int nq, float qscale, const bf16* __restrict__ kb,
                                                   const bf16* __restrict__ vb, long long kv_rs, int Sk,
                                                   const float* __restrict__ mrow, bf16* __restrict__ ob,
                                                   long long o_rs) {
   using namespace nvcuda;
+  using S = MaskedFlashSmem<D>;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   // Warps whose 16 rows are all past nq skip the arithmetic (they still
   // take part in the block's loads and barriers).
   const bool active = warp * 16 < nq;
 
-  for (int c = tid; c < MF_T * kHeadDim; c += MF_THREADS) {
-    const int r = c / kHeadDim, col = c % kHeadDim;
+  for (int c = tid; c < MF_T * D; c += MF_THREADS) {
+    const int r = c / D, col = c % D;
     const float x = r < nq ? __bfloat162float(qb[r * q_rs + col]) * qscale : 0.f;
     sm.q[r][col] = __float2bfloat16(x);
   }
-  for (int c = lane; c < 16 * kHeadDim; c += 32) sm.o[warp][c / kHeadDim][c % kHeadDim] = 0.f;
+  for (int c = lane; c < 16 * D; c += 32) sm.o[warp][c / D][c % D] = 0.f;
   __syncthreads();
 
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[kHeadDim / 16];
+  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qa[D / 16];
 #pragma unroll
-  for (int kk = 0; kk < kHeadDim / 16; ++kk) wmma::load_matrix_sync(qa[kk], &sm.q[warp * 16][kk * 16], MF_LDH);
+  for (int kk = 0; kk < D / 16; ++kk) wmma::load_matrix_sync(qa[kk], &sm.q[warp * 16][kk * 16], S::LDH);
 
   float m_run[16], l_run[16];
 #pragma unroll
@@ -76,8 +84,8 @@ __device__ __forceinline__ void masked_flash_tile(MaskedFlashSmem& sm, const bf1
     const int k0 = kt * MF_T;
     const int nk = min(MF_T, Sk - k0);
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_head_rows(&sm.k[0][0], MF_LDH, kb + k0 * kv_rs, kv_rs, nk, MF_T, tid, MF_THREADS);
-    load_head_rows(&sm.v[0][0], MF_LDH, vb + k0 * kv_rs, kv_rs, nk, MF_T, tid, MF_THREADS);
+    load_head_rows<D>(&sm.k[0][0], S::LDH, kb + k0 * kv_rs, kv_rs, nk, MF_T, tid, MF_THREADS);
+    load_head_rows<D>(&sm.v[0][0], S::LDH, vb + k0 * kv_rs, kv_rs, nk, MF_T, tid, MF_THREADS);
     __syncthreads();
     if (!active) continue;
 
@@ -87,12 +95,12 @@ __device__ __forceinline__ void masked_flash_tile(MaskedFlashSmem& sm, const bf1
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
       wmma::fill_fragment(acc, 0.f);
 #pragma unroll
-      for (int kk = 0; kk < kHeadDim / 16; ++kk) {
+      for (int kk = 0; kk < D / 16; ++kk) {
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
-        wmma::load_matrix_sync(bt, &sm.k[tj * 16][kk * 16], MF_LDH);
+        wmma::load_matrix_sync(bt, &sm.k[tj * 16][kk * 16], S::LDH);
         wmma::mma_sync(acc, qa[kk], bt, acc);
       }
-      wmma::store_matrix_sync(&sm.s[warp][0][tj * 16], acc, MF_LDF, wmma::mem_row_major);
+      wmma::store_matrix_sync(&sm.s[warp][0][tj * 16], acc, S::LDF, wmma::mem_row_major);
     }
     __syncwarp();
 
@@ -113,30 +121,25 @@ __device__ __forceinline__ void masked_flash_tile(MaskedFlashSmem& sm, const bf1
       m_run[r] = m_new;
       sm.p[warp][r][j0] = __float2bfloat16(e0);
       sm.p[warp][r][j1] = __float2bfloat16(e1);
-      sm.o[warp][r][j0] *= alpha;
-      sm.o[warp][r][j1] *= alpha;
+#pragma unroll
+      for (int c = lane; c < D; c += 32) sm.o[warp][r][c] *= alpha;
     }
     __syncwarp();
 
-    // PV partial for this tile into the score buffer, then accumulate.
+    // O += P V for this tile, accumulated in place.
 #pragma unroll
-    for (int tj = 0; tj < kHeadDim / 16; ++tj) {
+    for (int tj = 0; tj < D / 16; ++tj) {
       wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.f);
+      wmma::load_matrix_sync(acc, &sm.o[warp][0][tj * 16], S::LDO, wmma::mem_row_major);
 #pragma unroll
       for (int kk = 0; kk < MF_T / 16; ++kk) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> pa;
         wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-        wmma::load_matrix_sync(pa, &sm.p[warp][0][kk * 16], MF_LDH);
-        wmma::load_matrix_sync(bv, &sm.v[kk * 16][tj * 16], MF_LDH);
+        wmma::load_matrix_sync(pa, &sm.p[warp][0][kk * 16], S::LDP);
+        wmma::load_matrix_sync(bv, &sm.v[kk * 16][tj * 16], S::LDH);
         wmma::mma_sync(acc, pa, bv, acc);
       }
-      wmma::store_matrix_sync(&sm.s[warp][0][tj * 16], acc, MF_LDF, wmma::mem_row_major);
-    }
-    __syncwarp();
-    for (int c = lane; c < 16 * kHeadDim; c += 32) {
-      const int r = c / kHeadDim, col = c % kHeadDim;
-      sm.o[warp][r][col] += sm.s[warp][r][col];
+      wmma::store_matrix_sync(&sm.o[warp][0][tj * 16], acc, S::LDO, wmma::mem_row_major);
     }
     __syncwarp();
   }
@@ -148,8 +151,8 @@ __device__ __forceinline__ void masked_flash_tile(MaskedFlashSmem& sm, const bf1
     if (row < nq) {
       const float den = fmaxf(l_run[r], 1e-30f);
       bf16* orow = ob + row * o_rs;
-      orow[lane] = __float2bfloat16(sm.o[warp][r][lane] / den);
-      orow[lane + 32] = __float2bfloat16(sm.o[warp][r][lane + 32] / den);
+#pragma unroll
+      for (int c = lane; c < D; c += 32) orow[c] = __float2bfloat16(sm.o[warp][r][c] / den);
     }
   }
 }

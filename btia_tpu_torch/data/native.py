@@ -11,6 +11,7 @@ tests/test_native.py).
 from __future__ import annotations
 
 import ctypes
+import os
 import subprocess
 import threading
 from pathlib import Path
@@ -26,16 +27,26 @@ _tried = False
 
 
 def _build() -> bool:
+    """Build the library into a file of this process's own, then rename it
+    into place. The rename is atomic, so this package's own builds never
+    leave a half-written library at ``_LIB_PATH``. The JAX package's loader
+    (``btia_tpu/data/native.py``) still runs ``make`` onto that path in
+    place, so a process that builds through it can still be read mid-write;
+    the tests that compare the two packages' decodes pin the route."""
+    tmp = _LIB_PATH.with_name(f"{_LIB_PATH.name}.{os.getpid()}.tmp")
     try:
         subprocess.run(
-            ["make", "-C", str(_NATIVE_DIR)],
+            ["make", "-C", str(_NATIVE_DIR), f"TARGET={tmp.name}"],
             check=True,
             capture_output=True,
             timeout=120,
         )
-        return _LIB_PATH.exists()
+        os.replace(tmp, _LIB_PATH)
+        return True
     except Exception:
         return False
+    finally:
+        tmp.unlink(missing_ok=True)
 
 
 def _load() -> Optional[ctypes.CDLL]:

@@ -36,12 +36,13 @@ _LLP = ctypes.POINTER(ctypes.c_longlong)  # a host array of strides
 _SIGNATURES = {
     "btia_layernorm": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
     "btia_gemm_bias": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _P),
-    "btia_attn_core": (_P, _LL, _I, _P, _P, _LL, _I, _P, _P, _I, _I, _I, _I, _P),
-    "btia_flash_bshd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
-    "btia_fanout": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    "btia_attn_core": (_P, _LL, _I, _P, _P, _LL, _I, _P, _P, _I, _I, _I, _I, _I, _P),
+    "btia_flash_bshd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "btia_fanout": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "btia_mha_bhsd": (_P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _I, _F, _P),
     "btia_bicross": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _I, _F, _P),
-    "btia_int8_mm": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "btia_int8_quant_rows": (_P, _P, _P, _I, _I, _P),
+    "btia_int8_gemm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
 }
 
 
@@ -141,6 +142,13 @@ def check(code: int, what: str) -> None:
 
 def stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """t packed at a 16-byte aligned address, copied only where it is not:
+    the kernels read rows in 16-byte vectors, and TMA needs the alignment."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def require(t: torch.Tensor, what: str, dtype: torch.dtype = torch.bfloat16) -> None:

@@ -27,6 +27,12 @@ switch is on the kernels:
 * otherwise, and always under ``"xla"``, the reference's einsum road
   (``attention.py:801-811``): ``mha_reference`` on (B, H, S, D) views.
 
+The roads are the reference's gates, whatever the head width. The
+``*_takes`` predicates say which head widths each CUDA kernel is built for
+(K3 and K4: ``TILE_HEAD_WIDTHS``, the multiples of 64 up to 256; K5: the
+multiples of 8 up to 128), and each wrapper raises through its predicate
+on a CUDA tensor of another width.
+
 Each kernel entry routes by device: a CUDA tensor launches the hand-written
 kernel (counted in the entry's ``.launches``) or raises, a CPU tensor takes
 the plain PyTorch twin. Each is a ``torch.autograd.Function`` whose backward
@@ -200,8 +206,29 @@ def _bhsd_operand(t: torch.Tensor, what: str):
     return t, strides(t)
 
 
+# Head widths the tiles of K1/K2's core, K3 and K4 are built for: the
+# multiples of 64 up to 256. The reference's gates (``D % 64 == 0``) have no
+# upper bound; a wider head raises on the card.
+TILE_HEAD_WIDTHS = (64, 128, 192, 256)
+
+
+def k3_takes(head_dim: int) -> bool:
+    """Whether K3's CUDA kernel is built for this head width."""
+    return head_dim in TILE_HEAD_WIDTHS
+
+
+def k4_takes(head_dim: int) -> bool:
+    """Whether K4's CUDA kernel is built for this head width."""
+    return head_dim in TILE_HEAD_WIDTHS
+
+
+def k5_takes(head_dim: int) -> bool:
+    """Whether K5's (and K6's) CUDA tile is built for this head width."""
+    return head_dim % 8 == 0 and 8 <= head_dim <= 128
+
+
 def _check_head_width(D: int, what: str) -> None:
-    if D % 8 or not 8 <= D <= 128:
+    if not k5_takes(D):
         raise ValueError(f"{what} kernel takes head widths that are multiples of 8 up to 128, got {D}")
 
 
@@ -305,8 +332,12 @@ def _bshd_flash_plain(q, k, v, kv_mask, num_heads: int) -> torch.Tensor:
 def _bshd_flash_cuda(q, k, v, kv_mask, num_heads: int) -> torch.Tensor:
     B, Sq, HD = q.shape
     Sk = k.shape[1]
-    if HD != num_heads * 64:
-        raise ValueError(f"K3 kernel takes head width 64, got {HD // num_heads}")
+    D = HD // num_heads
+    if HD != num_heads * D or not k3_takes(D):
+        raise ValueError(f"K3 kernel takes head widths {TILE_HEAD_WIDTHS}, got {HD / num_heads:g}")
+    if Sq == 0 or Sk == 0 or B == 0:
+        raise ValueError(f"K3 kernel takes B, Sq, Sk >= 1, got {(B, Sq, Sk)}")
+    q, k, v = _native.aligned(q), _native.aligned(k), _native.aligned(v)
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _native.require(t, f"bshd_flash_attention {name}")
     mask = None if kv_mask is None else kv_mask.to(torch.float32).contiguous()
@@ -315,7 +346,7 @@ def _bshd_flash_cuda(q, k, v, kv_mask, num_heads: int) -> torch.Tensor:
         _native.lib().btia_flash_bshd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(),
-            B, num_heads, Sq, Sk, _log2_scale(64), _native.stream(q),
+            B, num_heads, D, Sq, Sk, _log2_scale(D), _native.stream(q),
         ),
         "btia_flash_bshd",
     )
@@ -347,10 +378,11 @@ def bshd_flash_attention(
     kv_mask: Optional[torch.Tensor],
     num_heads: int,
 ) -> torch.Tensor:
-    """K3: q (B, Sq, H*D), k/v (B, Sk, H*D), kv_mask (B, Sk) True=valid.
+    """K3: q (B, Sq, H*D), k/v (B, Sk, H*D), kv_mask (B, Sk) True=valid;
+    D in ``TILE_HEAD_WIDTHS`` on the card (``k3_takes``).
 
-    A CUDA tensor launches the kernel (counted in ``.launches``); a CPU
-    tensor takes the plain twin."""
+    A CUDA tensor launches the kernel (counted in ``.launches``) or raises;
+    a CPU tensor takes the plain twin."""
     return _BshdFlash.apply(q, k, v, kv_mask, num_heads)
 
 
@@ -372,8 +404,9 @@ def _fanout_plain(q, k, v, colmask, num_heads: int) -> torch.Tensor:
 def _fanout_cuda(q, k, v, colmask, num_heads: int) -> torch.Tensor:
     B, Sq, HD = q.shape
     Sk = k.shape[1]
-    if HD != num_heads * 64:
-        raise ValueError(f"K4 kernel takes head width 64, got {HD // num_heads}")
+    D = HD // num_heads
+    if HD != num_heads * D or not k4_takes(D):
+        raise ValueError(f"K4 kernel takes head widths {TILE_HEAD_WIDTHS}, got {HD / num_heads:g}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _native.require(t, f"fanout_attention {name}")
@@ -382,7 +415,7 @@ def _fanout_cuda(q, k, v, colmask, num_heads: int) -> torch.Tensor:
     _native.check(
         _native.lib().btia_fanout(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), cm.data_ptr(), out.data_ptr(),
-            B, num_heads, Sq, Sk, _log2_scale(64), _native.stream(q),
+            B, num_heads, D, Sq, Sk, _log2_scale(D), _native.stream(q),
         ),
         "btia_fanout",
     )
@@ -415,10 +448,11 @@ def fanout_attention(
     colmask: torch.Tensor,
     num_heads: int,
 ) -> torch.Tensor:
-    """K4: q (B, Sq, H*D), k/v (B, Sk, H*D), colmask (B, Sk) f32 {0, 1}.
+    """K4: q (B, Sq, H*D), k/v (B, Sk, H*D), colmask (B, Sk) f32 {0, 1};
+    D in ``TILE_HEAD_WIDTHS`` on the card (``k4_takes``).
 
     A fully masked row gives 0. A CUDA tensor launches the kernel (counted
-    in ``.launches``); a CPU tensor takes the plain twin."""
+    in ``.launches``) or raises; a CPU tensor takes the plain twin."""
     return _Fanout.apply(q, k, v, colmask, num_heads)
 
 

@@ -16,11 +16,12 @@ in:
 Routing is by device: a CUDA tensor launches the hand-written kernel chain in
 ``csrc/fused_attn.cu`` (counted in the entry's ``.launches``) or raises; a CPU
 tensor takes the plain PyTorch twin. The shape gate is the reference's
-(``core_admits``: Sq*Sk <= 32768 and D % 64 == 0); other sites take the
-unfused road of projections + ``mha_bshd``, as the reference does, and so do
-all sites under ``set_attention_impl("xla")`` or inside ``disable_fused()``.
-The reference's batch floor (B >= 64) is not kept: the card's kernels win at
-any batch.
+(``core_admits``: Sq*Sk <= 32768 and D % 64 == 0); the CUDA core is built
+for the widths ``core_takes`` names (64 to 256) and raises on a wider head.
+Other sites take the unfused road of projections + ``mha_bshd``, as the
+reference does, and so do all sites under ``set_attention_impl("xla")`` or
+inside ``disable_fused()``. The reference's batch floor (B >= 64) is not
+kept: the card's kernels win at any batch.
 
 Each site is a ``torch.autograd.Function`` whose backward mirrors the
 reference's ``custom_vjp`` (``_fused_bwd``, ``_fused_site_bwd``,
@@ -38,7 +39,7 @@ import torch
 
 from btia_tpu_torch.ops import _native
 from btia_tpu_torch.ops.attention import (
-    LOG2E, SMALL_SCORE_TILE, _resolved_impl, attend_log2, mha_bshd,
+    LOG2E, SMALL_SCORE_TILE, TILE_HEAD_WIDTHS, _resolved_impl, attend_log2, mha_bshd,
 )
 from btia_tpu_torch.ops.norms import _layernorm_cuda, _ln_exact, layernorm
 
@@ -64,10 +65,17 @@ def disable_fused():
         _ENABLED = old
 
 
+def core_takes(head_dim: int) -> bool:
+    """Whether the CUDA attention core of K1/K2 is built for this head
+    width: ``TILE_HEAD_WIDTHS``, the multiples of 64 up to 256."""
+    return head_dim in TILE_HEAD_WIDTHS
+
+
 def core_admits(sq: int, sk: int, head_dim: int) -> bool:
     """Whether a site's attention fits the fused kernels: the reference's
-    shape gate (``btia_tpu/ops/fused_attn.py:1030-1031``). The CUDA core computes every
-    admitted shape at D = 64 (the one head width of the port's configs)."""
+    shape gate (``btia_tpu/ops/fused_attn.py:1030-1031``). The core computes
+    every such shape at the widths it takes: score tiles whole in shared
+    memory where they fit, else tiled."""
     return sq * sk <= SMALL_SCORE_TILE and head_dim % 64 == 0
 
 
@@ -133,10 +141,11 @@ def _gemm_cuda(a2, w, b, resid=None, resid_rows=0):
 def _core_cuda(q, q_bs, kv, B, Sq, Sk, HD, num_heads, colmask):
     """Attention core over q rows (stride HD; q_bs elements between batch
     rows, 0 for a shared table) and kv = [k | v] rows of width 2*HD."""
-    if HD != num_heads * 64 or not core_admits(Sq, Sk, 64):
+    D = HD // num_heads
+    if HD != num_heads * D or not (core_takes(D) and core_admits(Sq, Sk, D)):
         raise ValueError(
-            f"attention core takes head width 64 and Sq*Sk <= {SMALL_SCORE_TILE}, "
-            f"got D = {HD // num_heads}, Sq = {Sq}, Sk = {Sk}"
+            f"attention core takes head widths {TILE_HEAD_WIDTHS} and Sq*Sk <= {SMALL_SCORE_TILE}, "
+            f"got D = {HD / num_heads:g}, Sq = {Sq}, Sk = {Sk}"
         )
     out = torch.empty((B * Sq, HD), dtype=q.dtype, device=q.device)
     mask = None if colmask is None else colmask.to(torch.float32).contiguous()
@@ -145,7 +154,7 @@ def _core_cuda(q, q_bs, kv, B, Sq, Sk, HD, num_heads, colmask):
             q.data_ptr(), q_bs, HD,
             kv.data_ptr(), kv.data_ptr() + HD * kv.element_size(), Sk * 2 * HD, 2 * HD,
             None if mask is None else mask.data_ptr(), out.data_ptr(),
-            B, num_heads, Sq, Sk, _native.stream(q),
+            B, num_heads, D, Sq, Sk, _native.stream(q),
         ),
         "btia_attn_core",
     )

@@ -12,10 +12,14 @@ Phases, each fatal on failure:
    events: K1 in its BERT and both BTIA site forms, K2 and K3 at the shapes
    of the ``streaming_vitl`` serving step (16 images x 128 questions); K1 at
    the ``vqa_med_full`` training sites (BERT 64 x 32, BTIA 197 x 32 and
-   32 x 197) and K4 at its three training shapes; then the backward pass of
-   each autograd Function (K1-K4) against autograd through its twin; then
-   K8 (the int8 FFN product) at the eight FFN shapes of the int8 serve step,
-   each element within one bf16 step, timed beside ``torch._int_mm`` on the
+   32 x 197) and K4 at its three training shapes, K3 at ViT-B and the AD
+   head (64 x 2048 <- 229); K1, K2, K3 and K4 again at head widths 128,
+   192 and 256 (6, 4 and 3 heads of a 768-wide model); then the backward
+   pass of each autograd
+   Function (K1-K4) against autograd through its twin; then K8 (the int8
+   FFN product) at the eight FFN shapes of the int8 serve step, each element
+   within one bf16 step, its row quantization equal to its twin's, timed
+   whole and by kernel (quantize, GEMM) beside ``torch._int_mm`` on the
    pre-quantized operands and a bf16 ``torch.matmul``;
 2b. the ops API at full width: one run through ``mha(impl="pallas")`` and
    ``mha()`` under ``set_attention_impl("pallas")`` at ViT-L/336
@@ -61,7 +65,13 @@ Phases, each fatal on failure:
    0: K4 runs in the backward of every K1 site), a timed run of steps,
    the test evaluation at batch 128 (K1 = 20, K3 = 13, K4 = 0), a checkpoint
    restore round trip, and one step's loss and gradients on the card
-   against the same step on the CPU (full depth, dropout 0).
+   against the same step on the CPU (full depth, dropout 0);
+5b. full-width ``vqa_med_full`` with ``model.num_heads`` 6, 4 and 3 (BTIA
+   and the AD head at head widths 128, 192 and 256) through ``Trainer``:
+   for each, one train step with every counter set to 0 just before and
+   read just after (K1 = 20, K3 = 13, K4 = 20), then one eval forward of the
+   batch on the card (K1 = 20, K3 = 13) against the same model and weights
+   on the CPU on two rows, logits within a tenth of the largest.
 
 With ``--profile`` it also runs one serve step, one int8 serve step and one
 train step under ``torch.profiler`` and prints the device time by kernel and
@@ -102,6 +112,9 @@ REPEATS, TIMED_TRAIN_STEPS = 10, 5
 # K1 sites, 12 ViT blocks + the AD head's 2048 x 229 attention on K3 (score
 # tiles above 32768), and K4 in the backward of each K1 site (batch 64).
 TRAIN_COUNTS, EVAL_COUNTS = [20, 0, 13, 20, 0, 0, 0, 0], [20, 0, 13, 0, 0, 0, 0, 0]
+# model.num_heads of a 768-wide model that give K1-K4 their wider tiles:
+# head widths 128, 192 and 256.
+WIDE_HEADS = (6, 4, 3)
 # K8 (int8_matmul_fused) at the FFN products of one int8 serve step of
 # streaming_vitl, 16 images x 128 questions: (site, M, K, N, activation,
 # launches per step). BERT's 12 Mlps and BTIA's 4 mlp_txt share the
@@ -116,6 +129,9 @@ INT8_SITES = (
     ("head_fc1", B_IMG * N_Q * 64, 768, 1536, "gelu_tanh", 1),
     ("head_fc2", B_IMG * N_Q * 64, 1536, 768, None, 1),
 )
+# K8 at a K above 4096, where its row quantization takes its two-pass
+# kernel (no FFN of a registered config is that wide): held like the eight.
+INT8_WIDE_K = ("wide_k", 4096, 8192, 1024, "gelu_tanh", 0)
 SERVE_COUNTS, INT8_COUNTS = [20, 1, 24, 0, 0, 0, 0, 0], [20, 1, 24, 0, 0, 0, 0, 90]
 # Counts are listed K1..K8 (KERNELS). The serve step with the fused sites
 # disabled: each K1/K2 site's unfused road sends its short attention
@@ -318,6 +334,16 @@ def check_kernels(torch, dev):
         mha_yardstick(queries[None].expand(BQ, K, D), tokens, tmask, w, H), flops,
         nbytes(queries, tokens, tmask, *w, *lk[:2]) + BQ * K * D * 2,
     )
+    # K2 at head widths 128, 192 and 256: the AD head of a model with
+    # num_heads 6, 4 and 3.
+    for heads in WIDE_HEADS:
+        rows[f"k2_d{D // heads}"] = run_case(
+            f"K2 AD head, {heads} heads of {D // heads} (2048 x 64 queries <- 82)",
+            lambda: FA.fused_static_q_attention(queries, tokens, tmask, *w, heads, kv_ln=lk, residual=True),
+            lambda: FA._static_q_plain(queries, tokens, tmask, *w, heads, lk, True),
+            mha_yardstick(queries[None].expand(BQ, K, D), tokens, tmask, w, heads), flops,
+            nbytes(queries, tokens, tmask, *w, *lk[:2]) + BQ * K * D * 2,
+        )
     # K3, ViT-L/336 self-attention: 16 images x 577 tokens x 16 heads.
     S = 577
     q, k, v = (randn(B_IMG, S, HDv) for _ in range(3))
@@ -373,38 +399,60 @@ def check_training_kernels(torch, dev, randn, weights, ln, question_mask, mha_ya
         lambda: FA._fused_dense_plain(txt, img, None, *w, H, lt, li, False, None),
         mha_yardstick(txt, img, None, w, H), proj(SEQ, N_VIT_B), nbytes(img, txt, *w, *li[:2], *lt[:2]) + nbytes(txt),
     )
+    # Head widths 128, 192 and 256: the BTIA sites of vqa_med_full with
+    # model.num_heads 6, 4 and 3, on the whole-tile core (BERT-shaped
+    # 32 x 32) and the tiled one.
+    for heads in WIDE_HEADS:
+        hw = D // heads
+        rows[f"med_bert_d{hw}"] = run_case(
+            f"K1 train site, {heads} heads of {hw} (64 x 32)",
+            lambda: FA.fused_dense_attention(txt, txt, m, *w, heads),
+            lambda: FA._fused_dense_plain(txt, txt, m, *w, heads, None, None, False, None),
+            mha_yardstick(txt, txt, m, w, heads), proj(SEQ, SEQ), nbytes(txt, m, *w) + nbytes(txt),
+        )
+        rows[f"med_i2t_d{hw}"] = run_case(
+            f"K1 BTIA img<-txt train site, {heads} heads of {hw} (64 x 197 <- 32)",
+            lambda: FA.fused_dense_attention(img, txt, m, *w, heads, q_ln=li, kv_ln=lt),
+            lambda: FA._fused_dense_plain(img, txt, m, *w, heads, li, lt, False, None),
+            mha_yardstick(img, txt, m, w, heads), proj(N_VIT_B, SEQ),
+            nbytes(img, txt, m, *w, *li[:2], *lt[:2]) + nbytes(img),
+        )
 
-    def sdpa(q, k, v, cm):
-        split = lambda t: t.view(B, t.shape[1], H, 64).transpose(1, 2)
+    def sdpa(q, k, v, cm, heads=H):
+        split = lambda t: t.view(B, t.shape[1], heads, D // heads).transpose(1, 2)
         keep = (cm > 0)[:, None, None, :]
         return lambda: F.scaled_dot_product_attention(split(q), split(k), split(v), attn_mask=keep)
 
-    for name, sq, sk, masked in (("k4_bert", SEQ, SEQ, True), ("k4_i2t", N_VIT_B, SEQ, True),
-                                 ("k4_t2i", SEQ, N_VIT_B, False)):
+    for name, sq, sk, masked, heads in (("k4_bert", SEQ, SEQ, True, H), ("k4_i2t", N_VIT_B, SEQ, True, H),
+                                        ("k4_t2i", SEQ, N_VIT_B, False, H),
+                                        *((f"k4_i2t_d{D // h}", N_VIT_B, SEQ, True, h) for h in WIDE_HEADS)):
         q, k, v = randn(B, sq, D), randn(B, sk, D), randn(B, sk, D)
         cm = question_mask(B, sk).float() if masked else torch.ones(B, sk, device=dev)
         rows[name] = run_case(
-            f"K4 fan-out attention (64 x {sq} <- {sk}, 12 heads)",
-            lambda: A.fanout_attention(q, k, v, cm, H),
-            lambda: A._fanout_plain(q, k, v, cm, H),
-            sdpa(q, k, v, cm), 4 * B * H * sq * sk * 64, nbytes(q, k, v, cm) + nbytes(q), iters=20,
+            f"K4 fan-out attention (64 x {sq} <- {sk}, {heads} heads of {D // heads})",
+            lambda: A.fanout_attention(q, k, v, cm, heads),
+            lambda: A._fanout_plain(q, k, v, cm, heads),
+            sdpa(q, k, v, cm, heads), 4 * B * sq * sk * D, nbytes(q, k, v, cm) + nbytes(q), iters=20,
         )
-        if masked and bool(A.fanout_attention(q, k, v, cm, H)[-1].any()):
+        if masked and bool(A.fanout_attention(q, k, v, cm, heads)[-1].any()):
             raise AssertionError(f"{name}: a fully masked row is not 0")
 
     # K3 at the training shapes: ViT-B/16 self-attention and the AD head's
-    # 2048 answer queries over 197 + 32 fused tokens.
-    for name, sq, sk, masked in (("k3_vitb", N_VIT_B, N_VIT_B, False),
-                                 ("k3_head", 2048, N_VIT_B + SEQ, True)):
+    # 2048 answer queries over 197 + 32 fused tokens, at 12 heads of 64 and
+    # (model.num_heads 6, 4, 3) 6 of 128, 4 of 192 and 3 of 256.
+    for name, sq, sk, masked, heads in (("k3_vitb", N_VIT_B, N_VIT_B, False, H),
+                                        ("k3_head", 2048, N_VIT_B + SEQ, True, H),
+                                        *((f"k3_head_d{D // h}", 2048, N_VIT_B + SEQ, True, h)
+                                          for h in WIDE_HEADS)):
         q, k, v = randn(B, sq, D), randn(B, sk, D), randn(B, sk, D)
         km = (torch.cat([torch.ones(B, N_VIT_B, dtype=torch.bool, device=dev), question_mask(B, SEQ)], 1)
               if masked else None)
         cm = torch.ones(B, sk, device=dev) if km is None else km.float()
         rows[name] = run_case(
-            f"K3 attention (64 x {sq} <- {sk}, 12 heads)",
-            lambda: A.bshd_flash_attention(q, k, v, km, H),
-            lambda: A._bshd_flash_plain(q, k, v, km, H),
-            sdpa(q, k, v, cm), 4 * B * H * sq * sk * 64, nbytes(q, k, v, km) + nbytes(q), iters=10,
+            f"K3 attention (64 x {sq} <- {sk}, {heads} heads of {D // heads})",
+            lambda: A.bshd_flash_attention(q, k, v, km, heads),
+            lambda: A._bshd_flash_plain(q, k, v, km, heads),
+            sdpa(q, k, v, cm, heads), 4 * B * sq * sk * D, nbytes(q, k, v, km) + nbytes(q), iters=10,
         )
 
     # Backward passes: each Function's backward (the reference's vjp policy)
@@ -471,15 +519,20 @@ def check_int8_kernel(torch, dev):
     must agree to one bf16 step at its magnitude; a floor of 1e-6 of the
     largest magnitude covers the tanh-GELU's cancelling 1 + tanh(z) (z < -4,
     outputs below 3e-5), where the two f32 tanh differ in the last place.
-    Times: the kernel (its wrapper: the weight's (N, K) copy included), the
-    twin, ``torch._int_mm`` on the pre-quantized operands (the int8 product
-    only, the library yardstick) and a bf16 ``torch.matmul``."""
+    Times: the entry (its wrapper: both kernels and the weight's (N, K)
+    copy), each of its two kernels alone (``quantize_ms``: the row
+    quantization, which must give the twin's xi and sx bit for bit;
+    ``gemm_ms``: the int8 GEMM on the quantized rows and the (N, K) weight),
+    the twin, ``torch._int_mm`` on the pre-quantized operands (the int8
+    product only, the library yardstick) and a bf16 ``torch.matmul``. Then
+    the same at ``INT8_WIDE_K``, where the quantization takes its two-pass
+    kernel."""
     from btia_tpu_torch.ops import quant as Q
 
     g = torch.Generator(device=dev).manual_seed(2)
     rows = {}
     launches_before = Q.int8_matmul_fused.launches
-    for name, M, K, N, act, per_step in INT8_SITES:
+    for name, M, K, N, act, per_step in INT8_SITES + (INT8_WIDE_K,):
         x = (torch.randn(M, K, generator=g, device=dev) * 2).to(torch.bfloat16)
         w = torch.randn(K, N, generator=g, device=dev) * K**-0.5
         b = torch.randn(N, generator=g, device=dev) * 0.02
@@ -492,6 +545,12 @@ def check_int8_kernel(torch, dev):
         torch.cuda.synchronize()
         if not bool(torch.isfinite(out.float()).all()):
             raise AssertionError(f"K8 {name}: kernel output is not finite")
+        xi, sx = Q._quantize_rows_cuda(x)
+        xi_ref, sx_ref = Q._quantize_rows_plain(x)
+        if not (torch.equal(xi, xi_ref) and torch.equal(sx, sx_ref)):
+            raise AssertionError(f"K8 {name}: the row quantization differs from its twin")
+        del xi_ref, sx_ref
+        w_nk = w_i8.t().contiguous()
         diff = (out.float() - ref.float()).abs()
         mag = ref.float().abs()
         step = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - 7)
@@ -509,20 +568,29 @@ def check_int8_kernel(torch, dev):
             "shape": [M, K, N], "act": act, "launches_per_step": per_step,
             "max_abs_err": diff.max().item(), "elements_off": bad,
             "ms": cuda_time_ms(kernel, 10), "plain_ms": cuda_time_ms(plain, 3),
+            "quantize_ms": cuda_time_ms(lambda: Q._quantize_rows_cuda(x), 10),
+            "gemm_ms": cuda_time_ms(
+                lambda: Q._int8_gemm_cuda(xi, sx, w_nk, ws, b, act, torch.bfloat16), 10),
             "library_ms": None if library is None else cuda_time_ms(library, 10),
             "library": "torch._int_mm (int8 product only)",
             "bf16_matmul_ms": cuda_time_ms(lambda: x @ w_bf, 10),
         }
         row["bound_ms"], row["bound_by"] = bound_ms(
             2 * M * K * N, nbytes(x, w_i8, ws, b) + M * N * 2, PEAK_INT8_OPS)
+        # The halves' own bounds: the quantization reads x and writes xi and
+        # sx; the GEMM reads xi, sx, the weight, ws and b and writes y.
+        row["quantize_bound_ms"] = bound_ms(0, nbytes(x, xi, sx))[0]
+        row["gemm_bound_ms"] = bound_ms(2 * M * K * N, nbytes(xi, sx, w_nk, ws, b) + M * N * 2, PEAK_INT8_OPS)[0]
         log(f"  K8 {name} ({M} x {K} -> {N}, {act}): err {row['max_abs_err']:.4g}, {bad} elements "
-            f"beyond one bf16 step; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"beyond one bf16 step; entry {row['ms']:.4f} ms (quantize {row['quantize_ms']:.4f}, "
+            f"GEMM {row['gemm_ms']:.4f}), plain {row['plain_ms']:.4f} ms, "
             f"_int_mm {row['library_ms']}, bf16 matmul {row['bf16_matmul_ms']:.4f} ms, "
-            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; quantize "
+            f"{row['quantize_bound_ms']:.4f}, GEMM {row['gemm_bound_ms']:.4f})")
         if bad:
             raise AssertionError(f"K8 {name}: {bad} elements disagree with the plain twin")
         rows[name] = row
-        del x, w, out, ref, diff, mag, step, x_i8, w_col, w_bf
+        del x, w, out, ref, diff, mag, step, x_i8, w_col, w_bf, xi, sx, w_nk
     Q.int8_matmul_fused.launches = launches_before  # not main-path launches
     torch.cuda.empty_cache()
     return rows
@@ -837,7 +905,7 @@ def routing_switches_phase(torch, dev, smi, model, host_imgs, host_qids, serve_s
 
 _PORTED = ("gemm_bias_kernel", "attn_core_kernel", "attn_core_tiled_kernel", "ln_warp_kernel",
            "ln_block_kernel", "flash_bshd_kernel", "fanout_kernel", "mha_bhsd_kernel", "bicross_kernel",
-           "int8_mm_kernel")
+           "quant_rows_kernel", "quant_rows_loop_kernel", "int8_gemm_kernel")
 
 
 def profile_step(torch, step, smi, what="serve_step"):
@@ -873,7 +941,7 @@ def profile_step(torch, step, smi, what="serve_step"):
             groups["other"] += ms
     busy = sum(groups.values())
     top = sorted(kernels, key=lambda r: -r[2])[:15]
-    # A template kernel's name reads "void int8_mm_kernel<...>(...)".
+    # A template kernel's name reads "void int8_gemm_kernel<...>(...)".
     own = lambda p, n: n.removeprefix("void ").startswith((p + "(", p + "<"))
     ported = {p: [sum(c for n, c, _ in kernels if own(p, n)),
                   sum(ms for n, _, ms in kernels if own(p, n))] for p in _PORTED}
@@ -1073,6 +1141,73 @@ def train_step_vs_cpu(torch, dev, counters):
     if counts != TRAIN_COUNTS:
         raise AssertionError(f"card-vs-CPU step launch counts {counts} != {TRAIN_COUNTS}")
     return res
+
+
+def wide_heads_phase(torch, dev, smi, counters):
+    """Phase 5b: full-width vqa_med_full with model.num_heads 6, 4 and 3, so
+    that its 4 BTIA layers and its AD head run at head widths 128, 192 and
+    256 (BERT and ViT-B keep 12 heads of 64). For each, through the Trainer
+    on a synthetic corpus: one train step at batch 64 with every counter set
+    to 0 just before and read just after (K1 20, K3 13, K4 20: 8 of the K1
+    sites, the AD head's K3 call and 8 of the K4 calls at the wide width);
+    then one eval forward of a batch on the card against the same model and
+    weights on the CPU on its first rows, logits within a tenth of the
+    largest."""
+    import numpy as np
+
+    from btia_tpu_torch.configs import get_config
+    from btia_tpu_torch.data.synthetic import generate_synthetic_vqa_med
+    from btia_tpu_torch.train.trainer import Trainer, batch_to_device
+
+    results = {}
+    for heads in WIDE_HEADS:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_heads_") as tmp:
+            root = Path(tmp) / "vqa_med"
+            generate_synthetic_vqa_med(root, num_images=32)  # 64 pairs per split: one batch
+            cfg = get_config("vqa_med_full", **{"data.data_dir": str(root), "model.num_heads": heads,
+                                                "train.warmup_steps": 2})
+            hw = cfg.model.hidden_dim // heads
+            what = f"num_heads={heads}"
+            trainer = Trainer(cfg, Path(tmp) / "run", device=dev)
+            log(f"phase 5b: vqa_med_full with model.{what}: BTIA and the AD head at {heads} heads of "
+                f"{hw}, BERT and ViT-B at 12 of 64")
+            batch = batch_to_device(next(iter(trainer.data.iterator("train", seed=0))), dev)
+            torch.cuda.synchronize()
+            _zero(counters)
+            _, m = trainer.train_step(trainer.state, batch)
+            torch.cuda.synchronize()
+            counts = [f.launches for f in counters]
+            loss = float(m["loss"])
+            log(f"  one train step at batch {B_TRAIN}: loss {loss:.5f}; launched "
+                + ", ".join(f"{k} {c}" for k, c in zip(KERNELS, counts)))
+            if counts != TRAIN_COUNTS or not np.isfinite(loss):
+                raise AssertionError(f"{what} train step: loss {loss}, launch counts {counts} != {TRAIN_COUNTS}")
+
+            model = trainer.model
+            model.eval()
+            images, qids = batch["images"], batch["question_ids"]
+            with torch.inference_mode():
+                _zero(counters)
+                out_gpu = model(images, qids, train=False)
+                torch.cuda.synchronize()
+                eval_counts = [f.launches for f in counters]
+                cpu_model = copy.deepcopy(model).to("cpu")
+                out_cpu = cpu_model(images[:2].cpu(), qids[:2].cpu(), train=False)
+            del cpu_model
+            err = (out_gpu[:2].float().cpu() - out_cpu.float()).abs().max().item()
+            scale = out_cpu.float().abs().max().item()
+            res = {"config": f"vqa_med_full + model.{what}", "head_width": hw, "train_loss": loss,
+                   "train_launches": dict(zip(KERNELS, counts)), "eval_launches": dict(zip(KERNELS, eval_counts)),
+                   "eval_card_vs_cpu_max_abs_err": err, "eval_max_logit": scale, "card": smi}
+            log(json.dumps({f"head_width_{hw}": res}))
+            if not bool(torch.isfinite(out_gpu).all()) or not err <= 0.1 * scale:
+                raise AssertionError(f"{what} eval: card and CPU logits disagree: {err} > {0.1 * scale}")
+            if eval_counts != EVAL_COUNTS:
+                raise AssertionError(f"{what} eval launch counts {eval_counts} != {EVAL_COUNTS}")
+            results[hw] = res
+            del trainer, model, batch, out_gpu
+        torch.cuda.empty_cache()
+    return results
 
 
 def serve_step_fn(torch, dev, model, host_imgs, host_qids, limit):
@@ -1417,19 +1552,25 @@ def main() -> int:
     train = train_phase(torch, dev, smi, counters)
     train["train_step"]["card_vs_cpu"] = train_step_vs_cpu(torch, dev, counters)
     log(json.dumps({"train_step": train["train_step"]}))
+    wide = wide_heads_phase(torch, dev, smi, counters)
 
     by_path = [{"serve_step": a, "int8_serve_step": c, "train_step": b, "ops_api": d}
                for a, b, c, d in zip(main_counts, train["train_counts"], int8_counts, ops_counts)]
-    k1_sites = ("bert", "btia_i2t", "btia_t2i", "med_bert", "med_i2t", "med_t2i")
+    widths = [768 // h for h in WIDE_HEADS]
+    k1_sites = ("bert", "btia_i2t", "btia_t2i", "med_bert", "med_i2t", "med_t2i",
+                *(f"med_{site}_d{hw}" for hw in widths for site in ("bert", "i2t")))
     entries = [
         ("fused_dense_attention", "btia_tpu_torch/csrc/fused_attn.cu",
          "btia_tpu/ops/fused_attn.py:179", 0, rows["bert"], k1_sites, "K1_backward"),
         ("fused_static_q_attention", "btia_tpu_torch/csrc/fused_attn.cu",
-         "btia_tpu/ops/fused_attn.py:561", 1, rows["k2"], None, "K2_backward"),
+         "btia_tpu/ops/fused_attn.py:561", 1, rows["k2"], ("k2", *(f"k2_d{hw}" for hw in widths)), "K2_backward"),
         ("bshd_flash_attention", "btia_tpu_torch/csrc/flash_bshd.cu",
-         "btia_tpu/ops/attention.py:563", 2, rows["k3"], ("k3", "k3_vitb", "k3_head"), "K3_backward"),
+         "btia_tpu/ops/attention.py:563", 2, rows["k3"],
+         ("k3", "k3_vitb", "k3_head", *(f"k3_head_d{hw}" for hw in widths)),
+         "K3_backward"),
         ("fanout_attention", "btia_tpu_torch/csrc/fanout.cu",
-         "btia_tpu/ops/attention.py:349", 3, rows["k4_bert"], ("k4_bert", "k4_i2t", "k4_t2i"),
+         "btia_tpu/ops/attention.py:349", 3, rows["k4_bert"],
+         ("k4_bert", "k4_i2t", "k4_t2i", *(f"k4_i2t_d{hw}" for hw in widths)),
          "K4_backward"),
         ("mha_bhsd_attention", "btia_tpu_torch/csrc/mha_bhsd.cu",
          "btia_tpu/ops/attention.py:160", 4, rows["k5_vitl"], ("k5_vitl", "k5_head"), "K5_backward"),
@@ -1454,7 +1595,8 @@ def main() -> int:
         "name": "int8_matmul_fused", "route": "cuda", "source": "btia_tpu_torch/csrc/int8_mm.cu",
         "replaces": "btia_tpu/ops/quant.py:87", "launches": sum(by_path[7].values()),
         "launches_by_path": by_path[7], "max_abs_err": max(x["max_abs_err"] for x in int8_rows.values()),
-        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "ms": r["ms"], "quantize_ms": r["quantize_ms"], "gemm_ms": r["gemm_ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": r["library_ms"], "library": r["library"], "bf16_matmul_ms": r["bf16_matmul_ms"],
         "ms_per_step": sum(x["ms"] * x["launches_per_step"] for x in int8_rows.values()),
         "bound_ms_per_step": sum(x["bound_ms"] * x["launches_per_step"] for x in int8_rows.values()),
@@ -1463,6 +1605,7 @@ def main() -> int:
     log(json.dumps({"summary": {
         "serve_ms": step_ms, "int8_serve_ms": int8_res["ms_per_step"],
         "train_ms": train["train_step"]["ms_per_step"],
+        "wide_heads": {hw: [r["eval_card_vs_cpu_max_abs_err"], r["eval_max_logit"]] for hw, r in wide.items()},
         "serve_ms_by_switch": {w: v["ms_per_step"] for w, v in switches.items()},
         "serve_layernorms": [ln_census["standalone_layernorms"], ln_census["k7_ms_per_step"],
                              ln_census["plain_ms_per_step"]],

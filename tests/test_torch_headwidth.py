@@ -1,0 +1,298 @@
+"""Head widths 128, 192 and 256 in the attention kernels K1/K2 (their
+core), K3 and K4, and the head-width predicates of their CUDA wrappers.
+
+The twins at D = 128 (and, in bf16, 192 and 256) run against the JAX
+Pallas kernels in interpret mode on the CPU, as ``tests/test_ops.py`` runs
+them, on the same numpy inputs. Tolerances as ``test_torch_kernels.py``:
+fp32 2e-5 absolute; bf16 3e-2 absolute, one bf16 step at the outputs'
+magnitude, since f32 sums taken in another order can flip a bf16 rounding.
+
+The route tests replace every attention road of both packages with a stub
+that records its name and returns zeros, so they compare decisions, not
+numbers: over a grid of (Sq, Sk, H, D) the port takes the reference's road
+at every head width. The predicates (``k3_takes``, ``k4_takes``,
+``k5_takes``, ``core_takes``) say which widths each CUDA kernel is built for
+(64 to 256 for K1-K4, the multiples of 8 up to 128 for K5); every width the
+reference sends to K1-K4 up to 256 is one of them, and the CUDA wrappers
+raise on the others.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from btia_tpu.ops import attention as JA
+from btia_tpu.ops import fused_attn as JFA
+from btia_tpu_torch.ops import attention as A
+from btia_tpu_torch.ops import fused_attn as FA
+
+DTYPES = {"fp32": (jnp.float32, torch.float32, 2e-5), "bf16": (jnp.bfloat16, torch.bfloat16, 3e-2)}
+WIDE = (192, 256)  # the widest tiles K1-K4 are built for
+
+
+@pytest.fixture
+def restore_switches():
+    jax_impl, port_impl = JA.get_attention_impl(), A.get_attention_impl()
+    yield
+    JA.set_attention_impl(jax_impl)
+    A.set_attention_impl(port_impl)
+
+
+def _j(x, dt=jnp.float32):
+    return None if x is None else jnp.asarray(x, dt)
+
+
+def _t(x, dt=torch.float32):
+    return None if x is None else torch.from_numpy(np.asarray(x)).to(dt)
+
+
+def _close(a, b, atol):
+    np.testing.assert_allclose(np.asarray(a, np.float32), np.asarray(b, np.float32), atol=atol, rtol=0)
+
+
+def _weights(rng, din, hd, dout):
+    mk = lambda *s: (rng.randn(*s) * 0.05).astype(np.float32)
+    return [mk(din, hd), mk(hd), mk(din, hd), mk(hd), mk(din, hd), mk(hd), mk(hd, dout), mk(dout)]
+
+
+def _ln(rng, d, eps):
+    return ((1.0 + 0.1 * rng.randn(d)).astype(np.float32), (0.1 * rng.randn(d)).astype(np.float32), eps)
+
+
+def _mask(rng, B, Sk, dead_row=None):
+    m = rng.rand(B, Sk) > 0.3
+    m[:, 0] = True
+    if dead_row is not None:
+        m[dead_row] = False
+    return m
+
+
+# ---------------------------------------------------------------------------
+# The twins at D = 128, 192 and 256 against the Pallas kernels
+# ---------------------------------------------------------------------------
+
+K1_SITES = {
+    # name: (Sq, Sk, self-attention, pre-LNs, residual, post-LN eps)
+    "bert": (32, 32, True, False, True, 1e-12),
+    "btia": (50, 32, False, True, True, None),
+    "tiled": (197, 32, False, True, False, None),  # Sq > 128: the tiled core
+}
+
+
+@pytest.mark.parametrize("site,dtype,D", [(s, dt, 128) for s in sorted(K1_SITES) for dt in sorted(DTYPES)]
+                         + [(s, "bf16", d) for s in ("bert", "tiled") for d in WIDE])
+def test_k1_matches_pallas(site, dtype, D):
+    jdt, tdt, atol = DTYPES[dtype]
+    Sq, Sk, self_attn, pre_ln, residual, post_eps = K1_SITES[site]
+    rng = np.random.RandomState(31)
+    B, H, Din = 3, 1, 128
+    Sk = Sq if self_attn else Sk
+    w = _weights(rng, Din, H * D, Din)
+    x_q = rng.randn(B, Sq, Din).astype(np.float32)
+    x_kv = x_q if self_attn else rng.randn(B, Sk, Din).astype(np.float32)
+    mask = _mask(rng, B, Sk, dead_row=1)
+    q_ln, kv_ln = (_ln(rng, Din, 1e-6), _ln(rng, Din, 1e-6)) if pre_ln else (None, None)
+    post_ln = _ln(rng, Din, post_eps) if post_eps else None
+    jln = lambda ln: None if ln is None else (_j(ln[0]), _j(ln[1]), ln[2])
+    tln = lambda ln: None if ln is None else (_t(ln[0]), _t(ln[1]), ln[2])
+    ref = JFA.fused_dense_attention(
+        _j(x_q, jdt), _j(x_kv, jdt), jnp.asarray(mask), *map(_j, w), H, interpret=True,
+        q_ln=jln(q_ln), kv_ln=jln(kv_ln), residual=residual, post_ln=jln(post_ln),
+    )
+    assert FA.core_admits(Sq, Sk, D)
+    out = FA.fused_dense_attention(
+        _t(x_q, tdt), _t(x_kv, tdt), torch.from_numpy(mask), *map(_t, w), H,
+        q_ln=tln(q_ln), kv_ln=tln(kv_ln), residual=residual, post_ln=tln(post_ln),
+    )
+    assert out.dtype == tdt and out.shape == (B, Sq, Din)
+    _close(out.float(), ref, atol)
+
+
+@pytest.mark.parametrize("dtype,D", [(dt, 128) for dt in sorted(DTYPES)] + [("bf16", d) for d in WIDE])
+def test_k2_matches_pallas(dtype, D):
+    jdt, tdt, atol = DTYPES[dtype]
+    rng = np.random.RandomState(32)
+    B, K, Sk, H, Din = 3, 8, 82, 1, 128
+    w = _weights(rng, Din, H * D, Din)
+    queries = (rng.randn(K, Din) * 0.05).astype(np.float32)
+    x_kv = rng.randn(B, Sk, Din).astype(np.float32)
+    mask = _mask(rng, B, Sk, dead_row=2)
+    kv_ln = _ln(rng, Din, 1e-6)
+    ref = JFA.fused_static_q_attention(
+        _j(queries, jdt), _j(x_kv, jdt), jnp.asarray(mask), *map(_j, w), H,
+        interpret=True, kv_ln=(_j(kv_ln[0]), _j(kv_ln[1]), kv_ln[2]), residual=True,
+    )
+    out = FA.fused_static_q_attention(
+        _t(queries, tdt), _t(x_kv, tdt), torch.from_numpy(mask), *map(_t, w), H,
+        kv_ln=(_t(kv_ln[0]), _t(kv_ln[1]), kv_ln[2]), residual=True,
+    )
+    assert out.dtype == tdt and out.shape == (B, K, Din)
+    _close(out.float(), ref, atol)
+
+
+K3_SHAPES = {
+    # name: (B, Sq, Sk, H, masked); Sq*Sk above 32768, the long road
+    "vit_h6": (1, 197, 197, 6, False),
+    "head_masked": (2, 300, 129, 2, True),
+}
+
+
+@pytest.mark.parametrize("shape,dtype,D", [(s, dt, 128) for s in sorted(K3_SHAPES) for dt in sorted(DTYPES)]
+                         + [("head_masked", "bf16", d) for d in WIDE])
+def test_k3_matches_pallas(shape, dtype, D, restore_switches):
+    jdt, tdt, atol = DTYPES[dtype]
+    B, Sq, Sk, H, masked = K3_SHAPES[shape]
+    rng = np.random.RandomState(33)
+    q, k, v = (rng.randn(B, S, H * D).astype(np.float32) for S in (Sq, Sk, Sk))
+    mask = _mask(rng, B, Sk) if masked else None
+    ref = JA._bshd_mha(_j(q, jdt), _j(k, jdt), _j(v, jdt), None if mask is None else jnp.asarray(mask), H, True)
+    tmask = None if mask is None else torch.from_numpy(mask)
+    out = A.bshd_flash_attention(_t(q, tdt), _t(k, tdt), _t(v, tdt), tmask, H)
+    assert out.dtype == tdt and out.shape == (B, Sq, H * D)
+    _close(out.float(), ref, atol)
+    # mha_bshd takes K3 at this width, as the reference does.
+    routed = A.mha_bshd(*(_t(x, tdt).reshape(B, -1, H, D) for x in (q, k, v)), tmask)
+    torch.testing.assert_close(routed.reshape(B, Sq, H * D), out, rtol=0, atol=0)
+
+
+K4_SHAPES = {
+    # name: (B, Sq, Sk, H)
+    "square": (5, 16, 16, 2),
+    "long_q": (3, 70, 9, 1),
+    "long_kv": (4, 7, 70, 2),
+}
+
+
+@pytest.mark.parametrize("shape,dtype,D", [(s, dt, 128) for s in sorted(K4_SHAPES) for dt in sorted(DTYPES)]
+                         + [("long_kv", "bf16", d) for d in WIDE])
+def test_k4_matches_pallas(shape, dtype, D):
+    jdt, tdt, atol = DTYPES[dtype]
+    B, Sq, Sk, H = K4_SHAPES[shape]
+    rng = np.random.RandomState(34)
+    q, k, v = (rng.randn(B, S, H * D).astype(np.float32) for S in (Sq, Sk, Sk))
+    cm = (rng.rand(B, Sk) > 0.3).astype(np.float32)
+    cm[:, 0] = 1.0
+    cm[1] = 0.0  # a fully masked row: 0 on both sides
+    ref = JA._fanout_mha(*(jnp.asarray(x, jdt) for x in (q, k, v)), jnp.asarray(cm), H, True)
+    out = A.fanout_attention(*(torch.from_numpy(x).to(tdt) for x in (q, k, v)), torch.from_numpy(cm), H)
+    assert out.dtype == tdt and out.shape == (B, Sq, H * D)
+    _close(out.float(), ref, atol)
+    assert not out[1].any()
+
+
+# ---------------------------------------------------------------------------
+# The predicates against the reference's routes
+# ---------------------------------------------------------------------------
+
+HEAD_WIDTHS = (32, 48, 64, 96, 128, 192, 256)
+
+
+def _stub_roads(monkeypatch):
+    """Replace both packages' attention roads with recorders that return
+    zeros of the road's output shape; returns (reference roads, port roads)."""
+    jtook, ttook = [], []
+
+    def jstub(road, shape_of):
+        return lambda *a, **k: jtook.append(road) or jnp.zeros(shape_of(*a), a[0].dtype)
+
+    def tstub(road, shape_of):
+        return lambda *a, **k: ttook.append(road) or torch.zeros(shape_of(*a), dtype=a[0].dtype)
+
+    same = lambda q, *a: q.shape
+    monkeypatch.setattr(JA, "_bshd_mha", jstub("k3", same))
+    monkeypatch.setattr(JA, "_mha", jstub("k5", same))
+    monkeypatch.setattr(JA, "_fanout_mha", jstub("k4", same))
+    monkeypatch.setattr(A, "bshd_flash_attention", tstub("k3", same))
+    monkeypatch.setattr(A, "mha_bhsd_attention", tstub("k5", same))
+    monkeypatch.setattr(A, "fanout_attention", tstub("k4", same))
+    return jtook, ttook
+
+
+TAKES = {"k3": A.k3_takes, "k4": A.k4_takes, "k5": A.k5_takes}
+
+
+def _route(monkeypatch, B, Sq, Sk, H, Dh):
+    jtook, ttook = _stub_roads(monkeypatch)
+    q = np.zeros((B, Sq, H, Dh), np.float32)
+    k = np.zeros((B, Sk, H, Dh), np.float32)
+    JA.set_attention_impl("pallas")
+    JA.mha_bshd(_j(q), _j(k), _j(k), None)
+    A.mha_bshd(_t(q), _t(k), _t(k), None)
+    return (jtook or ["einsum"])[0], (ttook or ["einsum"])[0]
+
+
+@pytest.mark.parametrize("Dh", HEAD_WIDTHS)
+def test_long_road_predicates_match_reference(Dh, monkeypatch, restore_switches):
+    """Long score tiles (Sq*Sk > 32768): K3 where D % 64 == 0 and
+    H*D % 128 == 0, else K5, in both packages at every width; K3's CUDA
+    kernel is built for every width that reaches it here."""
+    for Sq, Sk in ((200, 200), (577, 577), (2048, 17)):
+        for H in (1, 2, 3):
+            ref, port = _route(monkeypatch, 1, Sq, Sk, H, Dh)
+            assert port == ref, (Sq, Sk, H, Dh, ref, port)
+            if port == "k3":
+                assert TAKES[port](Dh)
+            assert A.k3_takes(Dh) == (Dh % 64 == 0 and Dh <= 256)
+
+
+@pytest.mark.parametrize("Dh", HEAD_WIDTHS + (320,))
+def test_short_road_predicates_match_reference(Dh, monkeypatch, restore_switches):
+    """Short score tiles: K4 at a batch of 64 or more where D % 64 == 0,
+    else the einsum road, in both packages at every width; K4's CUDA kernel
+    is built for the multiples of 64 up to 256."""
+    for B in (8, 63, 64):
+        for Sq, Sk in ((8, 8), (32, 197), (128, 256)):
+            ref, port = _route(monkeypatch, B, Sq, Sk, 1, Dh)
+            assert port == ref, (B, Sq, Sk, Dh, ref, port)
+            if port in TAKES:
+                assert TAKES[port](Dh) == (Dh <= 256)
+            assert A.k4_takes(Dh) == (Dh % 64 == 0 and Dh <= 256)
+
+
+def _reference_fuses(monkeypatch, Sq, Sk, H, HD, B=64):
+    """Whether the reference's fused_dense_attention takes its Pallas road
+    for this shape with the Pallas backend forced on (nothing is run)."""
+    took = []
+    monkeypatch.setattr(JFA, "_resolved_impl", lambda: "pallas")
+    monkeypatch.setattr(JFA, "_fused_site", lambda *a: took.append("fused"))
+    monkeypatch.setattr(JFA, "_unfused_site", lambda *a: took.append("unfused"))
+    x_q, x_kv = jnp.zeros((B, Sq, 128)), jnp.zeros((B, Sk, 128))
+    w, b = jnp.zeros((128, HD)), jnp.zeros((HD,))
+    ln = (jnp.ones((128,)), jnp.zeros((128,)), 1e-6)
+    JFA.fused_dense_attention(x_q, x_kv, None, w, b, w, b, w, b, jnp.zeros((HD, 128)),
+                              jnp.zeros((128,)), H, q_ln=ln, residual=True)
+    return took == ["fused"]
+
+
+@pytest.mark.parametrize("H,HD", [(1, 128), (2, 256), (3, 384), (1, 256), (2, 384), (4, 768), (3, 768),
+                                  (1, 384)])
+def test_core_gate_matches_reference(H, HD, monkeypatch, restore_switches):
+    """The fused sites' gate is the reference's over a grid of (Sq, Sk) at
+    D = 128, 192 and 256 (one to four heads) and at D = 384, where the
+    reference fuses too and the port's core, built up to 256, raises on
+    the card."""
+    Dh = HD // H
+    A.set_attention_impl("pallas")
+    for sq in (1, 32, 50, 64, 82, 128, 129, 197, 256, 577):
+        for sk in (1, 32, 64, 129, 197, 229, 577):
+            ref = _reference_fuses(monkeypatch, sq, sk, H, HD)
+            port = FA._fuses(sq, sk, Dh)
+            assert port == ref, (sq, sk, H, HD, ref, port)
+    assert FA.core_takes(Dh) == (Dh in (64, 128, 192, 256))
+
+
+@pytest.mark.parametrize("Dh", [32, 96, 320, 384])
+def test_cuda_wrappers_raise_through_the_predicates(Dh):
+    """The CUDA halves of K1/K2's core, K3 and K4 refuse a head width their
+    predicate refuses, before any kernel is built or launched."""
+    H = 2
+    x = torch.zeros(1, 4, H * Dh, dtype=torch.bfloat16)
+    widths = r"\(64, 128, 192, 256\)"
+    with pytest.raises(ValueError, match="K3 kernel takes head widths " + widths):
+        A._bshd_flash_cuda(x, x, x, None, H)
+    with pytest.raises(ValueError, match="K4 kernel takes head widths " + widths):
+        A._fanout_cuda(x, x, x, torch.ones(1, 4), H)
+    with pytest.raises(ValueError, match="attention core takes head widths " + widths):
+        FA._core_cuda(x.view(4, H * Dh), 0, torch.zeros(4, 2 * H * Dh), 1, 4, 4, H * Dh, H, None)
+    assert not (A.k3_takes(Dh) or A.k4_takes(Dh) or FA.core_takes(Dh))

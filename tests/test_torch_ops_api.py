@@ -246,6 +246,14 @@ ROUTE_GRID = {
     "short_b64_d32": (64, 8, 12, 2, 32, "einsum"),
     "short_b4_d48": (4, 16, 24, 2, 48, "einsum"),
     "edge_32768": (2, 128, 256, 1, 128, "einsum"),
+    "long_d128_h1": (1, 300, 229, 1, 128, "k3"),
+    "long_d128_h3": (1, 200, 180, 3, 128, "k3"),
+    "short_b64_d128": (64, 8, 12, 1, 128, "k4"),
+    "short_b4_d128": (4, 40, 50, 2, 128, "einsum"),
+    "long_d192_h2": (1, 200, 180, 2, 192, "k3"),
+    "long_d192_h1": (1, 200, 180, 1, 192, "k5"),  # H*D % 128 != 0
+    "long_d256_h1": (1, 200, 180, 1, 256, "k3"),
+    "short_b64_d256": (64, 8, 12, 1, 256, "k4"),
 }
 
 
@@ -259,8 +267,10 @@ def _spy_roads(monkeypatch, module, names):
 
 @pytest.mark.parametrize("case", sorted(ROUTE_GRID))
 def test_mha_bshd_route_matches_reference(case, monkeypatch, restore_switches):
-    """The port once sent every long tile to K3, whose CUDA kernel takes
-    only D = 64; the reference sends D % 64 != 0 or H*D % 128 != 0 to K5.
+    """The port once sent every long tile to K3, whose CUDA kernel took
+    only D = 64; the reference sends D % 64 != 0 or H*D % 128 != 0 to K5,
+    and every other multiple of 64 (128, 192, 256 here) to K3 (long tiles)
+    and K4 (short ones at a batch of 64).
     Here both packages, with the reference's switch on its kernels
     (interpret mode), take the same road and agree."""
     B, Sq, Sk, H, D, road = ROUTE_GRID[case]

@@ -20,12 +20,14 @@ import torch
 from PIL import Image
 
 from btia_tpu.configs import get_config as jax_get_config
+from btia_tpu.data import native as jax_native
 from btia_tpu.data.vocab import AnswerVocab as JaxAnswerVocab
 from btia_tpu.data.wordpiece import WordPieceTokenizer as JaxWordPiece
 from btia_tpu.infer.predict import Predictor as JaxPredictor
 from btia_tpu.models.model import build_model as jax_build_model
 from btia_tpu_torch.configs import get_config
 from btia_tpu_torch.convert.from_jax import load_jax_params
+from btia_tpu_torch.data import native as torch_native
 from btia_tpu_torch.data.dicom import write_dicom
 from btia_tpu_torch.data.synthetic import generate_synthetic_vqa_med
 from btia_tpu_torch.data.vocab import AnswerVocab
@@ -113,8 +115,14 @@ def test_grayscale_image_and_size_check(predictors, image):
     )
 
 
-def test_jpeg_bytes_and_dicom_path(predictors, image, tmp_path):
+def test_jpeg_bytes_and_dicom_path(predictors, image, tmp_path, monkeypatch):
+    """JPEG bytes, and a DICOM file that both packages decode with the
+    Python reader: the native library, where it loads, may differ from it
+    by one grey level, and each package (each test worker) loads it or not
+    on its own. ``test_dicom_native_route_matches`` covers the library."""
     jp, tp = predictors
+    monkeypatch.setattr(jax_native, "dicom_decode_resize", lambda *a, **k: None)
+    monkeypatch.setattr(torch_native, "dicom_decode_resize", lambda *a, **k: None)
     buf = io.BytesIO()
     Image.fromarray(image[:200, :150]).save(buf, format="JPEG")
     jpeg = buf.getvalue()
@@ -127,6 +135,18 @@ def test_jpeg_bytes_and_dicom_path(predictors, image, tmp_path):
         tp.predict(str(path), CORPUS[3]), jp.predict(str(path), CORPUS[3]), atol=1e-4, rtol=0
     )
     assert tp.predict_answer(path, CORPUS[3]) == jp.predict_answer(str(path), CORPUS[3])
+
+
+def test_dicom_native_route_matches(predictors):
+    """The native library's decode of a DICOM, made once, reaches both
+    predictors as the same array: logits to 1e-4, the same answer."""
+    jp, tp = predictors
+    blob = write_dicom(None, (np.random.RandomState(2).rand(56, 44) * 3000).astype(np.uint16))
+    arr = torch_native.dicom_decode_resize(blob, 256, 256)
+    assert arr is not None, "the native ingest library did not build or load"
+    assert arr.shape == (256, 256, 3) and arr.dtype == np.uint8
+    np.testing.assert_allclose(tp.predict(arr, CORPUS[1]), jp.predict(arr, CORPUS[1]), atol=1e-4, rtol=0)
+    assert tp.predict_answer(arr, CORPUS[1]) == jp.predict_answer(arr, CORPUS[1])
 
 
 def test_from_checkpoint_round_trip(tmp_path):
