@@ -20,20 +20,6 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// 16-byte global -> shared copy; bytes == 0 zero-fills the destination.
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int bytes = valid ? 16 : 0;
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Copy `rows` x D bf16 (one head slice per row) from global memory with row
 // stride `stride` elements into shared memory with row stride `lds`; rows in
 // [rows, rows_pad) are zero-filled. 16-byte chunks, D / 8 per row.

@@ -1,56 +1,74 @@
-// K3 on Hopper: long-sequence attention in the projection-native
-// (B, S, H*D) layout, for ViT self-attention (ViT-L/336: 577 tokens, 16
-// heads) and the AD head's 2048 answer queries in training.
+// K3 and K5 on Hopper: one attention kernel over (B, H, S, D) operands in
+// any strides, for K3's projection-native (B, S, H*D) layout (ViT
+// self-attention: ViT-L/336's 577 tokens, 16 heads; the AD head's 2048
+// answer queries in training) and K5's (B, H, S, D) views at every head
+// width up to 256 (mha(impl="pallas"), and mha_bshd's long road where K3's
+// packed layout does not apply).
 //
-// Replaces btia_tpu/ops/attention.py:_bshd_flash_kernel (reached through
-// mha_bshd when Sq*Sk exceeds the short-sequence score tile). The wrapper is
-// btia_tpu_torch/ops/attention.py:bshd_flash_attention.
+// Replaces btia_tpu/ops/attention.py:_bshd_flash_kernel (K3, reached
+// through mha_bshd when Sq*Sk exceeds the short-sequence score tile) and
+// btia_tpu/ops/attention.py:_mha_kernel (K5, wrapper _mha_pallas). The
+// wrappers are btia_tpu_torch/ops/attention.py:bshd_flash_attention (entry
+// btia_flash_bshd below) and mha_bhsd_attention (entry btia_mha_bhsd in
+// mha_bhsd.cu, which calls launch_flash_attention).
 //
 // What bounds it on an H100: per ViT-L layer at 16 images it does ~22 GFLOP
 // of score and PV products over ~76 MB of q/k/v/o: ~22 us at 989 TF/s bf16
 // and ~23 us at 3.35 TB/s, so bytes and tensor-core operations bound it
-// about equally. Only wgmma reaches the tensor cores' rate on Hopper, and
-// only TMA moves tiles without spending the math warps' issue slots, so the
+// about equally; at the AD head's 2048 queries over 229 tokens it is bound
+// by bytes. Only wgmma reaches the tensor cores' rate on Hopper, and only
+// TMA moves tiles without spending the math warps' issue slots, so the
 // design is FlashAttention-3's:
 //
-// * One block per (BM-row q tile, head, image): BM / 64 consumer
-//   warpgroups of 64 q rows and one producer warp. BM = 128 (two consumer
-//   warpgroups) up to D = 192. At D = 256, O alone takes 128 registers a
+// * One block per (BM-row q tile, head, batch row): BM / 64 consumer
+//   warpgroups of 64 q rows and one producer warp. The kernel is built for
+//   padded head widths DP = 64, 128, 192 and 256; a head of D <= DP columns
+//   takes the template DP = 64 * ceil(D / 64). BM = 128 (two consumer
+//   warpgroups) up to DP = 192. At DP = 256, O alone takes 128 registers a
 //   thread, and ptxas budgets a block of 288 threads 168 registers a thread
 //   (as for three whole warpgroups; setmaxnreg did not raise it), which
 //   spilled; there BM = 64, one consumer warpgroup, whose budget is 255.
 // * The producer loads Q once, then K and V tiles of BN keys with TMA
-//   (3-D tensor maps over (B, S, H*D): dims {H*D, S, B}, boxes {64, BN, 1},
-//   128-byte swizzle; a head of D columns takes D / 64 boxes) into a ring
-//   of stages completed on mbarriers; the consumers release a stage through
-//   an "empty" mbarrier when their last product has read it.
+//   (128-byte swizzle) into a ring of stages completed on mbarriers; the
+//   consumers release a stage through an "empty" mbarrier when their last
+//   product has read it. K5's operands are read through 4-D tensor maps
+//   over the (B, H, S, D) view with its own strides (dims {D, S, H, B},
+//   boxes {64, rows, 1, 1}); a head takes DP / 64 boxes, and TMA's
+//   out-of-bounds zero fill supplies the columns [D, DP), so no padded byte
+//   is stored or read in device memory. K3's packed (B, S, H*D) operands
+//   take 3-D maps over (B, S, H*D) (the PACKED instances): the 4-D maps
+//   over the same bytes ran 1-7 % slower on an H100.
 // * S = Q K^T is wgmma m64nBNk16 with Q and K read from shared memory
 //   (K-major). S stays in registers: the online softmax takes a row's max
 //   and sum with two quad shuffles, and the running output O (wgmma's
-//   accumulator, m64nDk16) is rescaled in registers.
+//   accumulator, m64nDPk16) is rescaled in registers.
 // * O += P V takes P, converted to bf16 in registers, as wgmma's register A
 //   operand (its accumulator layout is the A fragment's), and V from shared
 //   memory as an MN-major (transposed) B.
-// * BN = 128 keys per tile at D = 64 and 128 rather than 64: 577 keys pad
+// * BN = 128 keys per tile at DP = 64 and 128 rather than 64: 577 keys pad
 //   to 640 either way (4 x 128 + 65, or 9 x 64 + 1), and the wider tile
 //   halves the barrier round trips and softmax rescales per key and runs
-//   wgmma at N = 128. At D = 192 and 256, BN = 64: O alone takes D / 2
+//   wgmma at N = 128. At DP = 192 and 256, BN = 64: O alone takes DP / 2
 //   registers a thread, and a two-stage ring of 128-key tiles with Q would
-//   need 240 KB (D = 192) of shared memory; 64-key tiles need 144 KB (and
-//   160 KB at D = 256 with BM = 64).
+//   need 240 KB (DP = 192) of shared memory; 64-key tiles need 144 KB (and
+//   160 KB at DP = 256 with BM = 64).
+// * O is stored through o's own strides, columns [0, D) only: on mha_bshd's
+//   long road that is the (B, S, H, D) buffer, so no transpose is copied.
 //
-// Semantics follow the TPU kernel: q pre-scaled by scale*log2(e) and rounded
-// to bf16 (here in shared memory, once per block), exp2 softmax, an additive
-// -1e9 bias on masked keys. Keys past Sk (TMA zero-fills them, and a zero
-// key would score 0) are -inf; a row whose every key is masked averages V
-// over the Sk real keys. The TPU kernel divides by the softmax denominator
-// before PV; the online softmax here divides once after, so the two differ
-// by the bf16 rounding of the probabilities. Rows past Sq are not stored.
+// Semantics follow the TPU kernels: q pre-scaled by scale*log2(e) and
+// rounded to bf16 (here in shared memory, once per block), exp2 softmax, an
+// additive -1e9 bias on masked keys. Keys past Sk (TMA zero-fills them, and
+// a zero key would score 0) are -inf; a row whose every key is masked
+// averages V over the Sk real keys. The division by the softmax denominator
+// comes once, after PV, as in K5's _attn_block_log2 (defer_div); K3's TPU
+// kernel divides before PV, so K3 differs from it by the bf16 rounding of
+// the probabilities. Rows past Sq are not stored.
 
 #include "common.cuh"
+#include "flash.cuh"
 #include "hopper.cuh"
 
-template <int D>
+template <int D>  // the padded head width DP
 struct F3Layout {
   static constexpr int BM = D <= 192 ? 128 : 64;       // q rows per block
   static constexpr int CONSUMER_WARPS = BM / 16;       // a warpgroup per 64 rows
@@ -104,11 +122,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <int D>
+// D is the padded width DP (a template); dw the head's own width (<= DP, a
+// multiple of 8), the columns stored. PACKED: K3's (B, S, H*D) layout, read
+// through 3-D tensor maps over (B, S, H*D) with dw == D; otherwise 4-D maps
+// over the (B, H, S, D) operand.
+template <int D, bool PACKED>
 __global__ void __launch_bounds__(F3Layout<D>::THREADS, 1)
-flash_bshd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+flash_attn_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                   const __grid_constant__ CUtensorMap vmap, const float* __restrict__ mask, bf16* __restrict__ o,
-                  int H, int Sq, int Sk, float qscale) {
+                  long long o_b, long long o_h, long long o_s, int dw, int Sq, int Sk, float qscale) {
   using L = F3Layout<D>;
   constexpr int BN = L::BN;
   extern __shared__ unsigned char smem_raw[];
@@ -139,7 +161,10 @@ flash_bshd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constan
       tma_prefetch_map(&kmap);
       tma_prefetch_map(&vmap);
       mbar_expect_tx(qbar, L::Q_BYTES);
-      for (int c = 0; c < L::NB; ++c) tma_load_3d(sq + c * L::Q_BLK, &qmap, qbar, h * D + c * 64, q0, b);
+      for (int c = 0; c < L::NB; ++c) {
+        if (PACKED) tma_load_3d(sq + c * L::Q_BLK, &qmap, qbar, h * D + c * 64, q0, b);
+        else tma_load_4d(sq + c * L::Q_BLK, &qmap, qbar, c * 64, q0, h, b);
+      }
       for (int kt = 0; kt < nkt; ++kt) {
         const int s = kt % L::STAGES;
         // Stage s last held tile kt - STAGES: wait for its release.
@@ -147,8 +172,13 @@ flash_bshd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constan
         mbar_expect_tx(&full[s], L::STAGE_BYTES);
         unsigned char* kd = skv + s * L::STAGE_BYTES;
         for (int c = 0; c < L::NB; ++c) {
-          tma_load_3d(kd + c * L::KV_BLK, &kmap, &full[s], h * D + c * 64, kt * BN, b);
-          tma_load_3d(kd + L::KV_BYTES + c * L::KV_BLK, &vmap, &full[s], h * D + c * 64, kt * BN, b);
+          if (PACKED) {
+            tma_load_3d(kd + c * L::KV_BLK, &kmap, &full[s], h * D + c * 64, kt * BN, b);
+            tma_load_3d(kd + L::KV_BYTES + c * L::KV_BLK, &vmap, &full[s], h * D + c * 64, kt * BN, b);
+          } else {
+            tma_load_4d(kd + c * L::KV_BLK, &kmap, &full[s], c * 64, kt * BN, h, b);
+            tma_load_4d(kd + L::KV_BYTES + c * L::KV_BLK, &vmap, &full[s], c * 64, kt * BN, h, b);
+          }
         }
       }
     }
@@ -279,12 +309,12 @@ flash_bshd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constan
     l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
     l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
     l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-    const long long HD = static_cast<long long>(H) * D;
     const int g0 = q0 + wg * 64 + r0, g1 = g0 + 8;
-    bf16* o0 = o + (static_cast<long long>(b) * Sq + g0) * HD + h * D + 2 * qd;
-    bf16* o1 = o0 + 8 * HD;
+    bf16* o0 = o + b * o_b + h * o_h + g0 * o_s + 2 * qd;
+    bf16* o1 = o0 + 8 * o_s;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
+      if (!PACKED && 8 * j >= dw) continue;  // a padded column
       if (g0 < Sq)
         *reinterpret_cast<__nv_bfloat162*>(o0 + 8 * j) =
             __floats2bfloat162_rn(acc_o[4 * j] / l0, acc_o[4 * j + 1] / l0);
@@ -295,39 +325,83 @@ flash_bshd_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constan
   }
 }
 
-template <int D>
-static int launch_flash(const void* q, const void* k, const void* v, const void* mask, void* o, int B, int H, int Sq,
-                        int Sk, float qscale, cudaStream_t stream) {
+// A 4-D tensor map over a (B, H, S, D) operand: dims {dw, S, H, B}, a box of
+// 64 columns by `rows`.
+static int encode_bhsd(CUtensorMap* map, const FlashOperand& t, int B, int H, int S, int dw, uint32_t rows) {
+  const uint64_t dims[4] = {static_cast<uint64_t>(dw), static_cast<uint64_t>(S), static_cast<uint64_t>(H),
+                            static_cast<uint64_t>(B)};
+  const uint64_t strides[3] = {2ull * t.s, 2ull * t.h, 2ull * t.b};
+  const uint32_t box[4] = {64, rows, 1, 1};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, t.ptr, dims, strides, box);
+}
+
+template <int D, bool PACKED>
+static int launch_flash(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, const void* mask,
+                        const FlashOperand& o, int B, int H, int Sq, int Sk, int dw, float qscale,
+                        cudaStream_t stream) {
   using L = F3Layout<D>;
-  const uint64_t HD = static_cast<uint64_t>(H) * D;
-  const uint64_t qdims[3] = {HD, static_cast<uint64_t>(Sq), static_cast<uint64_t>(B)};
-  const uint64_t kdims[3] = {HD, static_cast<uint64_t>(Sk), static_cast<uint64_t>(B)};
-  const uint64_t qstr[2] = {HD * 2, HD * 2 * Sq}, kstr[2] = {HD * 2, HD * 2 * Sk};
+  auto kernel = flash_attn_kernel<D, PACKED>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dim3 grid((Sq + L::BM - 1) / L::BM, H, B);
+  kernel<<<grid, L::THREADS, L::SMEM, stream>>>(qm, km, vm, static_cast<const float*>(mask),
+                                                static_cast<bf16*>(const_cast<void*>(o.ptr)), o.b, o.h, o.s, dw, Sq,
+                                                Sk, qscale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+static int launch_bhsd(const FlashOperand& q, const FlashOperand& k, const FlashOperand& v, const void* mask,
+                       const FlashOperand& o, int B, int H, int Sq, int Sk, int dw, float qscale, cudaStream_t stream) {
+  using L = F3Layout<D>;
+  CUtensorMap qm, km, vm;
+  int err = encode_bhsd(&qm, q, B, H, Sq, dw, L::BM);
+  if (err == 0) err = encode_bhsd(&km, k, B, H, Sk, dw, L::BN);
+  if (err == 0) err = encode_bhsd(&vm, v, B, H, Sk, dw, L::BN);
+  if (err != 0) return err;
+  return launch_flash<D, false>(qm, km, vm, mask, o, B, H, Sq, Sk, dw, qscale, stream);
+}
+
+int launch_flash_attention(const FlashOperand& q, const FlashOperand& k, const FlashOperand& v, const void* mask,
+                           const FlashOperand& o, int B, int H, int Sq, int Sk, int dw, float qscale,
+                           cudaStream_t stream) {
+  if (dw < 8 || dw % 8 != 0 || dw > 256) return static_cast<int>(cudaErrorInvalidValue);
+  switch ((dw + 63) / 64) {
+    case 1: return launch_bhsd<64>(q, k, v, mask, o, B, H, Sq, Sk, dw, qscale, stream);
+    case 2: return launch_bhsd<128>(q, k, v, mask, o, B, H, Sq, Sk, dw, qscale, stream);
+    case 3: return launch_bhsd<192>(q, k, v, mask, o, B, H, Sq, Sk, dw, qscale, stream);
+    default: return launch_bhsd<256>(q, k, v, mask, o, B, H, Sq, Sk, dw, qscale, stream);
+  }
+}
+
+template <int D>
+static int launch_packed(const void* q, const void* k, const void* v, const void* mask, void* o, int B, int H, int Sq,
+                         int Sk, float qscale, cudaStream_t stream) {
+  using L = F3Layout<D>;
+  const long long HD = static_cast<long long>(H) * D;
+  const uint64_t qdims[3] = {static_cast<uint64_t>(HD), static_cast<uint64_t>(Sq), static_cast<uint64_t>(B)};
+  const uint64_t kdims[3] = {static_cast<uint64_t>(HD), static_cast<uint64_t>(Sk), static_cast<uint64_t>(B)};
+  const uint64_t qstr[2] = {2ull * HD, 2ull * HD * Sq}, kstr[2] = {2ull * HD, 2ull * HD * Sk};
   const uint32_t qbox[3] = {64, L::BM, 1}, kbox[3] = {64, L::BN, 1};
   CUtensorMap qm, km, vm;
   int err = encode_map(&qm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, q, qdims, qstr, qbox);
   if (err == 0) err = encode_map(&km, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, k, kdims, kstr, kbox);
   if (err == 0) err = encode_map(&vm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, v, kdims, kstr, kbox);
   if (err != 0) return err;
-  cudaError_t e = cudaFuncSetAttribute(flash_bshd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((Sq + L::BM - 1) / L::BM, H, B);
-  flash_bshd_kernel<D><<<grid, L::THREADS, L::SMEM, stream>>>(qm, km, vm, static_cast<const float*>(mask),
-                                                              static_cast<bf16*>(o), H, Sq, Sk, qscale);
-  return static_cast<int>(cudaGetLastError());
+  const FlashOperand out{o, Sq * HD, D, HD};
+  return launch_flash<D, true>(qm, km, vm, mask, out, B, H, Sq, Sk, D, qscale, stream);
 }
 
-// q: (B, Sq, H*D), k / v: (B, Sk, H*D) bf16, 16-byte aligned; mask: (B, Sk)
-// f32 {0, 1} or null; o: (B, Sq, H*D) bf16. D is 64, 128, 192 or 256;
-// Sq, Sk >= 1.
-// Returns 0, a CUDA error code, or 1000 + the CUresult of encoding a
-// tensor map.
+// K3. q: (B, Sq, H*D), k / v: (B, Sk, H*D) bf16, 16-byte aligned; mask:
+// (B, Sk) f32 {0, 1} or null; o: (B, Sq, H*D) bf16. D is 64, 128, 192 or
+// 256; Sq, Sk >= 1. Returns 0, a CUDA error code, or 1000 + the CUresult of
+// encoding a tensor map.
 extern "C" int btia_flash_bshd(const void* q, const void* k, const void* v, const void* mask, void* o, int B, int H,
                                int D, int Sq, int Sk, float qscale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch_flash<64>(q, k, v, mask, o, B, H, Sq, Sk, qscale, s);
-  if (D == 128) return launch_flash<128>(q, k, v, mask, o, B, H, Sq, Sk, qscale, s);
-  if (D == 192) return launch_flash<192>(q, k, v, mask, o, B, H, Sq, Sk, qscale, s);
-  if (D == 256) return launch_flash<256>(q, k, v, mask, o, B, H, Sq, Sk, qscale, s);
+  if (D == 64) return launch_packed<64>(q, k, v, mask, o, B, H, Sq, Sk, qscale, s);
+  if (D == 128) return launch_packed<128>(q, k, v, mask, o, B, H, Sq, Sk, qscale, s);
+  if (D == 192) return launch_packed<192>(q, k, v, mask, o, B, H, Sq, Sk, qscale, s);
+  if (D == 256) return launch_packed<256>(q, k, v, mask, o, B, H, Sq, Sk, qscale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -11,8 +11,9 @@
 // tokens, width 768) the four projections are ~95% of the operations, so the
 // site is bound by tensor-core operations (~0.3-0.5 ms at 989 TF/s), not by
 // the ~0.2-0.4 GB it must move. The design therefore puts the projections on
-// the tensor cores (bf16 wmma, fp32 accumulation, cp.async double-buffered
-// 128x128 tiles) and keeps each (row, head) score tile in shared memory, so
+// the tensor cores at Hopper's rate (gemm_bias_wgmma_kernel: wgmma fed by
+// TMA, f32 accumulators and the bias / residual epilogue in registers) and
+// keeps each (row, head) score tile in shared memory, so
 // no score or probability tensor goes to device memory; sequences longer
 // than 128 (ViT-B/16's 197 image tokens in BTIA) stream their keys through
 // an online softmax instead of holding the whole tile. The pre-LN prologue
@@ -28,106 +29,168 @@
 // added in bf16.
 
 #include "common.cuh"
+#include "hopper.cuh"
 #include "masked_flash.cuh"
 
 using namespace nvcuda;
 
 // ---------------------------------------------------------------------------
-// C[M, N] = bf16(A[M, K] @ W[K, N] + bias[N])  (+ resid[row % resid_rows, N]
-// in bf16). A, W, C, resid row-major and contiguous; K % 8 == 0, N % 8 == 0.
+// The projection GEMM: C[M, N] = bf16(A[M, K] @ W[K, N] + bias[N]), then,
+// with a residual, C = bf16(C + resid[row % resid_rows, N]). A, W, C and
+// resid row-major and packed; K % 8 == 0 and N % 8 == 0 (TMA's 16-byte row
+// rule); M ragged.
+//
+// wgmma m64n128k16 (bf16 in, f32 accumulators in registers) on 128 x 128
+// output tiles, fed by TMA through a ring of three stages of 64-deep K
+// chunks on mbarriers: a producer warp issues the loads, two consumer
+// warpgroups of 64 rows each issue a chunk's four products, wait for them
+// and release the stage at once. A is read K-major (boxes of 64 columns x
+// 128 rows, 128-byte swizzle); W lies (K, N) row-major and is read as it
+// lies, an MN-major B (two boxes of 64 columns x 64 K rows a stage), so no
+// transposed copy of the weights is made. Two blocks fit on an SM (97 KB of
+// shared memory each), so one block's epilogue overlaps the other's
+// products. Blocks run along N first: the blocks of one M tile run together
+// and read its A rows from L2, and the weights (at most 2.4 MB here) stay
+// in L2. TMA zero-fills rows past M and a K or N tail.
+//
+// The epilogue is staged. Stores straight from wgmma's fragment layout
+// write 4 bytes a thread across 8 rows, and on an H100 they cost the
+// kernel a large share of its time at K = 768. So each warpgroup writes
+// bf16(acc + bias) into the idle first stage as two 64 x 64 boxes in the
+// 128-byte swizzle (conflict-free for the fragment layout), reads it back
+// in rows of 16-byte chunks, adds the residual from 16-byte loads (all
+// issued before any store), and stores whole rows; rows past M and columns
+// past N are masked.
 // ---------------------------------------------------------------------------
 
-constexpr int GBM = 128, GBN = 128, GBK = 32, GPAD = 8, GTHREADS = 256;
+constexpr int PG_BM = 128, PG_BN = 128, PG_BK = 64;  // tile rows, columns, K per stage
+constexpr int PG_STAGES = 3;
+constexpr int PG_THREADS = 288;  // 2 consumer warpgroups + 1 producer warp
+constexpr int PG_CONSUMER_WARPS = 8;
+constexpr int PG_A_BYTES = PG_BM * PG_BK * 2;            // 16 KB: 128 rows of 128 bytes
+constexpr int PG_W_BLK = PG_BK * 128;                    // 8 KB: 64 K rows of one 64-column block
+constexpr int PG_STAGE_BYTES = PG_A_BYTES + 2 * PG_W_BLK;
+constexpr int PG_BIAS_OFF = PG_STAGES * PG_STAGE_BYTES;  // the tile's 128 biases, f32
+constexpr int PG_BAR_OFF = PG_BIAS_OFF + PG_BN * 4;
+constexpr int PG_SMEM = PG_BAR_OFF + 64 + 1024;          // barriers; slack to align the base to 1 KB
+constexpr int PG_CHUNKS = 64 * PG_BN / 8 / 128;          // 16-byte output chunks a consumer thread stores
 
-__global__ void __launch_bounds__(GTHREADS)
-gemm_bias_kernel(const bf16* __restrict__ A, const bf16* __restrict__ W, const float* __restrict__ bias,
-                 const bf16* __restrict__ resid, int resid_rows, bf16* __restrict__ C, int M, int N, int K) {
-  __shared__ __align__(128) bf16 As[2][GBM][GBK + GPAD];
-  __shared__ __align__(128) bf16 Bs[2][GBK][GBN + GPAD];
-  __shared__ __align__(128) float stage[GTHREADS / 32][16 * 16];
+// Byte offset of the 16-byte chunk holding columns 8 cc.. of row r in a
+// warpgroup's staged slab (two 64-column boxes, 128-byte swizzle).
+__device__ __forceinline__ int pg_chunk(int r, int cc) {
+  return (cc / 8) * PG_W_BLK + r * 128 + (((cc % 8) ^ (r % 8)) * 16);
+}
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const long long bm = static_cast<long long>(blockIdx.x) * GBM;
-  const int bn = blockIdx.y * GBN;
-  const int wm = (warp >> 2) * 64;  // 2 warps along M
-  const int wn = (warp & 3) * 32;   // 4 warps along N
+__global__ void __launch_bounds__(PG_THREADS, 2)
+gemm_bias_wgmma_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap wmap,
+                       const float* __restrict__ bias, const bf16* __restrict__ resid, int resid_rows,
+                       bf16* __restrict__ C, int M, int N, int K) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* sbias = reinterpret_cast<float*>(smem + PG_BIAS_OFF);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + PG_BAR_OFF);
+  uint64_t* empty = full + PG_STAGES;
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+  const int bn = blockIdx.x * PG_BN, bm = blockIdx.y * PG_BM;
+  const int nk = (K + PG_BK - 1) / PG_BK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
-  auto load_tile = [&](int kt, int buf) {
-    const int k0 = kt * GBK;
-    for (int c = tid; c < GBM * GBK / 8; c += GTHREADS) {
-      int r = c / (GBK / 8), col = (c % (GBK / 8)) * 8;
-      long long gr = bm + r;
-      int gk = k0 + col;
-      bool ok = gr < M && gk < K;
-      cp_async16(&As[buf][r][col], ok ? A + gr * K + gk : A, ok);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < PG_STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], PG_CONSUMER_WARPS);
     }
-    for (int c = tid; c < GBK * GBN / 8; c += GTHREADS) {
-      int r = c / (GBN / 8), col = (c % (GBN / 8)) * 8;
-      int gk = k0 + r, gn = bn + col;
-      bool ok = gk < K && gn < N;
-      cp_async16(&Bs[buf][r][col], ok ? W + static_cast<long long>(gk) * N + gn : W, ok);
-    }
-    cp_async_commit();
-  };
+    mbar_fence_init();
+  }
+  __syncthreads();
 
-  const int nk = (K + GBK - 1) / GBK;
-  load_tile(0, 0);
-  for (int kt = 0; kt < nk; ++kt) {
-    const int buf = kt & 1;
-    if (kt + 1 < nk) {
-      load_tile(kt + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (warp == PG_CONSUMER_WARPS) {
+    // Producer: one thread keeps the ring full.
+    if (lane == 0) {
+      tma_prefetch_map(&amap);
+      tma_prefetch_map(&wmap);
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % PG_STAGES;
+        if (kt >= PG_STAGES) mbar_wait(&empty[s], (kt / PG_STAGES - 1) & 1);
+        mbar_expect_tx(&full[s], PG_STAGE_BYTES);
+        unsigned char* st = smem + s * PG_STAGE_BYTES;
+        tma_load_2d(st, &amap, &full[s], kt * PG_BK, bm);
+        tma_load_2d(st + PG_A_BYTES, &wmap, &full[s], bn, kt * PG_BK);
+        tma_load_2d(st + PG_A_BYTES + PG_W_BLK, &wmap, &full[s], bn + 64, kt * PG_BK);
+      }
     }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < GBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) wmma::load_matrix_sync(a[i], &As[buf][wm + i * 16][kk], GBK + GPAD);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::load_matrix_sync(b[j], &Bs[buf][kk][wn + j * 16], GBN + GPAD);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
+    return;
   }
 
-  float* st = stage[warp];
-  const int r = lane >> 1, c0 = (lane & 1) * 8;
+  // Consumers: warpgroup wg owns output rows [64 wg, 64 wg + 64) of the
+  // tile; this thread rows r0 and r0 + 8 of them.
+  const int wg = warp / 4, t = threadIdx.x % 128;
+  const int r0 = 16 * (t / 32) + lane / 4, qd = lane % 4;
+  if (threadIdx.x < PG_BN) sbias[threadIdx.x] = bn + threadIdx.x < N ? bias[bn + threadIdx.x] : 0.f;
+  float acc[64];
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % PG_STAGES;
+    mbar_wait(&full[s], (kt / PG_STAGES) & 1);
+    const uint32_t a_addr = smem_u32(smem + s * PG_STAGE_BYTES) + wg * 64 * 128;
+    const uint32_t w_addr = smem_u32(smem + s * PG_STAGE_BYTES + PG_A_BYTES);
+    wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+    for (int kk = 0; kk < PG_BK / 16; ++kk)
+      // A: 16 columns = 32 bytes along its 128-byte rows. W: 16 K rows of
+      // 128 bytes (2 KB) on; 1 KB between groups of eight K rows (SBO), one
+      // 64-column block to the next (LBO). The tile's first product
+      // overwrites the accumulators.
+      wgmma_bf16_ss_tb_n128(acc, wgmma_desc_sw128(a_addr + kk * 32, 16, 1024),
+                            wgmma_desc_sw128(w_addr + kk * 2048, PG_W_BLK, 1024), kt > 0 || kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(&empty[s]);  // this warp has finished reading stage s
+  }
+  fence_regs(acc);
+
+  // Both warpgroups are done with the stages (and sbias is written) before
+  // either overwrites the first stage.
+  named_barrier(1, 32 * PG_CONSUMER_WARPS);
+  unsigned char* slab = smem + wg * 2 * PG_W_BLK;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(st, acc[i][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      long long gr = bm + wm + i * 16 + r;
-      int gc = bn + wn + j * 16 + c0;
-      if (gr < M) {
+  for (int j = 0; j < PG_BN / 8; ++j) {
+    const float2 bi = *reinterpret_cast<const float2*>(sbias + 8 * j + 2 * qd);
+    unsigned char* box = slab + (j / 8) * PG_W_BLK + qd * 4;
+    *reinterpret_cast<__nv_bfloat162*>(box + r0 * 128 + (((j % 8) ^ (r0 % 8)) * 16)) =
+        __floats2bfloat162_rn(acc[4 * j] + bi.x, acc[4 * j + 1] + bi.y);
+    *reinterpret_cast<__nv_bfloat162*>(box + (r0 + 8) * 128 + (((j % 8) ^ ((r0 + 8) % 8)) * 16)) =
+        __floats2bfloat162_rn(acc[4 * j + 2] + bi.x, acc[4 * j + 3] + bi.y);
+  }
+  named_barrier(2 + wg, 128);
+  // Thread t takes chunks idx = 128 i + t: row idx / 16, columns 8 (idx % 16)..;
+  // half of them at a time, each half's loads issued before its stores.
 #pragma unroll
-        for (int e = 0; e < 8; ++e) {
-          int col = gc + e;
-          if (col < N) {
-            bf16 o = __float2bfloat16(st[r * 16 + c0 + e] + bias[col]);
-            if (resid != nullptr) {
-              float rv = __bfloat162float(resid[(gr % resid_rows) * N + col]);
-              o = __float2bfloat16(rv + __bfloat162float(o));
-            }
-            C[gr * N + col] = o;
-          }
+  for (int h = 0; h < PG_CHUNKS; h += PG_CHUNKS / 2) {
+    uint4 y[PG_CHUNKS / 2], rv[PG_CHUNKS / 2];
+#pragma unroll
+    for (int i = 0; i < PG_CHUNKS / 2; ++i) {
+      const int idx = (h + i) * 128 + t, r = idx / 16, cc = idx % 16;
+      const int g = bm + wg * 64 + r, c = bn + 8 * cc;
+      y[i] = *reinterpret_cast<const uint4*>(slab + pg_chunk(r, cc));
+      rv[i] = resid != nullptr && g < M && c < N
+                  ? *reinterpret_cast<const uint4*>(resid + static_cast<long long>(g % resid_rows) * N + c)
+                  : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int i = 0; i < PG_CHUNKS / 2; ++i) {
+      const int idx = (h + i) * 128 + t, r = idx / 16, cc = idx % 16;
+      const int g = bm + wg * 64 + r, c = bn + 8 * cc;
+      if (resid != nullptr) {
+        // bf16(y + resid), y already rounded: the twin's order.
+        __nv_bfloat162* yh = reinterpret_cast<__nv_bfloat162*>(&y[i]);
+        const __nv_bfloat162* rh = reinterpret_cast<const __nv_bfloat162*>(&rv[i]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 a = __bfloat1622float2(yh[e]), b = __bfloat1622float2(rh[e]);
+          yh[e] = __floats2bfloat162_rn(a.x + b.x, a.y + b.y);
         }
       }
-      __syncwarp();
+      if (g < M && c < N) *reinterpret_cast<uint4*>(C + static_cast<long long>(g) * N + c) = y[i];
     }
   }
 }
@@ -302,12 +365,27 @@ attn_core_tiled_kernel(const bf16* __restrict__ q, long long q_bs, int q_rs, con
 // Each entry returns cudaGetLastError() after its launch.
 // ---------------------------------------------------------------------------
 
+// A: (M, K), W: (K, N), C: (M, N) bf16, resid: (resid_rows, N) bf16 or
+// null, each packed and 16-byte aligned; bias: (N,) f32. K % 8 == 0,
+// N % 8 == 0, M >= 1. Returns 0, a CUDA error code, or 1000 + the CUresult
+// of encoding a tensor map.
 extern "C" int btia_gemm_bias(const void* A, const void* W, const void* bias, const void* resid, int resid_rows,
                               void* C, int M, int N, int K, void* stream) {
-  dim3 grid((M + GBM - 1) / GBM, (N + GBN - 1) / GBN);
-  gemm_bias_kernel<<<grid, GTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(A), static_cast<const bf16*>(W), static_cast<const float*>(bias),
-      static_cast<const bf16*>(resid), resid_rows, static_cast<bf16*>(C), M, N, K);
+  if (K % 8 != 0 || N % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const uint64_t adims[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(M)};
+  const uint64_t wdims[2] = {static_cast<uint64_t>(N), static_cast<uint64_t>(K)};
+  const uint64_t astride[1] = {2ull * K}, wstride[1] = {2ull * N};
+  const uint32_t abox[2] = {PG_BK, PG_BM}, wbox[2] = {64, PG_BK};
+  CUtensorMap am, wm;
+  int err = encode_map(&am, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, A, adims, astride, abox);
+  if (err == 0) err = encode_map(&wm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, W, wdims, wstride, wbox);
+  if (err != 0) return err;
+  cudaError_t e = cudaFuncSetAttribute(gemm_bias_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, PG_SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((N + PG_BN - 1) / PG_BN, (M + PG_BM - 1) / PG_BM);
+  gemm_bias_wgmma_kernel<<<grid, PG_THREADS, PG_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      am, wm, static_cast<const float*>(bias), static_cast<const bf16*>(resid), resid_rows, static_cast<bf16*>(C), M,
+      N, K);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,5 +1,5 @@
 // Attention of one 64-row query tile of one head at any head width D that is
-// a multiple of 8 up to 128, shared by K5 (mha_bhsd.cu) and K6 (bicross.cu).
+// a multiple of 8 up to 128: K6's tile (bicross.cu).
 //
 // Both TPU kernels (btia_tpu/ops/attention.py:_mha_kernel and the kernel
 // closure of btia_tpu/ops/bicross.py:_bicross_pallas) run

@@ -7,10 +7,10 @@ encoders and the mlp head are still to be ported (ROADMAP Queue 1). On the
 card, under the bf16 policy, ``streaming_vitl`` is served through
 ``Predictor`` (the serving entry points) and ``vqa_med_full`` trains and
 evaluates through ``train.trainer.Trainer`` (``forward`` with ``train`` on
-and off); ``chip_smoke.py`` drives both. ``pathvqa_vit`` takes the same
-kernels at its own shapes (its 197-token BTIA sites, like
-``vqa_med_full``'s, need the tiled attention core) but is not driven on the
-card yet. The fp32 policy runs on the CPU only. With ``int8_ffn`` under the
+and off); ``chip_smoke.py`` drives both, and ``pathvqa_vit`` (the same
+kernels at its own shapes: 197-token BTIA sites on the tiled attention
+core, its AD head's 256 x 229 attention unfused on K3) through one train
+step and an eval forward. The fp32 policy runs on the CPU only. With ``int8_ffn`` under the
 bf16 policy, every Mlp of a deterministic forward runs its two products
 through K8 (``ops/quant.py``); a train forward stays on the fp path, as in
 the reference (``model.py:36-43``).

@@ -29,9 +29,12 @@ switch is on the kernels:
 
 The roads are the reference's gates, whatever the head width. The
 ``*_takes`` predicates say which head widths each CUDA kernel is built for
-(K3 and K4: ``TILE_HEAD_WIDTHS``, the multiples of 64 up to 256; K5: the
-multiples of 8 up to 128), and each wrapper raises through its predicate
-on a CUDA tensor of another width.
+(K3 and K4: ``TILE_HEAD_WIDTHS``, the multiples of 64 up to 256; K5: every
+width up to 256; K6, in ``ops/bicross.py``: the multiples of 8 up to 128),
+and each wrapper raises through its predicate on a CUDA tensor of another
+width. K3 and K5 share one kernel (``csrc/flash_bshd.cu``): K5 gives it the
+(B, H, S, D) views with their own strides, K3 the packed (B, S, H*D)
+layout.
 
 Each kernel entry routes by device: a CUDA tensor launches the hand-written
 kernel (counted in the entry's ``.launches``) or raises, a CPU tensor takes
@@ -193,12 +196,20 @@ def _mha_bhsd_plain(q, k, v, kv_mask) -> torch.Tensor:
 def _bhsd_operand(t: torch.Tensor, what: str):
     """A (B, H, S, D) bf16 CUDA operand the tile kernels read in place
     (16-byte rows through its strides), copied only where its strides do
-    not allow that; returns it with its (batch, head, row) strides."""
+    not allow that; returns it with its (batch, head, row) strides. A
+    dimension of size 1 (a batch of 1) is given the span of the others as
+    its stride: any stride reads its one index, and TMA takes only nonzero
+    multiples of 16 bytes; a broadcast (stride 0) of a longer dimension is
+    copied."""
     if not t.is_cuda or t.dtype != torch.bfloat16:
         raise ValueError(f"{what}: the CUDA kernel takes a bf16 CUDA tensor, got {t.dtype} on {t.device}")
-    strides = lambda x: [0 if x.shape[i] == 1 else x.stride(i) for i in range(3)]
+
+    def strides(x):
+        span = max([x.shape[3]] + [x.stride(i) * x.shape[i] for i in range(3) if x.shape[i] > 1])
+        return [span if x.shape[i] == 1 else x.stride(i) for i in range(3)]
+
     readable = lambda x: (x.stride(3) == 1 and x.data_ptr() % 16 == 0
-                          and not any(s % 8 for s in strides(x)))
+                          and all(s > 0 and s % 8 == 0 for s in strides(x)))
     if not readable(t):
         t = t.contiguous()
         if not readable(t):  # packed, but at an unaligned storage offset
@@ -222,20 +233,30 @@ def k4_takes(head_dim: int) -> bool:
     return head_dim in TILE_HEAD_WIDTHS
 
 
+# K5's widest head: the kernel's four templates pad D to 64, 128, 192 or
+# 256 in shared memory. The reference pads any width; a wider head raises on
+# the card.
+K5_MAX_HEAD_WIDTH = 256
+
+
 def k5_takes(head_dim: int) -> bool:
-    """Whether K5's (and K6's) CUDA tile is built for this head width."""
-    return head_dim % 8 == 0 and 8 <= head_dim <= 128
-
-
-def _check_head_width(D: int, what: str) -> None:
-    if not k5_takes(D):
-        raise ValueError(f"{what} kernel takes head widths that are multiples of 8 up to 128, got {D}")
+    """Whether K5's CUDA kernel takes this head width: every width up to
+    256 (one not a multiple of 8 through a padded copy)."""
+    return 1 <= head_dim <= K5_MAX_HEAD_WIDTH
 
 
 def _mha_bhsd_cuda(q, k, v, kv_mask) -> torch.Tensor:
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
-    _check_head_width(D, "K5")
+    if not k5_takes(D):
+        raise ValueError(f"K5 kernel takes head widths up to {K5_MAX_HEAD_WIDTH}, got {D}")
+    if min(B, Sq, Sk) == 0:
+        raise ValueError(f"K5 kernel takes B, Sq, Sk >= 1, got {(B, Sq, Sk)}")
+    dw = -(-D // 8) * 8
+    if dw != D:
+        # TMA reads rows of 16-byte multiples: one zero-padded copy, the
+        # reference's own pad of D in device memory (_mha_pallas).
+        q, k, v = (torch.nn.functional.pad(t, (0, dw - D)) for t in (q, k, v))
     ops = [_bhsd_operand(t, f"mha_bhsd_attention {n}") for t, n in ((q, "q"), (k, "k"), (v, "v"))]
     # The output takes q's layout: for mha_bshd's views, a (B, S, H, D) buffer.
     out, st_o = _bhsd_operand(torch.empty_like(ops[0][0]), "mha_bhsd_attention out")
@@ -244,11 +265,11 @@ def _mha_bhsd_cuda(q, k, v, kv_mask) -> torch.Tensor:
     _native.check(
         _native.lib().btia_mha_bhsd(
             *(t.data_ptr() for t, _ in ops), None if mask is None else mask.data_ptr(),
-            out.data_ptr(), strides, B, H, Sq, Sk, D, _log2_scale(D), _native.stream(q),
+            out.data_ptr(), strides, B, H, Sq, Sk, dw, _log2_scale(D), _native.stream(q),
         ),
         "btia_mha_bhsd",
     )
-    return out
+    return out if dw == D else out[..., :D]
 
 
 class _Mha(torch.autograd.Function):
@@ -277,7 +298,7 @@ def mha_bhsd_attention(
     kv_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K5: q (B, H, Sq, D), k/v (B, H, Sk, D) in any strides with D packed,
-    kv_mask (B, Sk) True=valid; D a multiple of 8 up to 128 on the card.
+    kv_mask (B, Sk) True=valid; D up to 256 on the card (``k5_takes``).
 
     A CUDA tensor launches the kernel (counted in ``.launches``) or raises;
     a CPU tensor takes the plain twin. A row whose every key is masked

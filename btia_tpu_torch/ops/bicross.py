@@ -23,7 +23,7 @@ import torch
 
 from btia_tpu_torch.ops import _native
 from btia_tpu_torch.ops.attention import (
-    SMALL_SCORE_TILE, _bhsd_operand, _check_head_width, _log2_scale, _mha_bhsd_plain,
+    SMALL_SCORE_TILE, _bhsd_operand, _log2_scale, _mha_bhsd_plain,
     _resolved_impl, mha_bshd, mha_reference,
 )
 
@@ -42,10 +42,18 @@ def _bicross_plain(qi, ki, vi, qt, kt, vt, txt_mask):
     return _mha_bhsd_plain(qi, kt, vt, txt_mask), _mha_bhsd_plain(qt, ki, vi, None)
 
 
+def k6_takes(head_dim: int) -> bool:
+    """Whether K6's CUDA tile (``csrc/mha_tile.cuh``) is built for this head
+    width: the multiples of 8 up to 128, zero-padded in shared memory to a
+    multiple of 16."""
+    return head_dim % 8 == 0 and 8 <= head_dim <= 128
+
+
 def _bicross_cuda(qi, ki, vi, qt, kt, vt, txt_mask):
     B, H, Ni, D = qi.shape
     Nt = qt.shape[2]
-    _check_head_width(D, "K6")
+    if not k6_takes(D):
+        raise ValueError(f"K6 kernel takes head widths that are multiples of 8 up to 128, got {D}")
     names = ("qi", "ki", "vi", "qt", "kt", "vt")
     ops = [_bhsd_operand(t, f"bicross_bhsd_attention {n}")
            for t, n in zip((qi, ki, vi, qt, kt, vt), names)]

@@ -15,13 +15,20 @@ in:
 
 Routing is by device: a CUDA tensor launches the hand-written kernel chain in
 ``csrc/fused_attn.cu`` (counted in the entry's ``.launches``) or raises; a CPU
-tensor takes the plain PyTorch twin. The shape gate is the reference's
-(``core_admits``: Sq*Sk <= 32768 and D % 64 == 0); the CUDA core is built
-for the widths ``core_takes`` names (64 to 256) and raises on a wider head.
+tensor takes the plain PyTorch twin. The gate is the reference's
+(``_fuses``, ``fused_attn.py:1027-1035`` with one device): the switch on
+the kernels, a batch of at least ``FANOUT_MIN_BATCH`` (64), a shape the core
+admits (``core_admits``: Sq*Sk <= 32768 and D % 64 == 0), and q/kv input,
+head and output widths that are multiples of 128. Every serve, train and
+eval site of the registered configs passes it; a ``Predictor`` bucket or a
+``StreamingServer`` batch under 64 rows does not. The CUDA core is built for
+the widths ``core_takes`` names (64 to 256) and raises on a wider head.
 Other sites take the unfused road of projections + ``mha_bshd``, as the
 reference does, and so do all sites under ``set_attention_impl("xla")`` or
-inside ``disable_fused()``. The reference's batch floor (B >= 64) is not
-kept: the card's kernels win at any batch.
+inside ``disable_fused()``. ``interpret=True`` forces the fused road past
+the gate, as the reference's argument of that name does (on the CPU the
+twin, on the card the kernel chain, which raises for a shape its kernels do
+not take); ``disable_fused()`` is authoritative over it too.
 
 Each site is a ``torch.autograd.Function`` whose backward mirrors the
 reference's ``custom_vjp`` (``_fused_bwd``, ``_fused_site_bwd``,
@@ -39,7 +46,7 @@ import torch
 
 from btia_tpu_torch.ops import _native
 from btia_tpu_torch.ops.attention import (
-    LOG2E, SMALL_SCORE_TILE, TILE_HEAD_WIDTHS, _resolved_impl, attend_log2, mha_bshd,
+    FANOUT_MIN_BATCH, LOG2E, SMALL_SCORE_TILE, TILE_HEAD_WIDTHS, _resolved_impl, attend_log2, mha_bshd,
 )
 from btia_tpu_torch.ops.norms import _layernorm_cuda, _ln_exact, layernorm
 
@@ -79,11 +86,22 @@ def core_admits(sq: int, sk: int, head_dim: int) -> bool:
     return sq * sk <= SMALL_SCORE_TILE and head_dim % 64 == 0
 
 
-def _fuses(sq: int, sk: int, head_dim: int) -> bool:
-    """The reference's gate at a site (``fused_attn.py:1027-1038``, without
-    the batch floor and the mesh): fusion on, the switch on the kernels, and
-    a shape the core admits."""
-    return _ENABLED and _resolved_impl() == "pallas" and core_admits(sq, sk, head_dim)
+def _fuses(batch: int, sq: int, sk: int, num_heads: int, din_q: int, din_kv: int, hd: int,
+           dout: int, interpret: bool = False) -> bool:
+    """Whether a site takes the fused road: the reference's ``use_fused``
+    with one device (``fused_attn.py:1027-1035``; ``:933-941`` for K2, where
+    sq is the query table's rows and batch is x_kv's). din_q, din_kv, hd and
+    dout are wq.shape[0], wk.shape[0], wq.shape[1] and wo.shape[1]."""
+    gates = (
+        _resolved_impl() == "pallas"
+        and batch >= FANOUT_MIN_BATCH
+        and core_admits(sq, sk, hd // num_heads)
+        and din_q % 128 == 0
+        and din_kv % 128 == 0
+        and hd % 128 == 0
+        and dout % 128 == 0
+    )
+    return _ENABLED and (interpret or gates)
 
 
 def _proj_plain(x, w, b, cd):
@@ -117,15 +135,20 @@ def _fused_dense_plain(x_q, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
 
 
 def _gemm_cuda(a2, w, b, resid=None, resid_rows=0):
-    """bf16(a2 @ w + b) (+ resid rows, repeating every resid_rows)."""
+    """bf16(a2 @ w + b) (+ resid rows, repeating every resid_rows), on the
+    projection GEMM (``gemm_bias_wgmma_kernel``): TMA reads a2 (M, K) and w
+    (K, N) as they lie, at 16-byte aligned addresses."""
     M, K = a2.shape
     N = w.shape[1]
     if K % 8 or N % 8:
         raise ValueError(f"bias GEMM kernel takes K, N multiples of 8, got {K}, {N}")
-    w = w.to(a2.dtype).contiguous()
+    a2 = _native.aligned(a2)
+    w = _native.aligned(w.to(a2.dtype))
     b = b.float().contiguous()
     out = torch.empty((M, N), dtype=a2.dtype, device=a2.device)
+    _native.require(a2, "bias GEMM input")
     if resid is not None:
+        resid = _native.aligned(resid)
         _native.require(resid, "bias GEMM residual")
     _native.check(
         _native.lib().btia_gemm_bias(
@@ -280,6 +303,7 @@ def fused_dense_attention(
     kv_mask: Optional[torch.Tensor],
     wq, bq, wk, bk, wv, bv, wo, bo,
     num_heads: int,
+    interpret: bool = False,
     q_ln: LN = None,
     kv_ln: LN = None,
     residual: bool = False,
@@ -288,10 +312,12 @@ def fused_dense_attention(
     """K1: x_q (B, Sq, Din), x_kv (B, Sk, Din), kv_mask (B, Sk) True=valid.
 
     q_ln / kv_ln / post_ln are (scale, bias, eps) triples folded into the
-    site; residual adds the raw x_q to the projected output."""
+    site; residual adds the raw x_q to the projected output. interpret
+    forces the fused road past the gate (not past ``disable_fused()``)."""
     if (residual or post_ln is not None) and wo.shape[1] != x_q.shape[-1]:
         raise ValueError("residual / post-LN need Dout == Din of x_q")
-    if not _fuses(x_q.shape[1], x_kv.shape[1], wq.shape[1] // num_heads):
+    if not _fuses(x_q.shape[0], x_q.shape[1], x_kv.shape[1], num_heads, wq.shape[0], wk.shape[0],
+                  wq.shape[1], wo.shape[1], interpret):
         return _unfused_site(x_q, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
                              num_heads, q_ln, kv_ln, residual, post_ln)
     lns, eps = _ln_args(q_ln, kv_ln, post_ln)
@@ -390,16 +416,19 @@ def fused_static_q_attention(
     kv_mask: Optional[torch.Tensor],
     wq, bq, wk, bk, wv, bv, wo, bo,
     num_heads: int,
+    interpret: bool = False,
     kv_ln: LN = None,
     residual: bool = False,
 ) -> torch.Tensor:
     """K2: batch-invariant queries (K, Din) attend over x_kv (B, Sk, Din).
 
     kv_ln folds the pre-attention LayerNorm into the site; residual adds the
-    raw query table to the projected output."""
+    raw query table to the projected output. interpret forces the fused
+    road past the gate (not past ``disable_fused()``)."""
     if residual and wo.shape[1] != queries.shape[1]:
         raise ValueError("residual needs Dout == Din of the queries")
-    if not _fuses(queries.shape[0], x_kv.shape[1], wq.shape[1] // num_heads):
+    if not _fuses(x_kv.shape[0], queries.shape[0], x_kv.shape[1], num_heads, wq.shape[0], wk.shape[0],
+                  wq.shape[1], wo.shape[1], interpret):
         return _static_q_unfused_site(queries, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
                                       num_heads, kv_ln, residual)
     lns, eps = _ln_args(kv_ln)

@@ -16,7 +16,14 @@ Phases, each fatal on failure:
    head (64 x 2048 <- 229); K1, K2, K3 and K4 again at head widths 128,
    192 and 256 (6, 4 and 3 heads of a 768-wide model); then the backward
    pass of each autograd
-   Function (K1-K4) against autograd through its twin; then K8 (the int8
+   Function (K1-K4) against autograd through its twin; then K1/K2's
+   projection GEMM (``gemm_bias_wgmma_kernel``) alone at each serve shape
+   (q, kv and out with the residual of the text and BTIA-image rows, K2's
+   kv and its out with the query residual repeating every 64 rows) and
+   each ``vqa_med_full`` train shape, each
+   element within one bf16 step of ``_proj_plain`` plus the residual's
+   rounding, timed beside ``torch.addmm`` (the yardstick) and the bound;
+   then K8 (the int8
    FFN product) at the eight FFN shapes of the int8 serve step, each element
    within one bf16 step, its row quantization equal to its twin's, timed
    whole and by kernel (quantize, GEMM) beside ``torch._int_mm`` on the
@@ -31,12 +38,17 @@ Phases, each fatal on failure:
    (K5 = 3, K6 = 2, K7 = 5, the others 0); then K5, K6 and K7 against their
    plain twins (attention within max|twin|/32, K7 within one bf16 step per
    element or 1e-5 of the largest value), timed beside the twin, a library
-   yardstick (SDPA, two SDPA calls, ``F.layer_norm``) and the bound; every
-   head-width template of K5/K6 and K7's block-per-row kernel at small
-   shapes; each Function's backward against autograd through its twin;
+   yardstick (SDPA, two SDPA calls, ``F.layer_norm``) and the bound; K5 at
+   D = 8, 40, 64, 96, 100, 128, 136, 192, 200 and 256 (its four templates;
+   D = 100 through the padded copy), masked and dense, on the long road's
+   transposed views, at a batch of 1 and with a broadcast batch; every
+   head-width template of K6 and K7's block-per-row kernel at small shapes;
+   each Function's backward against autograd through its twin;
 3. serve a few requests through ``Predictor.predict_answers`` on the
-   full-width ``streaming_vitl`` with seeded random weights, check the
-   logits are finite and agree with the same model run on the CPU;
+   full-width ``streaming_vitl`` with seeded random weights (buckets of
+   1-8 questions: under the fused sites' batch floor of 64, so K1 = K2 = 0
+   and K3 = 24 a call, as in the reference), check the logits are finite
+   and agree with the same model run on the CPU;
 4. run the bench-shaped serve step (encode_image -> answer_questions ->
    top-k) with every launch counter set to 0 just before one step and read
    just after: K1 = 20, K2 = 1, K3 = 24, the others 0 launches; then time
@@ -71,7 +83,15 @@ Phases, each fatal on failure:
    for each, one train step with every counter set to 0 just before and
    read just after (K1 = 20, K3 = 13, K4 = 20), then one eval forward of the
    batch on the card (K1 = 20, K3 = 13) against the same model and weights
-   on the CPU on two rows, logits within a tenth of the largest.
+   on the CPU on two rows, logits within a tenth of the largest;
+5c. full-width ``pathvqa_vit`` (ViT-B/16, BERT-base, 2 BTIA layers, an AD
+   head of 256 answer queries over 4096 answers) through ``Trainer`` on a
+   synthetic PathVQA corpus, ``train.steps_per_call`` cut from 8 to 1: one
+   train step at batch 64 with every counter set to 0 just before and read
+   just after (K1 = 16, K3 = 13, K4 = 16: the head's 256 x 229 score tile is
+   above 32768, so it goes unfused to K3), then one eval forward (K1 = 16,
+   K3 = 13) against the same model and weights on the CPU on two rows,
+   logits within a tenth of the largest.
 
 With ``--profile`` it also runs one serve step, one int8 serve step and one
 train step under ``torch.profiler`` and prints the device time by kernel and
@@ -133,6 +153,43 @@ INT8_SITES = (
 # kernel (no FFN of a registered config is that wide): held like the eight.
 INT8_WIDE_K = ("wide_k", 4096, 8192, 1024, "gelu_tanh", 0)
 SERVE_COUNTS, INT8_COUNTS = [20, 1, 24, 0, 0, 0, 0, 0], [20, 1, 24, 0, 0, 0, 0, 90]
+# One Predictor call (one image, a bucket of at most 32 questions): every
+# K1/K2 site is under the batch floor of 64 and takes the unfused road (its
+# short attention on the plain road, under K4's floor too); ViT-L keeps K3.
+PREDICT_COUNTS = [0, 0, 24, 0, 0, 0, 0, 0]
+# pathvqa_vit (phase 5c): 12 BERT + 4 BTIA K1 sites, 12 ViT blocks + the AD
+# head's 256 x 229 attention (above 32768: unfused, K3), K4 in the backward
+# of each K1 site.
+PATHVQA_TRAIN_COUNTS, PATHVQA_EVAL_COUNTS = [16, 0, 13, 16, 0, 0, 0, 0], [16, 0, 13, 0, 0, 0, 0, 0]
+# K1/K2's projection GEMM at the serve step's shapes: (name, M, K, N, rows
+# the residual repeats over (0: none), launches per serve step). Text rows
+# 2048 x 32, BTIA image rows 2048 x 50, the AD head's 2048 x 82 kv rows and
+# 2048 x 64 query rows. 12 BERT sites (q, kv, out) + 4 BTIA layers x 2
+# directions + K2 (kv, out): 62 launches.
+GEMM_SITES = (
+    ("text_q", B_IMG * N_Q * SEQ, 768, 768, 0, 16),
+    ("text_kv", B_IMG * N_Q * SEQ, 768, 1536, 0, 16),
+    ("text_out", B_IMG * N_Q * SEQ, 768, 768, B_IMG * N_Q * SEQ, 16),
+    ("image_q", B_IMG * N_Q * N_IMG_TOK, 768, 768, 0, 4),
+    ("image_kv", B_IMG * N_Q * N_IMG_TOK, 768, 1536, 0, 4),
+    ("image_out", B_IMG * N_Q * N_IMG_TOK, 768, 768, B_IMG * N_Q * N_IMG_TOK, 4),
+    ("head_kv", B_IMG * N_Q * (N_IMG_TOK + SEQ), 768, 1536, 0, 1),
+    ("head_out", B_IMG * N_Q * 64, 768, 768, 64, 1),
+)
+# The same at the vqa_med_full train step's shapes (batch 64: text rows
+# 64 x 32, image rows 64 x 197; under train-time dropout no site adds its
+# residual): 12 BERT sites + 4 BTIA layers x 2 directions, 60 launches.
+GEMM_TRAIN_SITES = (
+    ("train_text_q", B_TRAIN * SEQ, 768, 768, 0, 16),
+    ("train_text_kv", B_TRAIN * SEQ, 768, 1536, 0, 16),
+    ("train_text_out", B_TRAIN * SEQ, 768, 768, 0, 16),
+    ("train_image_q", B_TRAIN * N_VIT_B, 768, 768, 0, 4),
+    ("train_image_kv", B_TRAIN * N_VIT_B, 768, 1536, 0, 4),
+    ("train_image_out", B_TRAIN * N_VIT_B, 768, 768, 0, 4),
+)
+# K5 at every padded-width template (64, 128, 192, 256), at widths that are
+# not multiples of 64, and at D = 100, which takes the wrapper's padded copy.
+K5_WIDTHS = (8, 40, 64, 96, 100, 128, 136, 192, 200, 256)
 # Counts are listed K1..K8 (KERNELS). The serve step with the fused sites
 # disabled: each K1/K2 site's unfused road sends its short attention
 # (2048 rows, D = 64) to K4: 12 BERT + 8 BTIA + 1 AD head; ViT keeps K3.
@@ -512,6 +569,73 @@ def check_backward(torch, name, fn, twin, inputs, gen, bk=None, tol_div=32):
     return {"max_abs_err": errs, "tol": tols}
 
 
+def bf16_steps(torch, x):
+    """One bf16 step (2^-7 of the leading binade) at each element's
+    magnitude."""
+    return torch.exp2(torch.floor(torch.log2(x.float().abs().clamp_min(1e-30))) - 7)
+
+
+def check_gemm(torch, dev):
+    """Phase 2, the projection GEMM of K1/K2 (``_gemm_cuda``) alone at each
+    serve and train shape (GEMM_SITES, GEMM_TRAIN_SITES), against
+    ``_proj_plain`` on the same inputs:
+    each element within one bf16 step at its magnitude (the sums are taken
+    in another order, so a rounding may flip), plus, with the residual, one
+    more step of the projection's magnitude (the flipped projection is
+    rounded again after the add), and a floor of 1e-6 of the largest value.
+    Timed beside ``torch.addmm`` (the same function in one PyTorch call, the
+    yardstick only) and the bound."""
+    from btia_tpu_torch.ops import fused_attn as FA
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    bf = torch.bfloat16
+    rows = {}
+    for name, M, K, N, rr, per_step in GEMM_SITES + GEMM_TRAIN_SITES:
+        a = torch.randn(M, K, generator=g, device=dev).to(bf)
+        w = (torch.randn(K, N, generator=g, device=dev) * K**-0.5).to(bf)
+        b = torch.randn(N, generator=g, device=dev) * 0.02
+        r = torch.randn(rr, N, generator=g, device=dev).to(bf) if rr else None
+        kernel = lambda: FA._gemm_cuda(a, w, b, r, rr)
+        out = kernel()
+        torch.cuda.synchronize()
+        y0 = FA._proj_plain(a, w, b, bf)
+        ref = y0 if r is None else (y0.float() + r.float().repeat(M // rr, 1)).to(bf)
+        if not bool(torch.isfinite(out.float()).all()):
+            raise AssertionError(f"GEMM {name}: kernel output is not finite")
+        diff = (out.float() - ref.float()).abs()
+        tol = bf16_steps(torch, ref) + (0 if r is None else bf16_steps(torch, y0)) + 1e-6 * ref.float().abs().max()
+        bad = int((diff > tol).sum())
+        b_bf = b.to(bf)
+        row = {
+            "shape": [M, K, N], "resid_rows": rr, "launches_per_step": per_step,
+            "max_abs_err": diff.max().item(), "elements_off": bad,
+            "ms": cuda_time_ms(kernel, 20),
+            "plain_ms": cuda_time_ms(lambda: FA._proj_plain(a, w, b, bf), 3),
+            "library_ms": cuda_time_ms(lambda: torch.addmm(b_bf, a, w), 20),
+            "library": "torch.addmm (matmul + bias)",
+        }
+        row["bound_ms"], row["bound_by"] = bound_ms(2 * M * K * N, nbytes(a, w, b, r) + M * N * 2)
+        row["tflops"] = 2 * M * K * N / row["ms"] / 1e9
+        log(f"  GEMM {name} ({M} x {K} -> {N}{f', residual every {rr} rows' if rr else ''}): "
+            f"err {row['max_abs_err']:.4g}, {bad} elements beyond the limit; kernel {row['ms']:.4f} ms "
+            f"({row['tflops']:.0f} TFLOP/s), plain {row['plain_ms']:.4f} ms, addmm {row['library_ms']:.4f} ms, "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        if bad:
+            raise AssertionError(f"GEMM {name}: {bad} elements disagree with _proj_plain")
+        rows[name] = row
+        del a, w, b, r, out, y0, ref, diff, tol
+    torch.cuda.empty_cache()
+    per_step = {}
+    for path, sites in (("serve_step", GEMM_SITES), ("train_step", GEMM_TRAIN_SITES)):
+        got = [rows[site[0]] for site in sites]
+        per_step[path] = {k: sum(x[k] * x["launches_per_step"] for x in got) for k in ("ms", "library_ms", "bound_ms")}
+        per_step[path]["launches"] = sum(x["launches_per_step"] for x in got)
+        log(f"  GEMM per {path.replace('_', ' ')} ({per_step[path]['launches']} launches): kernel "
+            f"{per_step[path]['ms']:.3f} ms, addmm {per_step[path]['library_ms']:.3f} ms, "
+            f"bound {per_step[path]['bound_ms']:.3f} ms")
+    return rows, per_step
+
+
 def check_int8_kernel(torch, dev):
     """Phase 2, int8: K8 against its plain twin at each FFN shape of the
     int8 serve step, in bf16 on the card. The integer product is exact on
@@ -761,23 +885,40 @@ def ops_api_phase(torch, dev, counters):
         x = (torch.randn(M, D, generator=g, device=dev) * 2 + 0.5).to(bf)
         sc, bi = 1 + 0.2 * torch.randn(D, generator=g, device=dev), 0.1 * torch.randn(D, generator=g, device=dev)
         rows[f"k7_wide_{D}"] = check_layernorm(torch, f"wide {D}", x, sc, bi, iters=5)
-    # Every head-width template of K5 and K6 (D 16..128; the main paths run
-    # 64 and 96) at a small masked shape, each within max|twin| / 32.
+    # Every head-width template of K6 (D 16..128; the main paths run 64) at
+    # a small masked shape, within max|twin| / 32; K5 at K5_WIDTHS, masked
+    # and dense, on the long road's (B, S, H, D) views, at a batch of 1 and
+    # with K and V broadcast over the batch (a zero stride, copied).
     widths = {}
+
+    def hold(name, out, ref):
+        out, ref = _flat_f32(out), _flat_f32(ref)
+        err, tol = (out - ref).abs().max().item(), ref.abs().max().item() / 32
+        widths[name] = [err, tol]
+        if not (bool(torch.isfinite(out).all()) and err <= tol):
+            raise AssertionError(f"{name}: err {err} > {tol} or not finite")
+
     for D in (16, 32, 48, 80, 112, 128):
         q, k, v = randn(2, 4, 200, D), randn(2, 4, 300, D), randn(2, 4, 300, D)
         m = torch.cat([ones(2, 1), _question_mask(torch, dev, g, 2, 299)], 1)
         # K6 on strided views: 200 image tokens, 40 text tokens.
         both = (q, k[:, :, :200], v[:, :, :200], *(x[:, :, :40] for x in (k, q, v)))
-        pairs = {"K5": (A.mha_bhsd_attention(q, k, v, m), A._mha_bhsd_plain(q, k, v, m)),
-                 "K6": (BX.bicross_bhsd_attention(*both, m[:, :40]), BX._bicross_plain(*both, m[:, :40]))}
-        for kname, (out, ref) in pairs.items():
-            out, ref = _flat_f32(out), _flat_f32(ref)
-            err, tol = (out - ref).abs().max().item(), ref.abs().max().item() / 32
-            widths[f"{kname}_D{D}"] = [err, tol]
-            if not (bool(torch.isfinite(out).all()) and err <= tol):
-                raise AssertionError(f"{kname} at D = {D}: err {err} > {tol} or not finite")
-    log("  K5 / K6 at every head-width template, max abs err / tol: "
+        hold(f"K6_D{D}", BX.bicross_bhsd_attention(*both, m[:, :40]), BX._bicross_plain(*both, m[:, :40]))
+    for D in K5_WIDTHS:
+        q, k, v = randn(2, 4, 200, D), randn(2, 4, 300, D), randn(2, 4, 300, D)
+        m = torch.cat([ones(2, 1), _question_mask(torch, dev, g, 2, 299)], 1)
+        for mask, how in ((m, "masked"), (None, "dense")):
+            hold(f"K5_D{D}_{how}", A.mha_bhsd_attention(q, k, v, mask), A._mha_bhsd_plain(q, k, v, mask))
+        qs, ks, vs = randn(2, 150, 3, D), randn(2, 260, 3, D), randn(2, 260, 3, D)
+        ms = _question_mask(torch, dev, g, 2, 260)
+        ms[-1, 0] = True
+        hold(f"K5_D{D}_views", A.mha_bhsd_attention(t(qs), t(ks), t(vs), ms),
+             A._mha_bhsd_plain(t(qs), t(ks), t(vs), ms))
+        q1, k1, v1 = randn(1, 3, 130, D), randn(1, 3, 70, D), randn(1, 3, 70, D)
+        hold(f"K5_D{D}_batch1", A.mha_bhsd_attention(q1, k1, v1), A._mha_bhsd_plain(q1, k1, v1, None))
+        qb, kb, vb = randn(2, 3, 130, D), k1.expand(2, 3, 70, D), v1.expand(2, 3, 70, D)
+        hold(f"K5_D{D}_broadcast", A.mha_bhsd_attention(qb, kb, vb), A._mha_bhsd_plain(qb, kb, vb, None))
+    log("  K5 / K6 at every head width, max abs err / tol: "
         + ", ".join(f"{n} {e:.3g}/{t:.3g}" for n, (e, t) in widths.items()))
     rows["head_widths"] = widths
 
@@ -903,8 +1044,8 @@ def routing_switches_phase(torch, dev, smi, model, host_imgs, host_qids, serve_s
     return res
 
 
-_PORTED = ("gemm_bias_kernel", "attn_core_kernel", "attn_core_tiled_kernel", "ln_warp_kernel",
-           "ln_block_kernel", "flash_bshd_kernel", "fanout_kernel", "mha_bhsd_kernel", "bicross_kernel",
+_PORTED = ("gemm_bias_wgmma_kernel", "attn_core_kernel", "attn_core_tiled_kernel", "ln_warp_kernel",
+           "ln_block_kernel", "flash_attn_kernel", "fanout_kernel", "bicross_kernel",
            "quant_rows_kernel", "quant_rows_loop_kernel", "int8_gemm_kernel")
 
 
@@ -1210,6 +1351,69 @@ def wide_heads_phase(torch, dev, smi, counters):
     return results
 
 
+def pathvqa_phase(torch, dev, smi, counters):
+    """Phase 5c: full-width pathvqa_vit (ViT-B/16, BERT-base, 2 BTIA layers,
+    an AD head of 256 answer queries over 4096 answers) through the Trainer
+    on a synthetic PathVQA corpus of 64 pairs a split (one batch of 64),
+    train.steps_per_call cut from 8 to 1 so that train_step is one step: one
+    train step with every counter set to 0 just before and read just after
+    (PATHVQA_TRAIN_COUNTS), then one eval forward of the batch on the card
+    (PATHVQA_EVAL_COUNTS) against the same model and weights on the CPU on
+    its first two rows, logits within a tenth of the largest."""
+    import numpy as np
+
+    from btia_tpu_torch.configs import get_config
+    from btia_tpu_torch.data.synthetic import generate_synthetic_pathvqa
+    from btia_tpu_torch.train.trainer import Trainer, batch_to_device
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pathvqa_") as tmp:
+        root = Path(tmp) / "pathvqa"
+        generate_synthetic_pathvqa(root, num_images=32)  # 64 pairs per split: one batch
+        cfg = get_config("pathvqa_vit", **{"data.data_dir": str(root), "train.steps_per_call": 1,
+                                           "train.warmup_steps": 2})
+        trainer = Trainer(cfg, Path(tmp) / "run", device=dev)
+        n_params = sum(p.numel() for p in trainer.model.parameters())
+        log(f"phase 5c: pathvqa_vit ({n_params / 1e6:.1f} M params; {cfg.model.btia_layers} BTIA layers, "
+            f"{cfg.model.num_answer_queries} answer queries over {cfg.model.answer_vocab_size} answers), "
+            f"batch {cfg.train.batch_size}, steps_per_call cut to 1")
+        batch = batch_to_device(next(iter(trainer.data.iterator("train", seed=0))), dev)
+        torch.cuda.synchronize()
+        _zero(counters)
+        _, m = trainer.train_step(trainer.state, batch)
+        torch.cuda.synchronize()
+        counts = [f.launches for f in counters]
+        loss = float(m["loss"])
+        log(f"  one train step at batch {batch['images'].shape[0]}: loss {loss:.5f}; launched "
+            + ", ".join(f"{k} {c}" for k, c in zip(KERNELS, counts)))
+        if counts != PATHVQA_TRAIN_COUNTS or not np.isfinite(loss):
+            raise AssertionError(f"pathvqa_vit train step: loss {loss}, launch counts {counts} "
+                                 f"!= {PATHVQA_TRAIN_COUNTS}")
+        model = trainer.model
+        model.eval()
+        images, qids = batch["images"], batch["question_ids"]
+        with torch.inference_mode():
+            _zero(counters)
+            out_gpu = model(images, qids, train=False)
+            torch.cuda.synchronize()
+            eval_counts = [f.launches for f in counters]
+            cpu_model = copy.deepcopy(model).to("cpu")
+            out_cpu = cpu_model(images[:2].cpu(), qids[:2].cpu(), train=False)
+        del cpu_model
+        err = (out_gpu[:2].float().cpu() - out_cpu.float()).abs().max().item()
+        scale = out_cpu.float().abs().max().item()
+        res = {"config": "pathvqa_vit + train.steps_per_call=1", "train_loss": loss,
+               "train_launches": dict(zip(KERNELS, counts)), "eval_launches": dict(zip(KERNELS, eval_counts)),
+               "eval_card_vs_cpu_max_abs_err": err, "eval_max_logit": scale, "card": smi}
+        log(json.dumps({"pathvqa_vit": res}))
+        if not bool(torch.isfinite(out_gpu).all()) or not err <= 0.1 * scale:
+            raise AssertionError(f"pathvqa_vit eval: card and CPU logits disagree: {err} > {0.1 * scale}")
+        if eval_counts != PATHVQA_EVAL_COUNTS:
+            raise AssertionError(f"pathvqa_vit eval launch counts {eval_counts} != {PATHVQA_EVAL_COUNTS}")
+        del trainer, model, batch, out_gpu
+    torch.cuda.empty_cache()
+    return res
+
+
 def serve_step_fn(torch, dev, model, host_imgs, host_qids, limit):
     """The bench-shaped serve step on `model`: batch i of the two host
     batches, encode_image -> answer_questions -> top-5, fetched to the host."""
@@ -1444,6 +1648,7 @@ def main() -> int:
     # Phase 2: kernels against their plain twins.
     log("phase 2: kernels vs plain twins (bf16, serving-step shapes)")
     rows = check_kernels(torch, dev)
+    gemm_rows, gemm_step = check_gemm(torch, dev)
     int8_rows = check_int8_kernel(torch, dev)
     counters = launch_counters()
     ops_rows, ops_counts = ops_api_phase(torch, dev, counters)
@@ -1477,8 +1682,9 @@ def main() -> int:
             raise AssertionError(f"predict_answers returned {got}")
         log(f"  image of {n} question(s): {got}")
     counts = [f.launches for f in counters]
-    if counts != [6 * c for c in SERVE_COUNTS]:
-        raise AssertionError(f"Predictor launch counts {counts} != {[6 * c for c in SERVE_COUNTS]}")
+    log("  six Predictor calls launched " + ", ".join(f"{k} {c}" for k, c in zip(KERNELS, counts)))
+    if counts != [6 * c for c in PREDICT_COUNTS]:
+        raise AssertionError(f"Predictor launch counts {counts} != {[6 * c for c in PREDICT_COUNTS]}")
     # The same model on the CPU (plain twins) as the reference.
     ref_model = copy.deepcopy(model).to("cpu")
     with torch.inference_mode():
@@ -1553,6 +1759,7 @@ def main() -> int:
     train["train_step"]["card_vs_cpu"] = train_step_vs_cpu(torch, dev, counters)
     log(json.dumps({"train_step": train["train_step"]}))
     wide = wide_heads_phase(torch, dev, smi, counters)
+    pathvqa = pathvqa_phase(torch, dev, smi, counters)
 
     by_path = [{"serve_step": a, "int8_serve_step": c, "train_step": b, "ops_api": d}
                for a, b, c, d in zip(main_counts, train["train_counts"], int8_counts, ops_counts)]
@@ -1590,6 +1797,9 @@ def main() -> int:
             e["sites"] = {s: rows[s] for s in sites}
         kernels.append(e)
     kernels[6]["serve_step_layernorms"] = ln_census
+    # K1/K2's projection GEMM, alone at the serve shapes (both launch it).
+    kernels[0]["projection_gemm"] = {"sites": gemm_rows, "per_step": gemm_step}
+    kernels[4]["kernel_source"] = "btia_tpu_torch/csrc/flash_bshd.cu"  # K5's entry runs K3's kernel
     r = int8_rows["txt_fc1"]  # the BERT / BTIA-text fc1 shape, 16 launches a step
     kernels.append({
         "name": "int8_matmul_fused", "route": "cuda", "source": "btia_tpu_torch/csrc/int8_mm.cu",
@@ -1606,6 +1816,8 @@ def main() -> int:
         "serve_ms": step_ms, "int8_serve_ms": int8_res["ms_per_step"],
         "train_ms": train["train_step"]["ms_per_step"],
         "wide_heads": {hw: [r["eval_card_vs_cpu_max_abs_err"], r["eval_max_logit"]] for hw, r in wide.items()},
+        "pathvqa_vit": [pathvqa["eval_card_vs_cpu_max_abs_err"], pathvqa["eval_max_logit"]],
+        "gemm_ms_per_step": gemm_step,
         "serve_ms_by_switch": {w: v["ms_per_step"] for w, v in switches.items()},
         "serve_layernorms": [ln_census["standalone_layernorms"], ln_census["k7_ms_per_step"],
                              ln_census["plain_ms_per_step"]],

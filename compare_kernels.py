@@ -1,0 +1,156 @@
+#!/usr/bin/env python3
+"""Time the port's K3, K5 and K1/K2 projection GEMM against another checkout's
+on one card, in turns.
+
+    git archive <commit> btia_tpu_torch | tar -x -C runs/parent
+    python3 compare_kernels.py runs/parent
+
+Builds both checkouts' kernel libraries (each from its own
+``btia_tpu_torch/csrc``), then runs each kernel's C entry at the shapes of
+``chip_smoke.py``'s phases 2 and 2b in the order parent, this tree, this
+tree, parent, and prints both pairs of times (CUDA events, ms a call) with
+the largest difference between the two outputs. K3's shapes are also timed
+through K5's entry with K3's packed strides: the 4-D (B, H, S, D) tensor-map
+path over the same bytes. Inputs are random from a seed; the card's name and
+power limit are printed first. Needs one CUDA card and ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import importlib.util
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+
+# K3: (B, Sq, Sk, heads, head width, masked): ViT-L, ViT-B, the AD head at
+# D = 64, 128, 192, 256.
+K3_SHAPES = ((16, 577, 577, 16, 64, False), (64, 197, 197, 12, 64, False), (64, 2048, 229, 12, 64, True),
+             (64, 2048, 229, 6, 128, True), (64, 2048, 229, 4, 192, True), (64, 2048, 229, 3, 256, True))
+# K5: (B, Sq, Sk, heads, head width, mha_bshd's transposed views with a mask).
+K5_SHAPES = ((16, 577, 577, 16, 64, False), (64, 2048, 229, 8, 96, True))
+# The projection GEMM: (name, M, K, N, rows its residual repeats over).
+GEMM_SHAPES = (("text_q", 65536, 768, 768, 0), ("text_kv", 65536, 768, 1536, 0),
+               ("text_out", 65536, 768, 768, 65536), ("image_q", 102400, 768, 768, 0),
+               ("image_kv", 102400, 768, 1536, 0), ("image_out", 102400, 768, 768, 102400),
+               ("head_kv", 167936, 768, 1536, 0), ("head_out", 131072, 768, 768, 64))
+
+
+def load_native(root: Path, name: str):
+    """A checkout's ``ops/_native.py``, imported by path under `name`."""
+    spec = importlib.util.spec_from_file_location(name, root / "btia_tpu_torch" / "ops" / "_native.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def main() -> int:
+    if len(sys.argv) != 2 or not (Path(sys.argv[1]) / "btia_tpu_torch" / "csrc").is_dir():
+        print(f"usage: {sys.argv[0]} <checkout holding btia_tpu_torch/csrc>", file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("compare_kernels: no CUDA device is available", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"card: {smi}", flush=True)
+    libs = {"parent": load_native(Path(sys.argv[1]).resolve(), "parent_native").lib(),
+            "this": load_native(REPO, "this_native").lib()}
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    bf = torch.bfloat16
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def time_ms(fn, iters=20):
+        for _ in range(3):
+            fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+
+    def turns(name, make):
+        """make(lib) -> (launch, output); times in the order parent, this,
+        this, parent."""
+        times, outs = {"parent": [], "this": []}, {}
+        for who in ("parent", "this", "this", "parent"):
+            launch, out = make(libs[who])
+            code = launch()
+            torch.cuda.synchronize()
+            if code != 0:
+                raise RuntimeError(f"{name}: the {who} kernel returned CUDA error {code}")
+            outs[who] = out.float().clone()
+            times[who].append(time_ms(launch))
+        diff = (outs["parent"] - outs["this"]).abs().max().item()
+        print(f"{name}: parent {[round(t, 4) for t in times['parent']]} ms, this tree "
+              f"{[round(t, 4) for t in times['this']]} ms, max |parent - this| {diff:.3g}", flush=True)
+
+    def strides(*ts):
+        return (ctypes.c_longlong * 12)(*(x.stride(i) for x in ts for i in range(3)))
+
+    for B, Sq, Sk, H, D, masked in K3_SHAPES:
+        q, k, v = (torch.randn(B, S, H * D, generator=g, device=dev).to(bf) for S in (Sq, Sk, Sk))
+        m = (torch.rand(B, Sk, generator=g, device=dev) > 0.2).float() if masked else None
+        mp = None if m is None else m.data_ptr()
+
+        def k3(lib, q=q, k=k, v=v, mp=mp, B=B, Sq=Sq, Sk=Sk, H=H, D=D):
+            o = torch.empty_like(q)
+            return (lambda: lib.btia_flash_bshd(q.data_ptr(), k.data_ptr(), v.data_ptr(), mp, o.data_ptr(),
+                                                B, H, D, Sq, Sk, 0.18, stream)), o
+
+        turns(f"K3 {B} x {Sq} <- {Sk}, {H} heads of {D}", k3)
+        view = lambda x, S: x.view(B, S, H, D).transpose(1, 2)
+        o4 = torch.empty_like(q)
+        st = strides(view(q, Sq), view(k, Sk), view(v, Sk), view(o4, Sq))
+        four_d = lambda: libs["this"].btia_mha_bhsd(q.data_ptr(), k.data_ptr(), v.data_ptr(), mp, o4.data_ptr(),
+                                                    st, B, H, Sq, Sk, D, 0.18, stream)
+        if four_d() != 0:
+            raise RuntimeError("K3 shape through K5's entry: CUDA error")
+        print(f"  the same bytes through K5's 4-D path, this tree: "
+              f"{[round(time_ms(four_d), 4) for _ in range(2)]} ms", flush=True)
+        del q, k, v, o4
+
+    for B, Sq, Sk, H, D, views in K5_SHAPES:
+        if views:
+            q, k, v = (torch.randn(B, S, H, D, generator=g, device=dev).to(bf).transpose(1, 2) for S in (Sq, Sk, Sk))
+        else:
+            q, k, v = (torch.randn(B, H, S, D, generator=g, device=dev).to(bf) for S in (Sq, Sk, Sk))
+        m = (torch.rand(B, Sk, generator=g, device=dev) > 0.2).float() if views else None
+
+        def k5(lib, q=q, k=k, v=v, m=m, B=B, Sq=Sq, Sk=Sk, H=H, D=D):
+            o = torch.empty_like(q)
+            st = strides(q, k, v, o)
+            return (lambda: lib.btia_mha_bhsd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                              None if m is None else m.data_ptr(), o.data_ptr(), st, B, H, Sq, Sk,
+                                              D, 0.18, stream)), o
+
+        turns(f"K5 {B} x {H} heads x {Sq} <- {Sk}, D {D}{', transposed views' if views else ''}", k5)
+        del q, k, v
+
+    for name, M, K, N, rr in GEMM_SHAPES:
+        a = torch.randn(M, K, generator=g, device=dev).to(bf)
+        w = (torch.randn(K, N, generator=g, device=dev) * K**-0.5).to(bf)
+        b = torch.randn(N, generator=g, device=dev) * 0.02
+        r = torch.randn(rr, N, generator=g, device=dev).to(bf) if rr else None
+
+        def gemm(lib, a=a, w=w, b=b, r=r, M=M, K=K, N=N, rr=rr):
+            o = torch.empty(M, N, dtype=bf, device=dev)
+            return (lambda: lib.btia_gemm_bias(a.data_ptr(), w.data_ptr(), b.data_ptr(),
+                                               None if r is None else r.data_ptr(), max(rr, 1), o.data_ptr(),
+                                               M, N, K, stream)), o
+
+        turns(f"GEMM {name} {M} x {K} -> {N}", gemm)
+        del a, w, b, r
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -131,7 +131,7 @@ def test_k1_backward_matches_jax_vjp(case):
         xq, xkv, ws, ln_t = unpack(args)
         it = iter(ln_t)
         tl = [(next(it), next(it), e) if ln is not None else None for ln, e in zip(lns, eps)]
-        return FA.fused_dense_attention(xq, xkv, tm, *ws, H, q_ln=tl[0], kv_ln=tl[1],
+        return FA.fused_dense_attention(xq, xkv, tm, *ws, H, interpret=True, q_ln=tl[0], kv_ln=tl[1],
                                         residual=residual, post_ln=tl[2])
 
     def jax_fn(*args):
@@ -161,7 +161,8 @@ def test_k2_backward_matches_jax_vjp(site):
 
     def port_fn(qs, xkv, *rest):
         kv_ln = (rest[8], rest[9], 1e-6) if head else None
-        return FA.fused_static_q_attention(qs, xkv, tm, *rest[:8], H, kv_ln=kv_ln, residual=head)
+        return FA.fused_static_q_attention(qs, xkv, tm, *rest[:8], H, interpret=True, kv_ln=kv_ln,
+                                           residual=head)
 
     def jax_fn(qs, xkv, *rest):
         if not head:

@@ -17,6 +17,7 @@ reference sends to K1-K4 up to 256 is one of them, and the CUDA wrappers
 raise on the others.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -102,7 +103,7 @@ def test_k1_matches_pallas(site, dtype, D):
     )
     assert FA.core_admits(Sq, Sk, D)
     out = FA.fused_dense_attention(
-        _t(x_q, tdt), _t(x_kv, tdt), torch.from_numpy(mask), *map(_t, w), H,
+        _t(x_q, tdt), _t(x_kv, tdt), torch.from_numpy(mask), *map(_t, w), H, interpret=True,
         q_ln=tln(q_ln), kv_ln=tln(kv_ln), residual=residual, post_ln=tln(post_ln),
     )
     assert out.dtype == tdt and out.shape == (B, Sq, Din)
@@ -124,7 +125,7 @@ def test_k2_matches_pallas(dtype, D):
         interpret=True, kv_ln=(_j(kv_ln[0]), _j(kv_ln[1]), kv_ln[2]), residual=True,
     )
     out = FA.fused_static_q_attention(
-        _t(queries, tdt), _t(x_kv, tdt), torch.from_numpy(mask), *map(_t, w), H,
+        _t(queries, tdt), _t(x_kv, tdt), torch.from_numpy(mask), *map(_t, w), H, interpret=True,
         kv_ln=(_t(kv_ln[0]), _t(kv_ln[1]), kv_ln[2]), residual=True,
     )
     assert out.dtype == tdt and out.shape == (B, K, Din)
@@ -250,36 +251,88 @@ def test_short_road_predicates_match_reference(Dh, monkeypatch, restore_switches
             assert A.k4_takes(Dh) == (Dh % 64 == 0 and Dh <= 256)
 
 
-def _reference_fuses(monkeypatch, Sq, Sk, H, HD, B=64):
+def _sds(*shape):
+    """A shape without data: the gates read only shapes (nothing is run)."""
+    return jax.ShapeDtypeStruct(shape, jnp.float32)
+
+
+def _reference_fuses(monkeypatch, Sq, Sk, H, HD, B=64, din_q=128, din_kv=128, dout=128):
     """Whether the reference's fused_dense_attention takes its Pallas road
-    for this shape with the Pallas backend forced on (nothing is run)."""
+    for this site with the Pallas backend forced on (nothing is run)."""
     took = []
     monkeypatch.setattr(JFA, "_resolved_impl", lambda: "pallas")
     monkeypatch.setattr(JFA, "_fused_site", lambda *a: took.append("fused"))
     monkeypatch.setattr(JFA, "_unfused_site", lambda *a: took.append("unfused"))
-    x_q, x_kv = jnp.zeros((B, Sq, 128)), jnp.zeros((B, Sk, 128))
-    w, b = jnp.zeros((128, HD)), jnp.zeros((HD,))
-    ln = (jnp.ones((128,)), jnp.zeros((128,)), 1e-6)
-    JFA.fused_dense_attention(x_q, x_kv, None, w, b, w, b, w, b, jnp.zeros((HD, 128)),
-                              jnp.zeros((128,)), H, q_ln=ln, residual=True)
+    ln = (_sds(din_q), _sds(din_q), 1e-6)
+    JFA.fused_dense_attention(_sds(B, Sq, din_q), _sds(B, Sk, din_kv), None, _sds(din_q, HD), _sds(HD),
+                              _sds(din_kv, HD), _sds(HD), _sds(din_kv, HD), _sds(HD), _sds(HD, dout),
+                              _sds(dout), H, q_ln=ln, residual=dout == din_q)
     return took == ["fused"]
 
 
-@pytest.mark.parametrize("H,HD", [(1, 128), (2, 256), (3, 384), (1, 256), (2, 384), (4, 768), (3, 768),
-                                  (1, 384)])
-def test_core_gate_matches_reference(H, HD, monkeypatch, restore_switches):
+def _reference_static_q_fuses(monkeypatch, K, Sk, H, HD, B=64, din_q=128, din_kv=128, dout=128):
+    """The same for the reference's fused_static_q_attention (K2)."""
+    took = []
+    monkeypatch.setattr(JFA, "_resolved_impl", lambda: "pallas")
+    monkeypatch.setattr(JFA, "_staticq_site", lambda *a: took.append("fused"))
+    monkeypatch.setattr(JFA, "_staticq_unfused_site", lambda *a: took.append("unfused"))
+    ln = (_sds(din_kv), _sds(din_kv), 1e-6)
+    JFA.fused_static_q_attention(_sds(K, din_q), _sds(B, Sk, din_kv), None, _sds(din_q, HD), _sds(HD),
+                                 _sds(din_kv, HD), _sds(HD), _sds(din_kv, HD), _sds(HD), _sds(HD, dout),
+                                 _sds(dout), H, kv_ln=ln, residual=dout == din_q)
+    return took == ["fused"]
+
+
+# (H, HD, B, (din_q, din_kv, dout)): head widths 128 to 384 at a batch of 64;
+# the batch floor; q, kv and output widths and head widths that are not
+# multiples of 128 (96, and H = 3 heads of 64), and 640, which is.
+GATE_CASES = (
+    [(h, hd, 64, (128, 128, 128))
+     for h, hd in ((1, 128), (2, 256), (3, 384), (1, 256), (2, 384), (4, 768), (3, 768), (1, 384))]
+    + [(2, 256, b, (128, 128, 128)) for b in (1, 32, 63, 128)]
+    + [(1, 128, 64, w) for w in ((96, 128, 128), (640, 128, 128), (128, 96, 128), (128, 640, 128),
+                                 (128, 128, 96), (128, 128, 640))]
+    + [(1, 96, 64, (128, 128, 128)), (10, 640, 64, (128, 128, 128)), (3, 192, 64, (128, 128, 128)),
+       (1, 64, 32, (640, 96, 640))]
+)
+GATE_SQ, GATE_SK = (1, 32, 50, 64, 82, 128, 129, 197, 256, 577), (1, 32, 64, 129, 197, 229, 577)
+
+
+@pytest.mark.parametrize("H,HD,B,widths", GATE_CASES)
+def test_core_gate_matches_reference(H, HD, B, widths, monkeypatch, restore_switches):
     """The fused sites' gate is the reference's over a grid of (Sq, Sk) at
     D = 128, 192 and 256 (one to four heads) and at D = 384, where the
     reference fuses too and the port's core, built up to 256, raises on
-    the card."""
+    the card; at batches below and above the floor of 64, and at q, kv,
+    head and output widths that are and are not multiples of 128. The
+    port once dropped the floor and the width gates and fused every such
+    site."""
+    din_q, din_kv, dout = widths
     Dh = HD // H
     A.set_attention_impl("pallas")
-    for sq in (1, 32, 50, 64, 82, 128, 129, 197, 256, 577):
-        for sk in (1, 32, 64, 129, 197, 229, 577):
-            ref = _reference_fuses(monkeypatch, sq, sk, H, HD)
-            port = FA._fuses(sq, sk, Dh)
-            assert port == ref, (sq, sk, H, HD, ref, port)
+    for sq in GATE_SQ:
+        for sk in GATE_SK:
+            ref = _reference_fuses(monkeypatch, sq, sk, H, HD, B, din_q, din_kv, dout)
+            port = FA._fuses(B, sq, sk, H, din_q, din_kv, HD, dout)
+            assert port == ref, (B, sq, sk, H, HD, widths, ref, port)
+            assert FA._fuses(B, sq, sk, H, din_q, din_kv, HD, dout, interpret=True)
     assert FA.core_takes(Dh) == (Dh in (64, 128, 192, 256))
+    A.set_attention_impl("xla")
+    assert not FA._fuses(B, 32, 32, H, din_q, din_kv, HD, dout)
+    with FA.disable_fused():
+        assert not FA._fuses(B, 32, 32, H, din_q, din_kv, HD, dout, interpret=True)
+
+
+@pytest.mark.parametrize("H,HD,B,widths", GATE_CASES)
+def test_static_q_gate_matches_reference(H, HD, B, widths, monkeypatch, restore_switches):
+    """K2's gate is the reference's (``fused_attn.py:933-941``): the query
+    table's K rows as Sq, x_kv's batch, the same width gates."""
+    din_q, din_kv, dout = widths
+    A.set_attention_impl("pallas")
+    for k in (8, 64, 128, 577):
+        for sk in GATE_SK:
+            ref = _reference_static_q_fuses(monkeypatch, k, sk, H, HD, B, din_q, din_kv, dout)
+            assert FA._fuses(B, k, sk, H, din_q, din_kv, HD, dout) == ref, (B, k, sk, H, HD, widths, ref)
 
 
 @pytest.mark.parametrize("Dh", [32, 96, 320, 384])

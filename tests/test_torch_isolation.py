@@ -148,3 +148,20 @@ def test_int8_kernel_entry_has_no_fallback():
     with pytest.raises(ValueError, match="unsupported device"):
         int8_matmul_fused(x, w, torch.empty(8, device="meta"))
     assert int8_matmul_fused.launches == 0
+
+
+def test_package_exports_the_reference_api():
+    """``from btia_tpu_torch import predict, __version__`` works: the root
+    exports every public name of ``btia_tpu/__init__.py``."""
+    import ast
+
+    import btia_tpu_torch
+    from btia_tpu_torch import __version__, predict
+    from btia_tpu_torch.infer.predict import predict as module_predict
+
+    tree = ast.parse((REPO / "btia_tpu" / "__init__.py").read_text())
+    names = {a.asname or a.name for n in tree.body if isinstance(n, ast.ImportFrom) for a in n.names}
+    names |= {t.id for n in tree.body if isinstance(n, ast.Assign) for t in n.targets}
+    assert "predict" in names and "__version__" in names
+    assert names <= set(dir(btia_tpu_torch)), names - set(dir(btia_tpu_torch))
+    assert predict is module_predict and isinstance(__version__, str)

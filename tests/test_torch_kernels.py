@@ -6,6 +6,10 @@ tensors. Both sides get the same numpy inputs. Fully masked rows are
 included for K1/K2: both sides must give exactly 0 attention there (mask
 applied after exp, denominator floored at 1e-30).
 
+Both sides pass ``interpret=True``: at these small batches the gate (a
+batch of 64 or more) sends a site to the unfused road in both packages, and
+the argument forces the fused one, the kernels' (here their twins').
+
 Tolerances: fp32 2e-5 absolute (as test_ops.py). bf16: both sides round at
 the same points, but f32 sums taken in another order can flip a value across
 a bf16 rounding boundary, one bf16 step (2^-8 relative) at the outputs'
@@ -89,7 +93,7 @@ def test_k1_fused_dense_matches_pallas(site, dtype):
     )
     before = FA.fused_dense_attention.launches
     out = FA.fused_dense_attention(
-        _t(x_q, tdt), _t(x_kv, tdt), torch.from_numpy(mask), *map(_t, w), H,
+        _t(x_q, tdt), _t(x_kv, tdt), torch.from_numpy(mask), *map(_t, w), H, interpret=True,
         q_ln=_tln(q_ln), kv_ln=_tln(kv_ln), residual=residual, post_ln=_tln(post_ln),
     )
     assert FA.fused_dense_attention.launches == before  # CPU: plain twin
@@ -107,7 +111,7 @@ def test_k1_fully_masked_row_attends_to_nothing():
     w = _weights(rng, Din, H * 64, Din)
     x = rng.randn(B, S, Din).astype(np.float32)
     mask = _mask(rng, B, S, dead_row=1)
-    out = FA.fused_dense_attention(_t(x), _t(x), torch.from_numpy(mask), *map(_t, w), H)
+    out = FA.fused_dense_attention(_t(x), _t(x), torch.from_numpy(mask), *map(_t, w), H, interpret=True)
     np.testing.assert_array_equal(out[1].numpy(), np.broadcast_to(w[7], (S, Din)))
     ref = JFA.fused_dense_attention(_j(x), _j(x), jnp.asarray(mask), *map(_j, w), H, interpret=True)
     np.testing.assert_allclose(np.asarray(ref)[1], out[1].numpy(), atol=2e-5)
@@ -128,7 +132,7 @@ def test_k2_static_q_matches_pallas(dtype):
         interpret=True, kv_ln=_jln(kv_ln), residual=True,
     )
     out = FA.fused_static_q_attention(
-        _t(queries, tdt), _t(x_kv, tdt), torch.from_numpy(mask), *map(_t, w), H,
+        _t(queries, tdt), _t(x_kv, tdt), torch.from_numpy(mask), *map(_t, w), H, interpret=True,
         kv_ln=_tln(kv_ln), residual=True,
     )
     assert out.dtype == tdt and out.shape == (B, K, Din)

@@ -95,6 +95,36 @@ def test_k5_twin_matches_pallas(D, masked, dtype):
     _close(out.float(), ref, atol)
 
 
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("D", [100, 136, 192, 256])
+def test_k5_twin_matches_pallas_at_wide_heads(D, dtype):
+    """K5 takes every head width up to 256 on the card (the reference pads
+    any width: to D when D % 64 == 0, else to a multiple of 128); its twin
+    matches the Pallas kernel at widths past the old limit of 128 and at
+    one that is not a multiple of 8 (the wrapper's padded copy)."""
+    jdt, tdt, atol = DTYPES[dtype]
+    rng = np.random.RandomState(D + 1)
+    B, H, Sq, Sk = 2, 2, 40, 70
+    q, k, v = _bhsd(rng, B, H, Sq, D), _bhsd(rng, B, H, Sk, D), _bhsd(rng, B, H, Sk, D)
+    mask = _live_mask(rng, B, Sk)
+    ref = JA.mha(_j(q, jdt), _j(k, jdt), _j(v, jdt), _j(mask, bool), impl="pallas", interpret=True)
+    out = A.mha(_t(q, tdt), _t(k, tdt), _t(v, tdt), _t(mask, torch.bool), impl="pallas")
+    assert out.dtype == tdt and out.shape == (B, H, Sq, D)
+    _close(out.float(), ref, atol)
+
+
+def test_k5_and_k6_width_predicates():
+    """k5_takes: every width up to 256 (the kernel's four templates pad D to
+    a multiple of 64 in shared memory, and the wrapper pads a width that is
+    not a multiple of 8); k6_takes: K6's tile, the multiples of 8 up to
+    128."""
+    for D in range(1, 400):
+        assert A.k5_takes(D) == (D <= 256), D
+        assert BX.k6_takes(D) == (D % 8 == 0 and D <= 128), D
+    assert [D for D in (8, 40, 96, 100, 136, 192, 200, 256, 257) if A.k5_takes(D)] == [
+        8, 40, 96, 100, 136, 192, 200, 256]
+
+
 def test_k5_fully_masked_row_averages_the_real_keys():
     """The port's K5 (twin and kernel alike) gives a row whose every key is
     masked the mean of V over the Sk real keys, as mha_reference does; the
@@ -254,6 +284,8 @@ ROUTE_GRID = {
     "long_d192_h1": (1, 200, 180, 1, 192, "k5"),  # H*D % 128 != 0
     "long_d256_h1": (1, 200, 180, 1, 256, "k3"),
     "short_b64_d256": (64, 8, 12, 1, 256, "k4"),
+    "long_d136_h2": (1, 260, 229, 2, 136, "k5"),  # D % 64 != 0, above K5's old 128
+    "long_d200_h1": (1, 200, 180, 1, 200, "k5"),
 }
 
 
@@ -337,9 +369,10 @@ def small_model():
     assert model.policy.compute_dtype == torch.bfloat16
     rng = np.random.RandomState(20)
     images = torch.from_numpy(rng.randint(0, 256, (2, 96, 96, 3)).astype(np.uint8))
-    qids = np.zeros((2, 3, 32), np.int64)
+    # 2 images x 32 questions: 64 question rows, the fused sites' batch floor.
+    qids = np.zeros((2, 32, 32), np.int64)
     for i in range(2):
-        for j in range(3):
+        for j in range(32):
             n = rng.randint(3, 33)
             qids[i, j, :n] = rng.randint(1, 500, n)
     return model, images, torch.from_numpy(qids)
@@ -370,13 +403,15 @@ def test_switches_route_a_small_model_to_the_plain_road(road, small_model, monke
         with FA.disable_fused():
             out, entries = _forward_recording(monkeypatch, model, images, qids)
         assert not {"fused_dense_attention", "fused_static_q_attention"} & set(entries)
-    assert out.shape == auto.shape == (2, 3, 64) and bool(torch.isfinite(out).all())
+    assert out.shape == auto.shape == (2, 32, 64) and bool(torch.isfinite(out).all())
     _close(out, auto, 1e-2)
 
 
 def test_disable_fused_is_authoritative_over_the_switch(monkeypatch, restore_switches):
     """Inside disable_fused() the fused entries take the unfused road even
-    with the switch on the kernels, and the context restores on exit."""
+    with the switch on the kernels and interpret=True (which forces the
+    fused road at this batch of 3, under the floor of 64), and the context
+    restores on exit."""
     rng = np.random.RandomState(21)
     B, S, Din, H = 3, 8, 128, 2
     w = [torch.from_numpy((rng.randn(*s) * 0.05).astype(np.float32))
@@ -386,10 +421,10 @@ def test_disable_fused_is_authoritative_over_the_switch(monkeypatch, restore_swi
     real = FA._fused_dense_plain
     monkeypatch.setattr(FA, "_fused_dense_plain", lambda *a: took.append(1) or real(*a))
     A.set_attention_impl("pallas")
-    fused = FA.fused_dense_attention(x, x, None, *w, H)
+    fused = FA.fused_dense_attention(x, x, None, *w, H, interpret=True)
     with FA.disable_fused():
         assert not FA._ENABLED
-        unfused = FA.fused_dense_attention(x, x, None, *w, H)
+        unfused = FA.fused_dense_attention(x, x, None, *w, H, interpret=True)
         with pytest.raises(RuntimeError):
             with FA.disable_fused():
                 raise RuntimeError
@@ -412,7 +447,11 @@ def test_k5_k6_entries_have_no_fallback():
     with pytest.raises(ValueError, match="unsupported device"):
         BX.bicross_bhsd_attention(t, t, t, t, t, t)
     assert A.mha_bhsd_attention.launches == 0 and BX.bicross_bhsd_attention.launches == 0
-    with pytest.raises(ValueError, match="multiples of 8 up to 128, got 20"):
-        A._check_head_width(20, "K5")
-    with pytest.raises(ValueError, match="multiples of 8 up to 128, got 136"):
-        A._check_head_width(136, "K5")
+    # The CUDA halves refuse, through their predicates, a width their
+    # kernels do not take, before anything is built or launched.
+    with pytest.raises(ValueError, match="K5 kernel takes head widths up to 256, got 264"):
+        A._mha_bhsd_cuda(*(torch.zeros(1, 2, 8, 264),) * 3, None)
+    for D in (20, 136):
+        x = torch.zeros(1, 2, 8, D)
+        with pytest.raises(ValueError, match=f"K6 kernel takes head widths that are multiples of 8 up to 128, got {D}"):
+            BX._bicross_cuda(x, x, x, x, x, x, None)
