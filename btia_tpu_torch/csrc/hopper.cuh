@@ -1,6 +1,6 @@
 // Hopper building blocks shared by the wgmma / TMA kernels (K3 and K5 in
-// flash_bshd.cu, K1/K2's projection GEMM in fused_attn.cu, K8 in
-// int8_mm.cu): mbarriers, TMA tile loads, the wgmma
+// flash_bshd.cu, K4 and K6 in short_flash.cuh, K1/K2's projection GEMM in
+// fused_attn.cu, K8 in int8_mm.cu): mbarriers, TMA tile loads, the wgmma
 // shared-memory descriptor, and the wgmma instructions as inline PTX.
 // Everything here needs sm_90a.
 //
@@ -193,6 +193,17 @@ __device__ __forceinline__ void wgmma_bf16_ss_tb_n128(float (&d)[64], uint64_t d
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D(64 x 32, f32) (+)= A(64 x 16) B(16 x 32); A and B bf16 in shared memory, both K-major.
+__device__ __forceinline__ void wgmma_bf16_ss_n32(float (&d)[16], uint64_t da, uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 

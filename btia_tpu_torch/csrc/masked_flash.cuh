@@ -1,5 +1,6 @@
-// Masked exp2 attention of one 64-row query tile of one head, shared by the
-// tiled K1/K2 attention core (fused_attn.cu) and K4 (fanout.cu).
+// Masked exp2 attention of one 64-row query tile of one head: the tiled
+// K1/K2 attention core (fused_attn.cu). K4 computes the same softmax on the
+// short-sequence kernel of short_flash.cuh.
 //
 // Both TPU kernels (btia_tpu/ops/fused_attn.py:_fused_kernel and
 // btia_tpu/ops/attention.py:_fanout_kernel) compute the same softmax:

@@ -21,20 +21,21 @@ switch is on the kernels:
   ``bshd_flash_attention`` (``csrc/flash_bshd.cu``), when D % 64 == 0 and
   H*D % 128 == 0, and otherwise to K5 through a (B, H, S, D) view;
 * short sequences at a batch of at least ``FANOUT_MIN_BATCH`` with
-  D % 64 == 0 go to K4, ``fanout_attention`` (``csrc/fanout.cu``). In
-  training this is where the backward pass of every fused K1 site
-  recomputes its attention;
+  D % 64 == 0 go to K4, ``fanout_attention`` (``csrc/fanout.cu`` on
+  ``csrc/short_flash.cuh``). In training this is where the backward pass
+  of every fused K1 site recomputes its attention;
 * otherwise, and always under ``"xla"``, the reference's einsum road
   (``attention.py:801-811``): ``mha_reference`` on (B, H, S, D) views.
 
 The roads are the reference's gates, whatever the head width. The
 ``*_takes`` predicates say which head widths each CUDA kernel is built for
-(K3 and K4: ``TILE_HEAD_WIDTHS``, the multiples of 64 up to 256; K5: every
-width up to 256; K6, in ``ops/bicross.py``: the multiples of 8 up to 128),
-and each wrapper raises through its predicate on a CUDA tensor of another
-width. K3 and K5 share one kernel (``csrc/flash_bshd.cu``): K5 gives it the
-(B, H, S, D) views with their own strides, K3 the packed (B, S, H*D)
-layout.
+(K3 and K4: ``TILE_HEAD_WIDTHS``, the multiples of 64 up to 256; K5 and
+K6, in ``ops/bicross.py``: every width up to 256), and each wrapper raises
+through its predicate on a CUDA tensor of another width. K3 and K5 share one
+kernel (``csrc/flash_bshd.cu``): K5 gives it the (B, H, S, D) views with
+their own strides, K3 the packed (B, S, H*D) layout. K4 and K6 share the
+short-sequence kernel (``csrc/short_flash.cuh``), whose work items
+``short_plan`` lays out on the host.
 
 Each kernel entry routes by device: a CUDA tensor launches the hand-written
 kernel (counted in the entry's ``.launches``) or raises, a CPU tensor takes
@@ -205,16 +206,17 @@ def _bhsd_operand(t: torch.Tensor, what: str):
         raise ValueError(f"{what}: the CUDA kernel takes a bf16 CUDA tensor, got {t.dtype} on {t.device}")
 
     def strides(x):
-        span = max([x.shape[3]] + [x.stride(i) * x.shape[i] for i in range(3) if x.shape[i] > 1])
-        return [span if x.shape[i] == 1 else x.stride(i) for i in range(3)]
+        shape, stride = x.shape, x.stride()
+        span = max([shape[3]] + [stride[i] * shape[i] for i in range(3) if shape[i] > 1])
+        return [span if shape[i] == 1 else stride[i] for i in range(3)]
 
-    readable = lambda x: (x.stride(3) == 1 and x.data_ptr() % 16 == 0
-                          and all(s > 0 and s % 8 == 0 for s in strides(x)))
-    if not readable(t):
+    st = strides(t)
+    if t.stride(3) != 1 or t.data_ptr() % 16 or any(s <= 0 or s % 8 for s in st):
         t = t.contiguous()
-        if not readable(t):  # packed, but at an unaligned storage offset
+        if t.data_ptr() % 16:  # packed, but at an unaligned storage offset
             t = t.clone()
-    return t, strides(t)
+        st = strides(t)
+    return t, st
 
 
 # Head widths the tiles of K1/K2's core, K3 and K4 are built for: the
@@ -422,21 +424,84 @@ def _fanout_plain(q, k, v, colmask, num_heads: int) -> torch.Tensor:
     return attend_log2(qs, k, v, colmask, num_heads)
 
 
-def _fanout_cuda(q, k, v, colmask, num_heads: int) -> torch.Tensor:
+def fanout_strides(x: torch.Tensor, num_heads: int) -> list:
+    """The (batch, head, row) strides, in elements, under which a packed
+    (B, S, H*D) tensor reads as its (B, H, S, D) view: (S*H*D, D, H*D). K4
+    hands these to its kernel, so no transpose is copied."""
+    B, S, HD = x.shape
+    return [S * HD, HD // num_heads, HD]
+
+
+def _round8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def short_plan(shapes, head_dim: int, pack: bool = True) -> list:
+    """Plan the work items of the short-sequence kernel (K4 and K6,
+    ``csrc/short_flash.cuh``) for one or two problems, each (B, H, Sq, Sk),
+    at head width ``head_dim`` (a multiple of 8 up to 256). Returns
+    ``[bn, pack, q_span, k_span, groups, q_tiles, ...]``: the key tile bn
+    (32 or 64 keys), then per problem the batch rows packed into one 64-row
+    tile, the tile rows and keys each of them takes (64 and bn when not
+    packed), ceil(B / pack) and ceil(Sq / 64) (1 when packed).
+
+    The key tile is 32 keys, or 64 where every problem can pack two or more
+    batch rows (Sq <= 32 and Sk <= 32); rows longer than the tile loop over
+    key tiles (on an H100 the 32-key tile ran faster than one that held 82,
+    197 or 577 keys). A problem with Sq <= 32 packs as many batch rows as fit
+    both 64 query rows and bn keys (the TPU kernel's bb packing), each at a
+    multiple of 8 rows (TMA's 128-byte swizzle repeats every 8 rows);
+    ``pack=False`` keeps one batch row a tile."""
+    bn = 64 if pack and all(sq <= 32 and sk <= 32 and b > 1 for b, _, sq, sk in shapes) else 32
+    plan = [bn]
+    for B, _, Sq, Sk in shapes:
+        p = min(64 // _round8(Sq), bn // _round8(Sk), B) if pack and Sq <= 32 else 1
+        if p > 1:
+            plan += [p, _round8(Sq), _round8(Sk), -(-B // p), 1]
+        else:
+            plan += [1, 64, bn, B, -(-Sq // 64)]
+    return plan
+
+
+def short_items(shapes, plan) -> list:
+    """The (b, h, q row) triples that each problem's items store, in the
+    kernel's order (``sf_decode`` in ``csrc/short_flash.cuh``): one (N, 3)
+    int64 tensor per problem. The CPU tests hold it to cover each row of
+    each problem exactly once."""
+    out = []
+    for p, (B, H, Sq, _) in enumerate(shapes):
+        pack, q_span, _, groups, q_tiles = plan[1 + 5 * p: 6 + 5 * p]
+        it = torch.arange(groups * H * q_tiles)
+        q0 = (it % q_tiles) * 64
+        h = (it // q_tiles) % H
+        b0 = (it // q_tiles // H) * pack
+        r = torch.arange(64)
+        jr = r // q_span if pack > 1 else torch.zeros_like(r)
+        b, q = b0[:, None] + jr[None], q0[:, None] + (r - jr * q_span)[None]
+        keep = (jr[None] < pack) & (b < B) & (q < Sq)
+        out.append(torch.stack([b[keep], h[:, None].expand_as(b)[keep], q[keep]], 1))
+    return out
+
+
+def _fanout_cuda(q, k, v, colmask, num_heads: int, pack: bool = True) -> torch.Tensor:
     B, Sq, HD = q.shape
     Sk = k.shape[1]
     D = HD // num_heads
     if HD != num_heads * D or not k4_takes(D):
         raise ValueError(f"K4 kernel takes head widths {TILE_HEAD_WIDTHS}, got {HD / num_heads:g}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if min(B, Sq, Sk) == 0:
+        raise ValueError(f"K4 kernel takes B, Sq, Sk >= 1, got {(B, Sq, Sk)}")
+    q, k, v = _native.aligned(q), _native.aligned(k), _native.aligned(v)
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _native.require(t, f"fanout_attention {name}")
     cm = colmask.to(torch.float32).contiguous()
     out = torch.empty_like(q)
+    strides = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, out) for s in fanout_strides(t, num_heads)))
+    plan = short_plan([(B, num_heads, Sq, Sk)], D, pack)
     _native.check(
         _native.lib().btia_fanout(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), cm.data_ptr(), out.data_ptr(),
-            B, num_heads, D, Sq, Sk, _log2_scale(D), _native.stream(q),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), cm.data_ptr(), out.data_ptr(), strides,
+            (ctypes.c_int * len(plan))(*plan), B, num_heads, Sq, Sk, D, _log2_scale(D), _native.stream(q),
         ),
         "btia_fanout",
     )

@@ -3,8 +3,9 @@
     img <- txt : out_i = softmax(Q_img K_txt^T / sqrt(d)) V_txt   (question-masked)
     txt <- img : out_t = softmax(Q_txt K_img^T / sqrt(d)) V_img   (dense)
 
-K6, ``bicross_bhsd_attention`` (``csrc/bicross.cu``), computes both
-directions in one launch. The BTIA block does not call it (its two
+K6, ``bicross_bhsd_attention`` (``csrc/bicross.cu`` on the short-sequence
+kernel of ``csrc/short_flash.cuh``), computes both directions in one launch,
+at any head width up to 256. The BTIA block does not call it (its two
 directions are K1 sites, ``models/btia.py``); it is an explicit op and an
 oracle, reached through ``bicross_attention(impl="pallas")``, through
 ``bicross_attention`` with the switch on the kernels and Ni*Nt above
@@ -23,8 +24,8 @@ import torch
 
 from btia_tpu_torch.ops import _native
 from btia_tpu_torch.ops.attention import (
-    SMALL_SCORE_TILE, _bhsd_operand, _log2_scale, _mha_bhsd_plain,
-    _resolved_impl, mha_bshd, mha_reference,
+    SMALL_SCORE_TILE, _bhsd_operand, _log2_scale, _mha_bhsd_plain, _round8,
+    _resolved_impl, mha_bshd, mha_reference, short_plan,
 )
 
 
@@ -42,34 +43,46 @@ def _bicross_plain(qi, ki, vi, qt, kt, vt, txt_mask):
     return _mha_bhsd_plain(qi, kt, vt, txt_mask), _mha_bhsd_plain(qt, ki, vi, None)
 
 
+# K6's widest head: the short-sequence kernel's templates pad D to 64, 128,
+# 192 or 256 in shared memory, as K5's do. The reference pads any width; a
+# wider head raises on the card.
+K6_MAX_HEAD_WIDTH = 256
+
+
 def k6_takes(head_dim: int) -> bool:
-    """Whether K6's CUDA tile (``csrc/mha_tile.cuh``) is built for this head
-    width: the multiples of 8 up to 128, zero-padded in shared memory to a
-    multiple of 16."""
-    return head_dim % 8 == 0 and 8 <= head_dim <= 128
+    """Whether K6's CUDA kernel takes this head width: every width up to
+    256 (one not a multiple of 8 through a padded copy)."""
+    return 1 <= head_dim <= K6_MAX_HEAD_WIDTH
 
 
-def _bicross_cuda(qi, ki, vi, qt, kt, vt, txt_mask):
+def _bicross_cuda(qi, ki, vi, qt, kt, vt, txt_mask, pack: bool = True):
     B, H, Ni, D = qi.shape
     Nt = qt.shape[2]
     if not k6_takes(D):
-        raise ValueError(f"K6 kernel takes head widths that are multiples of 8 up to 128, got {D}")
+        raise ValueError(f"K6 kernel takes head widths up to {K6_MAX_HEAD_WIDTH}, got {D}")
+    if min(B, H, Ni, Nt) == 0:
+        raise ValueError(f"K6 kernel takes B, H, Ni, Nt >= 1, got {(B, H, Ni, Nt)}")
+    dw = _round8(D)
+    operands = (qi, ki, vi, qt, kt, vt)
+    if dw != D:
+        # TMA reads rows of 16-byte multiples: one zero-padded copy (K5's rule).
+        operands = tuple(torch.nn.functional.pad(t, (0, dw - D)) for t in operands)
     names = ("qi", "ki", "vi", "qt", "kt", "vt")
-    ops = [_bhsd_operand(t, f"bicross_bhsd_attention {n}")
-           for t, n in zip((qi, ki, vi, qt, kt, vt), names)]
+    ops = [_bhsd_operand(t, f"bicross_bhsd_attention {n}") for t, n in zip(operands, names)]
     outs = [_bhsd_operand(torch.empty_like(ops[i][0]), "bicross_bhsd_attention out") for i in (0, 3)]
     (oi, _), (ot, _) = outs
     strides = (ctypes.c_longlong * 24)(*(s for _, st in ops + outs for s in st))
-    mask = None if txt_mask is None else txt_mask.to(torch.float32).contiguous()
+    plan = short_plan([(B, H, Ni, Nt), (B, H, Nt, Ni)], dw, pack)
+    mask = None if txt_mask is None else txt_mask.to(torch.bool).contiguous()  # read as bytes
     _native.check(
         _native.lib().btia_bicross(
             *(t.data_ptr() for t, _ in ops), None if mask is None else mask.data_ptr(),
-            oi.data_ptr(), ot.data_ptr(), strides, B, H, Ni, Nt, D, _log2_scale(D),
-            _native.stream(qi),
+            oi.data_ptr(), ot.data_ptr(), strides, (ctypes.c_int * len(plan))(*plan),
+            B, H, Ni, Nt, dw, _log2_scale(D), _native.stream(qi),
         ),
         "btia_bicross",
     )
-    return oi, ot
+    return (oi, ot) if dw == D else (oi[..., :D], ot[..., :D])
 
 
 def _vjp_reference(q, k, v, mask, g):
@@ -104,7 +117,7 @@ def bicross_bhsd_attention(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6: both directions in one launch. Image side (B, H, Ni, D), text
     side (B, H, Nt, D), in any strides with D packed; txt_mask (B, Nt)
-    True=valid; D a multiple of 8 up to 128 on the card."""
+    True=valid; D up to 256 on the card (``k6_takes``)."""
     return _Bicross.apply(qi, ki, vi, qt, kt, vt, txt_mask, True)
 
 

@@ -10,8 +10,10 @@ Phases, each fatal on failure:
 2. hold each kernel against its plain PyTorch twin on the card, in bf16, and
    time the kernel, the twin and a PyTorch library yardstick with CUDA
    events: K1 in its BERT and both BTIA site forms, K2 and K3 at the shapes
-   of the ``streaming_vitl`` serving step (16 images x 128 questions); K1 at
-   the ``vqa_med_full`` training sites (BERT 64 x 32, BTIA 197 x 32 and
+   of the ``streaming_vitl`` serving step (16 images x 128 questions); K4 at
+   that step's four shapes under ``disable_fused()`` (2048 x 32 <- 32,
+   50 <- 32, 32 <- 50, 64 <- 82), two batch rows a tile timed against one
+   where Sq <= 32; K1 at the ``vqa_med_full`` training sites (BERT 64 x 32, BTIA 197 x 32 and
    32 x 197) and K4 at its three training shapes, K3 at ViT-B and the AD
    head (64 x 2048 <- 229); K1, K2, K3 and K4 again at head widths 128,
    192 and 256 (6, 4 and 3 heads of a 768-wide model); then the backward
@@ -41,9 +43,11 @@ Phases, each fatal on failure:
    yardstick (SDPA, two SDPA calls, ``F.layer_norm``) and the bound; K5 at
    D = 8, 40, 64, 96, 100, 128, 136, 192, 200 and 256 (its four templates;
    D = 100 through the padded copy), masked and dense, on the long road's
-   transposed views, at a batch of 1 and with a broadcast batch; every
-   head-width template of K6 and K7's block-per-row kernel at small shapes;
-   each Function's backward against autograd through its twin;
+   transposed views, at a batch of 1 and with a broadcast batch; K6 at
+   D = 16 to 256 on strided views (above 128 through ``bicross_attention(
+   impl="pallas")``) and its fully masked row against the mean of V; K7's
+   block-per-row kernel at small shapes; each Function's backward against
+   autograd through its twin;
 3. serve a few requests through ``Predictor.predict_answers`` on the
    full-width ``streaming_vitl`` with seeded random weights (buckets of
    1-8 questions: under the fused sites' batch floor of 64, so K1 = K2 = 0
@@ -190,10 +194,18 @@ GEMM_TRAIN_SITES = (
 # K5 at every padded-width template (64, 128, 192, 256), at widths that are
 # not multiples of 64, and at D = 100, which takes the wrapper's padded copy.
 K5_WIDTHS = (8, 40, 64, 96, 100, 128, 136, 192, 200, 256)
+# K6 at every padded-width template of its kernel (64, 128, 192, 256), at
+# widths that are not multiples of 64, and at D = 100 (the padded copy).
+K6_WIDTHS = (16, 32, 48, 80, 100, 112, 128, 136, 192, 256)
 # Counts are listed K1..K8 (KERNELS). The serve step with the fused sites
 # disabled: each K1/K2 site's unfused road sends its short attention
 # (2048 rows, D = 64) to K4: 12 BERT + 8 BTIA + 1 AD head; ViT keeps K3.
 NO_FUSED_COUNTS = [0, 0, 24, 21, 0, 0, 0, 0]
+# K4 at those 21 launches' shapes (name, Sq, Sk, masked): 12 BERT sites
+# 32 <- 32, 4 BTIA img <- txt 50 <- 32 and 4 txt <- img 32 <- 50 (dense),
+# the AD head's 64 answer queries over 82 tokens.
+K4_SERVE_SHAPES = (("k4_serve_bert", SEQ, SEQ, True), ("k4_serve_i2t", N_IMG_TOK, SEQ, True),
+                   ("k4_serve_t2i", SEQ, N_IMG_TOK, False), ("k4_serve_head", 64, N_IMG_TOK + SEQ, True))
 KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
 # Phase 2b, the ops API at full width, on registered configs' shapes: K5 at
 # ViT-L/336 self-attention (mha(impl="pallas")) and at the AD head of
@@ -413,10 +425,45 @@ def check_kernels(torch, dev):
         lambda: F.scaled_dot_product_attention(split(q), split(k), split(v)),
         flops, nbytes(q, k, v) + nbytes(q), iters=20,
     )
+    # K4 at the serve step's shapes under disable_fused(): each K1/K2 site's
+    # unfused road sends its short attention (2048 rows, 12 heads of 64) there.
+    for name, sq, sk, masked in K4_SERVE_SHAPES:
+        rows[name] = k4_case(torch, name, BQ, sq, sk, masked, H, randn, question_mask, iters=10)
     rows.update(check_training_kernels(torch, dev, randn, weights, ln, question_mask, mha_yardstick))
     for f, before in zip(counters, launches_before):
         f.launches = before  # comparison launches are not main-path launches
     return rows
+
+
+def k4_case(torch, name, B, sq, sk, masked, heads, randn, question_mask, iters):
+    """K4 (fanout_attention) at B x sq <- sk over a 768-wide model of
+    `heads` heads, against its twin, timed beside SDPA and the bound; a
+    fully masked row must be exactly 0. Where two batch rows share a tile
+    (sq <= 32), the kernel with one batch row a tile is timed too."""
+    import torch.nn.functional as F
+
+    from btia_tpu_torch.ops import attention as A
+
+    D = 768
+    q, k, v = randn(B, sq, D), randn(B, sk, D), randn(B, sk, D)
+    cm = question_mask(B, sk).float() if masked else torch.ones(B, sk, device=q.device)
+    split = lambda t: t.view(B, t.shape[1], heads, D // heads).transpose(1, 2)
+    keep = (cm > 0)[:, None, None, :]
+    row = run_case(
+        f"K4 fan-out attention ({B} x {sq} <- {sk}, {heads} heads of {D // heads})",
+        lambda: A.fanout_attention(q, k, v, cm, heads),
+        lambda: A._fanout_plain(q, k, v, cm, heads),
+        lambda: F.scaled_dot_product_attention(split(q), split(k), split(v), attn_mask=keep),
+        4 * B * sq * sk * D, nbytes(q, k, v, cm) + nbytes(q), iters=iters,
+    )
+    row["plan"] = A.short_plan([(B, heads, sq, sk)], D // heads)
+    if row["plan"][1] > 1:
+        row["ms_one_row_a_tile"] = cuda_time_ms(lambda: A._fanout_cuda(q, k, v, cm, heads, pack=False), iters)
+        log(f"    one batch row a tile: {row['ms_one_row_a_tile']:.4f} ms (packed {row['plan'][1]} a tile: "
+            f"{row['ms']:.4f})")
+    if masked and bool(A.fanout_attention(q, k, v, cm, heads)[-1].any()):
+        raise AssertionError(f"{name}: a fully masked row is not 0")
+    return row
 
 
 def check_training_kernels(torch, dev, randn, weights, ln, question_mask, mha_yardstick):
@@ -475,24 +522,15 @@ def check_training_kernels(torch, dev, randn, weights, ln, question_mask, mha_ya
             nbytes(img, txt, m, *w, *li[:2], *lt[:2]) + nbytes(img),
         )
 
+    for name, sq, sk, masked, heads in (("k4_bert", SEQ, SEQ, True, H), ("k4_i2t", N_VIT_B, SEQ, True, H),
+                                        ("k4_t2i", SEQ, N_VIT_B, False, H),
+                                        *((f"k4_i2t_d{D // h}", N_VIT_B, SEQ, True, h) for h in WIDE_HEADS)):
+        rows[name] = k4_case(torch, name, B, sq, sk, masked, heads, randn, question_mask, iters=20)
+
     def sdpa(q, k, v, cm, heads=H):
         split = lambda t: t.view(B, t.shape[1], heads, D // heads).transpose(1, 2)
         keep = (cm > 0)[:, None, None, :]
         return lambda: F.scaled_dot_product_attention(split(q), split(k), split(v), attn_mask=keep)
-
-    for name, sq, sk, masked, heads in (("k4_bert", SEQ, SEQ, True, H), ("k4_i2t", N_VIT_B, SEQ, True, H),
-                                        ("k4_t2i", SEQ, N_VIT_B, False, H),
-                                        *((f"k4_i2t_d{D // h}", N_VIT_B, SEQ, True, h) for h in WIDE_HEADS)):
-        q, k, v = randn(B, sq, D), randn(B, sk, D), randn(B, sk, D)
-        cm = question_mask(B, sk).float() if masked else torch.ones(B, sk, device=dev)
-        rows[name] = run_case(
-            f"K4 fan-out attention (64 x {sq} <- {sk}, {heads} heads of {D // heads})",
-            lambda: A.fanout_attention(q, k, v, cm, heads),
-            lambda: A._fanout_plain(q, k, v, cm, heads),
-            sdpa(q, k, v, cm, heads), 4 * B * sq * sk * D, nbytes(q, k, v, cm) + nbytes(q), iters=20,
-        )
-        if masked and bool(A.fanout_attention(q, k, v, cm, heads)[-1].any()):
-            raise AssertionError(f"{name}: a fully masked row is not 0")
 
     # K3 at the training shapes: ViT-B/16 self-attention and the AD head's
     # 2048 answer queries over 197 + 32 fused tokens, at 12 heads of 64 and
@@ -869,6 +907,16 @@ def ops_api_phase(torch, dev, counters):
         lambda: (sdpa(qi, kt, vt, attn_mask=key_mask(mp)), sdpa(qt, ki, vi)),
         2 * 4 * Bp * Hp * Nip * Ntp * Dp, nbytes(*pooled, mp) + nbytes(qi, qt), iters=10,
     )
+    # A question of only PAD tokens (mp's last row): its image rows average
+    # V over the Nt real text keys, as mha_reference and K5 do.
+    out_i = BX.bicross_bhsd_attention(*pooled, mp)[0][-1].float()
+    mean_v = vt[-1].float().mean(1, keepdim=True).expand_as(out_i)
+    err, tol = (out_i - mean_v).abs().max().item(), mean_v.abs().max().item() / 32
+    rows["k6_pooled"]["masked_row_vs_mean_v"] = [err, tol]
+    log(f"  K6 fully masked row vs mean V: err {err:.4g} (tol {tol:.4g})")
+    if not err <= tol:
+        raise AssertionError(f"K6: a fully masked row is not the mean of V: {err} > {tol}")
+    del out_i, mean_v
     lv = [t(x) for x in long_bshd]
     rows["k6_long"] = run_case(
         "K6 bicross_bshd long tile (16 x 12 heads, 577 <-> 64)",
@@ -885,8 +933,10 @@ def ops_api_phase(torch, dev, counters):
         x = (torch.randn(M, D, generator=g, device=dev) * 2 + 0.5).to(bf)
         sc, bi = 1 + 0.2 * torch.randn(D, generator=g, device=dev), 0.1 * torch.randn(D, generator=g, device=dev)
         rows[f"k7_wide_{D}"] = check_layernorm(torch, f"wide {D}", x, sc, bi, iters=5)
-    # Every head-width template of K6 (D 16..128; the main paths run 64) at
-    # a small masked shape, within max|twin| / 32; K5 at K5_WIDTHS, masked
+    # K6 at widths of every template (D 16..256; the main paths run 64; D 136
+    # to 256 through bicross_attention(impl="pallas"), which took only D <= 128
+    # before the short-sequence kernel) at a small masked shape on strided
+    # views, within max|twin| / 32; K5 at K5_WIDTHS, masked
     # and dense, on the long road's (B, S, H, D) views, at a batch of 1 and
     # with K and V broadcast over the batch (a zero stride, copied).
     widths = {}
@@ -898,12 +948,14 @@ def ops_api_phase(torch, dev, counters):
         if not (bool(torch.isfinite(out).all()) and err <= tol):
             raise AssertionError(f"{name}: err {err} > {tol} or not finite")
 
-    for D in (16, 32, 48, 80, 112, 128):
+    for D in K6_WIDTHS:
         q, k, v = randn(2, 4, 200, D), randn(2, 4, 300, D), randn(2, 4, 300, D)
         m = torch.cat([ones(2, 1), _question_mask(torch, dev, g, 2, 299)], 1)
         # K6 on strided views: 200 image tokens, 40 text tokens.
         both = (q, k[:, :, :200], v[:, :, :200], *(x[:, :, :40] for x in (k, q, v)))
-        hold(f"K6_D{D}", BX.bicross_bhsd_attention(*both, m[:, :40]), BX._bicross_plain(*both, m[:, :40]))
+        out = (O.bicross_attention(*both, m[:, :40], impl="pallas") if D > 128
+               else BX.bicross_bhsd_attention(*both, m[:, :40]))
+        hold(f"K6_D{D}", out, BX._bicross_plain(*both, m[:, :40]))
     for D in K5_WIDTHS:
         q, k, v = randn(2, 4, 200, D), randn(2, 4, 300, D), randn(2, 4, 300, D)
         m = torch.cat([ones(2, 1), _question_mask(torch, dev, g, 2, 299)], 1)
@@ -1045,7 +1097,7 @@ def routing_switches_phase(torch, dev, smi, model, host_imgs, host_qids, serve_s
 
 
 _PORTED = ("gemm_bias_wgmma_kernel", "attn_core_kernel", "attn_core_tiled_kernel", "ln_warp_kernel",
-           "ln_block_kernel", "flash_attn_kernel", "fanout_kernel", "bicross_kernel",
+           "ln_block_kernel", "flash_attn_kernel", "short_flash_kernel",
            "quant_rows_kernel", "quant_rows_loop_kernel", "int8_gemm_kernel")
 
 
@@ -1777,7 +1829,7 @@ def main() -> int:
          "K3_backward"),
         ("fanout_attention", "btia_tpu_torch/csrc/fanout.cu",
          "btia_tpu/ops/attention.py:349", 3, rows["k4_bert"],
-         ("k4_bert", "k4_i2t", "k4_t2i", *(f"k4_i2t_d{hw}" for hw in widths)),
+         ("k4_bert", "k4_i2t", "k4_t2i", *(f"k4_i2t_d{hw}" for hw in widths), *(n for n, *_ in K4_SERVE_SHAPES)),
          "K4_backward"),
         ("mha_bhsd_attention", "btia_tpu_torch/csrc/mha_bhsd.cu",
          "btia_tpu/ops/attention.py:160", 4, rows["k5_vitl"], ("k5_vitl", "k5_head"), "K5_backward"),
@@ -1800,6 +1852,8 @@ def main() -> int:
     # K1/K2's projection GEMM, alone at the serve shapes (both launch it).
     kernels[0]["projection_gemm"] = {"sites": gemm_rows, "per_step": gemm_step}
     kernels[4]["kernel_source"] = "btia_tpu_torch/csrc/flash_bshd.cu"  # K5's entry runs K3's kernel
+    for i in (3, 5):  # K4's and K6's entries run the short-sequence kernel
+        kernels[i]["kernel_source"] = "btia_tpu_torch/csrc/short_flash.cuh"
     r = int8_rows["txt_fc1"]  # the BERT / BTIA-text fc1 shape, 16 launches a step
     kernels.append({
         "name": "int8_matmul_fused", "route": "cuda", "source": "btia_tpu_torch/csrc/int8_mm.cu",

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's K3, K5 and K1/K2 projection GEMM against another checkout's
-on one card, in turns.
+"""Time the port's K3, K4, K5, K6 and K1/K2 projection GEMM against another
+checkout's on one card, in turns.
 
     git archive <commit> btia_tpu_torch | tar -x -C runs/parent
     python3 compare_kernels.py runs/parent
@@ -11,8 +11,11 @@ Builds both checkouts' kernel libraries (each from its own
 tree, parent, and prints both pairs of times (CUDA events, ms a call) with
 the largest difference between the two outputs. K3's shapes are also timed
 through K5's entry with K3's packed strides: the 4-D (B, H, S, D) tensor-map
-path over the same bytes. Inputs are random from a seed; the card's name and
-power limit are printed first. Needs one CUDA card and ``nvcc``.
+path over the same bytes. K4 runs at the six training shapes and the four
+serve shapes of ``chip_smoke.py``'s phase 2, K6 at phase 2b's two; where the
+other checkout's K4 / K6 entry has the earlier C signature (no strides or
+plan), it is called that way. Inputs are random from a seed; the card's name
+and power limit are printed first. Needs one CUDA card and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -31,6 +34,15 @@ K3_SHAPES = ((16, 577, 577, 16, 64, False), (64, 197, 197, 12, 64, False), (64, 
              (64, 2048, 229, 6, 128, True), (64, 2048, 229, 4, 192, True), (64, 2048, 229, 3, 256, True))
 # K5: (B, Sq, Sk, heads, head width, mha_bshd's transposed views with a mask).
 K5_SHAPES = ((16, 577, 577, 16, 64, False), (64, 2048, 229, 8, 96, True))
+# K4: (B, Sq, Sk, heads of a 768-wide model, masked): the vqa_med_full train
+# shapes (BERT, BTIA both ways, img <- txt at D 128 / 192 / 256), then the
+# serve step's under disable_fused().
+K4_SHAPES = ((64, 32, 32, 12, True), (64, 197, 32, 12, True), (64, 32, 197, 12, False),
+             (64, 197, 32, 6, True), (64, 197, 32, 4, True), (64, 197, 32, 3, True),
+             (2048, 32, 32, 12, True), (2048, 50, 32, 12, True), (2048, 32, 50, 12, False),
+             (2048, 64, 82, 12, True))
+# K6: (B, H, Ni, Nt, D, bicross_bshd's transposed views): pooled, long tile.
+K6_SHAPES = ((2048, 12, 50, 32, 64, False), (16, 12, 577, 64, 64, True))
 # The projection GEMM: (name, M, K, N, rows its residual repeats over).
 GEMM_SHAPES = (("text_q", 65536, 768, 768, 0), ("text_kv", 65536, 768, 1536, 0),
                ("text_out", 65536, 768, 768, 65536), ("image_q", 102400, 768, 768, 0),
@@ -78,8 +90,8 @@ def main() -> int:
         return start.elapsed_time(end) / iters
 
     def turns(name, make):
-        """make(lib) -> (launch, output); times in the order parent, this,
-        this, parent."""
+        """make(lib) -> (launch, output or a tuple of outputs); times in the
+        order parent, this, this, parent."""
         times, outs = {"parent": [], "this": []}, {}
         for who in ("parent", "this", "this", "parent"):
             launch, out = make(libs[who])
@@ -87,7 +99,7 @@ def main() -> int:
             torch.cuda.synchronize()
             if code != 0:
                 raise RuntimeError(f"{name}: the {who} kernel returned CUDA error {code}")
-            outs[who] = out.float().clone()
+            outs[who] = torch.cat([o.float().flatten() for o in (out if isinstance(out, tuple) else (out,))])
             times[who].append(time_ms(launch))
         diff = (outs["parent"] - outs["this"]).abs().max().item()
         print(f"{name}: parent {[round(t, 4) for t in times['parent']]} ms, this tree "
@@ -134,6 +146,53 @@ def main() -> int:
 
         turns(f"K5 {B} x {H} heads x {Sq} <- {Sk}, D {D}{', transposed views' if views else ''}", k5)
         del q, k, v
+
+    sys.path.insert(0, str(REPO))
+    from btia_tpu_torch.ops.attention import fanout_strides, short_plan
+
+    earlier = lambda lib, name, n: len(getattr(lib, name).argtypes) == n  # the earlier C signature
+    for B, Sq, Sk, H, masked in K4_SHAPES:
+        D = 768 // H
+        q, k, v = (torch.randn(B, S, 768, generator=g, device=dev).to(bf) for S in (Sq, Sk, Sk))
+        cm = (torch.rand(B, Sk, generator=g, device=dev) > 0.2).float() if masked else torch.ones(B, Sk, device=dev)
+        plan = short_plan([(B, H, Sq, Sk)], D)
+
+        def k4(lib, q=q, k=k, v=v, cm=cm, B=B, Sq=Sq, Sk=Sk, H=H, D=D, plan=plan):
+            o = torch.empty_like(q)
+            ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), cm.data_ptr(), o.data_ptr())
+            if earlier(lib, "btia_fanout", 12):
+                return (lambda: lib.btia_fanout(*ptrs, B, H, D, Sq, Sk, 0.18, stream)), o
+            st = (ctypes.c_longlong * 12)(*(s for t in (q, k, v, o) for s in fanout_strides(t, H)))
+            pl = (ctypes.c_int * len(plan))(*plan)
+            return (lambda: lib.btia_fanout(*ptrs, st, pl, B, H, Sq, Sk, D, 0.18, stream)), o
+
+        turns(f"K4 {B} x {Sq} <- {Sk}, {H} heads of {D}", k4)
+        del q, k, v
+
+    for B, H, Ni, Nt, D, views in K6_SHAPES:
+        def operand(S):
+            if views:
+                return torch.randn(B, S, H, D, generator=g, device=dev).to(bf).transpose(1, 2)
+            return torch.randn(B, H, S, D, generator=g, device=dev).to(bf)
+
+        xs = [operand(S) for S in (Ni, Ni, Ni, Nt, Nt, Nt)]
+        m = torch.rand(B, Nt, generator=g, device=dev) > 0.2
+        mf = m.float()  # the earlier entry's f32 mask
+        plan = short_plan([(B, H, Ni, Nt), (B, H, Nt, Ni)], D)
+
+        def k6(lib, xs=xs, m=m, mf=mf, B=B, H=H, Ni=Ni, Nt=Nt, D=D, plan=plan):
+            oi, ot = torch.empty_like(xs[0]), torch.empty_like(xs[3])
+            st = (ctypes.c_longlong * 24)(*(x.stride(i) for x in (*xs, oi, ot) for i in range(3)))
+            ptrs = [x.data_ptr() for x in xs]
+            if earlier(lib, "btia_bicross", 17):
+                return (lambda: lib.btia_bicross(*ptrs, mf.data_ptr(), oi.data_ptr(), ot.data_ptr(), st, B, H, Ni,
+                                                 Nt, D, 0.18, stream)), (oi, ot)
+            pl = (ctypes.c_int * len(plan))(*plan)
+            return (lambda: lib.btia_bicross(*ptrs, m.data_ptr(), oi.data_ptr(), ot.data_ptr(), st, pl, B, H, Ni, Nt,
+                                             D, 0.18, stream)), (oi, ot)
+
+        turns(f"K6 {B} x {H} heads, {Ni} <-> {Nt}, D {D}{', transposed views' if views else ''}", k6)
+        del xs
 
     for name, M, K, N, rr in GEMM_SHAPES:
         a = torch.randn(M, K, generator=g, device=dev).to(bf)

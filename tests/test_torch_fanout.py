@@ -7,6 +7,13 @@ exactly 0 there: the mask multiplies exp2, the denominator is floored at
 3e-2 absolute, one bf16 step at the outputs' magnitude, since f32 sums in
 another order can flip a bf16 rounding.
 
+The host side of K4's CUDA kernel (``csrc/short_flash.cuh``, which runs on
+the card only) is held here too: the (batch, head, row) strides the wrapper
+hands it address the twin's head view, and the planner's work items
+(``short_plan``, decoded as the kernel decodes them by ``short_items``)
+store every (problem, b, h, q row) exactly once, at K4's and K6's main-path
+shapes, ragged Sq and the wide templates.
+
 The routing tests hold ``mha_bshd`` to the reference's roads, and the gate
 test holds the port's ``core_admits`` to the reference's own gate, read off
 ``btia_tpu.ops.fused_attn.fused_dense_attention`` by recording which road it
@@ -29,6 +36,9 @@ SHAPES = {
     "square": (5, 16, 16, 2),
     "long_q": (3, 40, 9, 2),
     "long_kv": (4, 7, 70, 3),
+    # Sq ragged against the kernel's 64-row tiles (two tiles, the second
+    # of 5 rows), with a fully masked row.
+    "ragged_q": (3, 69, 9, 2),
 }
 
 
@@ -68,6 +78,58 @@ def test_k4_matches_reference_attention_on_live_rows():
     ref = ref.transpose(1, 2).reshape(B, Sq, H * 64)
     live = [0, 2]
     np.testing.assert_allclose(out[live].numpy(), ref[live].numpy(), atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("B,S,H,D", [(3, 7, 2, 64), (2, 33, 12, 64), (1, 5, 4, 192)])
+def test_k4_strides_address_the_head_view(B, S, H, D):
+    """The (batch, head, row) strides K4's wrapper hands its kernel read a
+    packed (B, S, H*D) tensor as the twin's (B, S, H, D) view transposed to
+    (B, H, S, D): the same elements, with no copy."""
+    x = torch.arange(B * S * H * D, dtype=torch.float32).reshape(B, S, H * D)
+    view = torch.as_strided(x, (B, H, S, D), (*A.fanout_strides(x, H), 1))
+    assert torch.equal(view, x.view(B, S, H, D).transpose(1, 2))
+    assert view.data_ptr() == x.data_ptr()
+
+
+# (name, problems (B, H, Sq, Sk), head width): the pooled K6 shape, K6's
+# long tile, K4's serve and train shapes, ragged Sq and the wide templates.
+PLANS = {
+    "k6_pooled": ([(2048, 12, 50, 32), (2048, 12, 32, 50)], 64),
+    "k6_long": ([(16, 12, 577, 64), (16, 12, 64, 577)], 64),
+    "k4_bert": ([(2048, 12, 32, 32)], 64),
+    "k4_t2i": ([(2048, 12, 32, 50)], 64),
+    "k4_head": ([(2048, 12, 64, 82)], 64),
+    "k4_train_i2t_d192": ([(64, 4, 197, 32)], 192),
+    "k4_train_t2i": ([(64, 12, 32, 197)], 64),
+    "ragged": ([(67, 3, 69, 9), (5, 3, 9, 69)], 136),
+    "tiny_rows": ([(9, 2, 3, 5)], 256),
+}
+
+
+@pytest.mark.parametrize("pack", [True, False], ids=["packed", "one_row_a_tile"])
+@pytest.mark.parametrize("name", sorted(PLANS))
+def test_short_plan_covers_every_row_once(name, pack):
+    """The short-sequence kernel's items (short_plan, decoded as the kernel
+    decodes them by short_items) store each (problem, b, h, q row) exactly
+    once, and every plan is one the kernel takes (sf_plan_ok)."""
+    shapes, dw = PLANS[name]
+    plan = A.short_plan(shapes, dw, pack)
+    bn = plan[0]
+    assert bn in (32, 64)
+    for p, ((B, H, Sq, Sk), rows) in enumerate(zip(shapes, A.short_items(shapes, plan))):
+        n_pack, q_span, k_span, groups, q_tiles = plan[1 + 5 * p: 6 + 5 * p]
+        assert groups * n_pack >= B
+        if n_pack == 1:
+            assert (q_span, k_span) == (64, bn) and q_tiles * 64 >= Sq
+        else:
+            assert pack and Sq <= 32 and q_tiles == 1
+            assert q_span % 8 == 0 and k_span % 8 == 0 and q_span >= Sq and k_span >= Sk
+            assert n_pack * q_span <= 64 and n_pack * k_span <= bn
+        flat = (rows[:, 0] * H + rows[:, 1]) * Sq + rows[:, 2]
+        assert rows.shape[0] == B * H * Sq
+        assert torch.equal(torch.bincount(flat, minlength=B * H * Sq), torch.ones(B * H * Sq, dtype=torch.int64))
+    if name == "k4_bert" and pack:
+        assert plan == [64, 2, 32, 32, 1024, 1]  # two batch rows a 64-row tile
 
 
 @pytest.mark.parametrize("B,D,road", [(64, 64, "fanout"), (96, 128, "fanout"), (63, 64, "einsum"),

@@ -114,13 +114,12 @@ def test_k5_twin_matches_pallas_at_wide_heads(D, dtype):
 
 
 def test_k5_and_k6_width_predicates():
-    """k5_takes: every width up to 256 (the kernel's four templates pad D to
-    a multiple of 64 in shared memory, and the wrapper pads a width that is
-    not a multiple of 8); k6_takes: K6's tile, the multiples of 8 up to
-    128."""
+    """k5_takes and k6_takes: every width up to 256 (each kernel's four
+    templates pad D to a multiple of 64 in shared memory, and the wrapper
+    pads a width that is not a multiple of 8)."""
     for D in range(1, 400):
         assert A.k5_takes(D) == (D <= 256), D
-        assert BX.k6_takes(D) == (D % 8 == 0 and D <= 128), D
+        assert BX.k6_takes(D) == (D <= 256), D
     assert [D for D in (8, 40, 96, 100, 136, 192, 200, 256, 257) if A.k5_takes(D)] == [
         8, 40, 96, 100, 136, 192, 200, 256]
 
@@ -193,7 +192,8 @@ def test_mha_auto_small_tile_rule(monkeypatch, restore_switches):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("dtype,D", [("fp32", 64), ("bf16", 64), ("fp32", 48)])
+@pytest.mark.parametrize("dtype,D", [("fp32", 64), ("bf16", 64), ("fp32", 48),
+                                     *((dt, D) for D in (136, 192, 256) for dt in ("fp32", "bf16"))])
 def test_k6_twin_matches_pallas(dtype, D):
     jdt, tdt, atol = DTYPES[dtype]
     rng = np.random.RandomState(13)
@@ -451,7 +451,7 @@ def test_k5_k6_entries_have_no_fallback():
     # kernels do not take, before anything is built or launched.
     with pytest.raises(ValueError, match="K5 kernel takes head widths up to 256, got 264"):
         A._mha_bhsd_cuda(*(torch.zeros(1, 2, 8, 264),) * 3, None)
-    for D in (20, 136):
+    for D in (264, 320):
         x = torch.zeros(1, 2, 8, D)
-        with pytest.raises(ValueError, match=f"K6 kernel takes head widths that are multiples of 8 up to 128, got {D}"):
+        with pytest.raises(ValueError, match=f"K6 kernel takes head widths up to 256, got {D}"):
             BX._bicross_cuda(x, x, x, x, x, x, None)
