@@ -1,7 +1,7 @@
 // K4 on Hopper: masked multi-head attention over pre-projected q/k/v, for
 // short sequences at a large batch, on the short-sequence kernel of
-// short_flash.cuh in its zero-rows mode (see there for the design and what
-// bounds it).
+// short_flash.cuh in its zero-rows mode, which K1/K2's attention core
+// (fused_attn.cu) shares (see there for the design and what bounds it).
 //
 // Replaces btia_tpu/ops/attention.py:_fanout_kernel (reached through
 // mha_bshd when B >= 64 and D % 64 == 0; in training, the backward pass of
@@ -34,5 +34,6 @@ extern "C" int btia_fanout(const void* q, const void* k, const void* v, const vo
   p.mask_bytes = 4;
   p.B = B, p.H = H, p.Sq = Sq, p.Sk = Sk;
   p.plan = plan + 1;
+  p.q_shared = 0;
   return sf_dispatch<true>(&p, 1, D, plan[0], qscale, static_cast<cudaStream_t>(stream));
 }

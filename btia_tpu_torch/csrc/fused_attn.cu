@@ -5,34 +5,42 @@
 // and both BTIA directions) and btia_tpu/ops/fused_attn.py:_staticq_kernel
 // (K2, the AD head's answer-query attention). The wrappers that chain these
 // launches are btia_tpu_torch/ops/fused_attn.py:fused_dense_attention and
-// fused_static_q_attention.
-//
-// What bounds it on an H100: at the serving shapes (B*Q = 2048 rows of 32-82
-// tokens, width 768) the four projections are ~95% of the operations, so the
-// site is bound by tensor-core operations (~0.3-0.5 ms at 989 TF/s), not by
-// the ~0.2-0.4 GB it must move. The design therefore puts the projections on
-// the tensor cores at Hopper's rate (gemm_bias_wgmma_kernel: wgmma fed by
-// TMA, f32 accumulators and the bias / residual epilogue in registers) and
-// keeps each (row, head) score tile in shared memory, so
-// no score or probability tensor goes to device memory; sequences longer
-// than 128 (ViT-B/16's 197 image tokens in BTIA) stream their keys through
-// an online softmax instead of holding the whole tile. The pre-LN prologue
-// and post-LN epilogue are K7's single-pass row kernel (layernorm.cu),
-// launched by the wrapper. Fusing the chain into one
+// fused_static_q_attention: K7's LN prologue (layernorm.cu) -> the q and
+// [k|v] projection GEMMs -> the attention core -> the output projection
+// GEMM with the residual -> K7's post-LN. Fusing the chain into one
 // persistent kernel (the TPU kernel's one-pass form) is later work.
+//
+// What bounds it on an H100. At the serving shapes (B*Q = 2048 rows of
+// 32-82 tokens, width 768) the four projections are ~95% of the operations,
+// so the site is bound by tensor-core operations (~0.3-0.5 ms at
+// 989 TF/s), not by the ~0.2-0.4 GB it must move. The projections therefore
+// run on the tensor cores at Hopper's rate (gemm_bias_wgmma_kernel: wgmma
+// fed by TMA, f32 accumulators and the bias / residual epilogue in
+// registers). The attention core alone is bound by bytes: it reads q and
+// the [k|v] GEMM output and writes o, 0.120 ms at a BERT site, 0.154 ms at
+// a BTIA site and 0.214 ms at K2's (2048 rows, 12 heads of 64, 3.35 TB/s),
+// for a few percent of that in tensor-core work. It runs on the
+// short-sequence kernel of short_flash.cuh in its zero-rows mode, shared
+// with K4 (fanout.cu) and K6 (bicross.cu): persistent blocks over planned
+// work items, TMA rings that keep the next item's bytes in flight, scores
+// and probabilities in registers, two short batch rows a 64-row tile. The
+// core reads the GEMM outputs in place through their strides (no head
+// transpose, no split of [k|v]), K2's query table once for every batch row
+// (never expanded over the batch), and the bool key mask as bytes; no
+// score or probability reaches device memory. The wrappers prepare the
+// chain's weights (scaled bf16 wq, [wk|wv], wo, f32 biases, K2's projected
+// query table) once per weight version, not once a call.
 //
 // Semantics follow the TPU kernel exactly: f32 LayerNorm with the fast
 // variance max(0, E[x^2] - E[x]^2); scale*log2(e) folded into wq/bq by the
-// caller; exp2 softmax with the key mask applied AFTER exp and the
-// denominator floored at 1e-30 (a fully masked row gives 0, not NaN);
-// division after PV; bias added in f32 before the bf16 rounding; the residual
-// added in bf16.
+// caller; exp2 softmax with a -1e9 bias on masked keys before the max, the
+// key mask applied AFTER exp and the denominator floored at 1e-30 (a fully
+// masked row gives 0, not NaN); division after PV; bias added in f32 before
+// the bf16 rounding; the residual added in bf16.
 
 #include "common.cuh"
 #include "hopper.cuh"
-#include "masked_flash.cuh"
-
-using namespace nvcuda;
+#include "short_flash.cuh"
 
 // ---------------------------------------------------------------------------
 // The projection GEMM: C[M, N] = bf16(A[M, K] @ W[K, N] + bias[N]), then,
@@ -196,171 +204,6 @@ gemm_bias_wgmma_kernel(const __grid_constant__ CUtensorMap amap, const __grid_co
 }
 
 // ---------------------------------------------------------------------------
-// Attention core at head width D = 64, 128, 192 or 256 (a template
-// parameter). q is pre-scaled by scale*log2(e). q_bs == 0 shares one query
-// table across the batch (K2). mask: (B, Sk) f32 {0, 1} or null. o:
-// (B, Sq, H*D). Two paths, chosen by btia_attn_core:
-//  * Sq, Sk <= 128 where the block's tiles fit in the 232,448 bytes of
-//    shared memory a block may use: one block per (batch row, head) holding
-//    the whole score tile (attn_core_kernel, the serving shapes). At
-//    Sq = Sk = 128 that holds up to D = 128 (207,360 bytes); at D = 192 or
-//    256 it holds the short sites (the 32 x 32 text and 64 x 82 answer
-//    tiles), and 128 x 128 takes the tiled path;
-//  * anything else (the reference admits any Sq*Sk <= 32768, e.g. the
-//    197 x 32 and 32 x 197 BTIA sites of ViT-B/16 configs): one block per
-//    (64-row q tile, head, batch row) streaming 64-key tiles through an
-//    online softmax (attn_core_tiled_kernel, masked_flash.cuh).
-// ---------------------------------------------------------------------------
-
-constexpr int AT_THREADS = 128;
-constexpr int kWholeTileSeq = 128;   // largest Sq / Sk of the whole-tile path
-constexpr size_t kMaxSmem = 232448;  // dynamic shared memory one block may use
-
-struct CoreLayout {
-  int sqp, skp, lds, ldp;
-  size_t q_off, k_off, v_off, s_off, p_off, d_off, bytes;
-};
-
-__host__ __device__ inline size_t align128(size_t x) { return (x + 127) & ~static_cast<size_t>(127); }
-
-// D + 8: the bf16 row stride of the q/k/v tiles.
-template <int D>
-__host__ __device__ inline CoreLayout core_layout(int Sq, int Sk) {
-  constexpr int LDH = D + 8;
-  CoreLayout L;
-  L.sqp = (Sq + 15) / 16 * 16;
-  L.skp = (Sk + 15) / 16 * 16;
-  L.lds = (L.skp > D ? L.skp : D) + 4;  // f32 scores, then f32 PV output
-  L.ldp = L.skp + 8;                    // bf16 probabilities
-  size_t off = 0;
-  L.q_off = off; off = align128(off + sizeof(bf16) * L.sqp * LDH);
-  L.k_off = off; off = align128(off + sizeof(bf16) * L.skp * LDH);
-  L.v_off = off; off = align128(off + sizeof(bf16) * L.skp * LDH);
-  L.s_off = off; off = align128(off + sizeof(float) * L.sqp * L.lds);
-  L.p_off = off; off = align128(off + sizeof(bf16) * L.sqp * L.ldp);
-  L.d_off = off; off = align128(off + sizeof(float) * L.sqp);
-  L.bytes = off;
-  return L;
-}
-
-template <int D>
-__global__ void __launch_bounds__(AT_THREADS)
-attn_core_kernel(const bf16* __restrict__ q, long long q_bs, int q_rs, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, long long kv_bs, int kv_rs, const float* __restrict__ mask,
-                 bf16* __restrict__ o, int H, int Sq, int Sk) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  constexpr int LDH = D + 8;
-  const CoreLayout L = core_layout<D>(Sq, Sk);
-  bf16* qs = reinterpret_cast<bf16*>(smem + L.q_off);
-  bf16* ks = reinterpret_cast<bf16*>(smem + L.k_off);
-  bf16* vs = reinterpret_cast<bf16*>(smem + L.v_off);
-  float* ss = reinterpret_cast<float*>(smem + L.s_off);
-  bf16* ps = reinterpret_cast<bf16*>(smem + L.p_off);
-  float* den = reinterpret_cast<float*>(smem + L.d_off);
-
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int nwarps = AT_THREADS / 32;
-
-  load_head_rows<D>(qs, LDH, q + b * q_bs + h * D, q_rs, Sq, L.sqp, tid, AT_THREADS);
-  load_head_rows<D>(ks, LDH, k + b * kv_bs + h * D, kv_rs, Sk, L.skp, tid, AT_THREADS);
-  load_head_rows<D>(vs, LDH, v + b * kv_bs + h * D, kv_rs, Sk, L.skp, tid, AT_THREADS);
-  __syncthreads();
-
-  // S = q k^T (log2 domain), f32 in shared memory.
-  const int tq = L.sqp / 16, tk = L.skp / 16;
-  for (int t = warp; t < tq * tk; t += nwarps) {
-    const int ti = t / tk, tj = t % tk;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bt;
-      wmma::load_matrix_sync(a, qs + ti * 16 * LDH + kk, LDH);
-      wmma::load_matrix_sync(bt, ks + tj * 16 * LDH + kk, LDH);
-      wmma::mma_sync(acc, a, bt, acc);
-    }
-    wmma::store_matrix_sync(ss + ti * 16 * L.lds + tj * 16, acc, L.lds, wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  // Masked exp2 softmax numerators (bf16) and f32 denominators.
-  const float* mrow = mask != nullptr ? mask + static_cast<long long>(b) * Sk : nullptr;
-  for (int r = warp; r < L.sqp; r += nwarps) {
-    bf16* prow = ps + r * L.ldp;
-    if (r >= Sq) {
-      for (int j = lane; j < L.skp; j += 32) prow[j] = __float2bfloat16(0.f);
-      continue;
-    }
-    const float* srow = ss + r * L.lds;
-    float m = -INFINITY;
-    for (int j = lane; j < Sk; j += 32) {
-      float s = srow[j];
-      if (mrow != nullptr) s -= (1.f - mrow[j]) * 1e9f;
-      m = fmaxf(m, s);
-    }
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int j = lane; j < L.skp; j += 32) {
-      float e = 0.f;
-      if (j < Sk) {
-        float s = srow[j];
-        float cm = 1.f;
-        if (mrow != nullptr) {
-          cm = mrow[j];
-          s -= (1.f - cm) * 1e9f;
-        }
-        e = exp2f(s - m) * cm;
-      }
-      sum += e;
-      prow[j] = __float2bfloat16(e);
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) den[r] = fmaxf(sum, 1e-30f);
-  }
-  __syncthreads();
-
-  // O = P V, f32 into the (now free) score buffer.
-  for (int t = warp; t < tq * (D / 16); t += nwarps) {
-    const int ti = t / (D / 16), tj = t % (D / 16);
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-    for (int kk = 0; kk < L.skp; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-      wmma::load_matrix_sync(a, ps + ti * 16 * L.ldp + kk, L.ldp);
-      wmma::load_matrix_sync(bv, vs + kk * LDH + tj * 16, LDH);
-      wmma::mma_sync(acc, a, bv, acc);
-    }
-    wmma::store_matrix_sync(ss + ti * 16 * L.lds + tj * 16, acc, L.lds, wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  bf16* ob = o + (static_cast<long long>(b) * Sq * H + h) * D;
-  for (int idx = tid; idx < Sq * D; idx += AT_THREADS) {
-    const int r = idx / D, c = idx % D;
-    ob[static_cast<long long>(r) * H * D + c] = __float2bfloat16(ss[r * L.lds + c] / den[r]);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(MF_THREADS)
-attn_core_tiled_kernel(const bf16* __restrict__ q, long long q_bs, int q_rs, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, long long kv_bs, int kv_rs, const float* __restrict__ mask,
-                       bf16* __restrict__ o, int H, int Sq, int Sk) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  MaskedFlashSmem<D>& sm = *reinterpret_cast<MaskedFlashSmem<D>*>(smem_raw);
-  const int nqt = (Sq + MF_T - 1) / MF_T;
-  const int q0 = (blockIdx.x % nqt) * MF_T, b = blockIdx.x / nqt, h = blockIdx.y;
-  const long long o_rs = static_cast<long long>(H) * D;
-  masked_flash_tile<D>(sm, q + b * q_bs + static_cast<long long>(q0) * q_rs + h * D, q_rs, min(MF_T, Sq - q0), 1.f,
-                       k + b * kv_bs + h * D, v + b * kv_bs + h * D, kv_rs, Sk,
-                       mask != nullptr ? mask + static_cast<long long>(b) * Sk : nullptr,
-                       o + (static_cast<long long>(b) * Sq + q0) * o_rs + h * D, o_rs);
-}
-
-// ---------------------------------------------------------------------------
 // C interface (pointers as void*, the stream as PyTorch's cudaStream_t).
 // Each entry returns cudaGetLastError() after its launch.
 // ---------------------------------------------------------------------------
@@ -389,38 +232,37 @@ extern "C" int btia_gemm_bias(const void* A, const void* W, const void* bias, co
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-static int launch_attn_core(const void* q, long long q_bs, int q_rs, const void* k, const void* v, long long kv_bs,
-                            int kv_rs, const void* mask, void* o, int B, int H, int Sq, int Sk, cudaStream_t stream) {
-  const CoreLayout L = core_layout<D>(Sq, Sk);
-  if (Sq > kWholeTileSeq || Sk > kWholeTileSeq || L.bytes > kMaxSmem) {
-    const int bytes = static_cast<int>(sizeof(MaskedFlashSmem<D>));
-    cudaError_t err =
-        cudaFuncSetAttribute(attn_core_tiled_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid(B * ((Sq + MF_T - 1) / MF_T), H);
-    attn_core_tiled_kernel<D><<<grid, MF_THREADS, bytes, stream>>>(
-        static_cast<const bf16*>(q), q_bs, q_rs, static_cast<const bf16*>(k), static_cast<const bf16*>(v), kv_bs,
-        kv_rs, static_cast<const float*>(mask), static_cast<bf16*>(o), H, Sq, Sk);
-    return static_cast<int>(cudaGetLastError());
-  }
-  cudaError_t err = cudaFuncSetAttribute(attn_core_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(L.bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  attn_core_kernel<D><<<B * H, AT_THREADS, L.bytes, stream>>>(
-      static_cast<const bf16*>(q), q_bs, q_rs, static_cast<const bf16*>(k), static_cast<const bf16*>(v), kv_bs,
-      kv_rs, static_cast<const float*>(mask), static_cast<bf16*>(o), H, Sq, Sk);
-  return static_cast<int>(cudaGetLastError());
+// K1/K2's attention core: q (B, H, Sq, D), or with q_shared one
+// (1, H, Sq, D) query table that every batch row reads (K2); k / v
+// (B, H, Sk, D); o (B, H, Sq, D): bf16 views of the chain's buffers, their
+// (batch, head, row) strides in elements in `strides` (12 values: q, k, v,
+// o; each a nonzero multiple of 8); q already scaled by scale*log2(e).
+// mask: (B, Sk) {0, 1}, f32 (mask_bytes 4) or bool (1), or null. plan: 6
+// values, the key tile then pack, q_span, k_span, groups and q_tiles
+// (ops/attention.py:short_plan). D is 64, 128, 192 or 256. Returns 0, a
+// CUDA error code, or 1000 + the CUresult of encoding a tensor map.
+extern "C" int btia_attn_core(const void* q, const void* k, const void* v, const void* mask, int mask_bytes, void* o,
+                              const long long* strides, const int* plan, int B, int H, int Sq, int Sk, int D,
+                              int q_shared, void* stream) {
+  if (D % 64 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long* st = strides;
+  SfHostProblem p;
+  p.q = {q, st[0], st[1], st[2]};
+  p.k = {k, st[3], st[4], st[5]};
+  p.v = {v, st[6], st[7], st[8]};
+  p.o = {o, st[9], st[10], st[11]};
+  p.mask = mask;
+  p.mask_bytes = mask_bytes;
+  p.B = B, p.H = H, p.Sq = Sq, p.Sk = Sk;
+  p.plan = plan + 1;
+  p.q_shared = q_shared;
+  return sf_dispatch<true>(&p, 1, D, plan[0], 1.f, static_cast<cudaStream_t>(stream));
 }
 
-// D is 64, 128, 192 or 256.
-extern "C" int btia_attn_core(const void* q, long long q_bs, int q_rs, const void* k, const void* v,
-                              long long kv_bs, int kv_rs, const void* mask, void* o, int B, int H, int D, int Sq,
-                              int Sk, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch_attn_core<64>(q, q_bs, q_rs, k, v, kv_bs, kv_rs, mask, o, B, H, Sq, Sk, s);
-  if (D == 128) return launch_attn_core<128>(q, q_bs, q_rs, k, v, kv_bs, kv_rs, mask, o, B, H, Sq, Sk, s);
-  if (D == 192) return launch_attn_core<192>(q, q_bs, q_rs, k, v, kv_bs, kv_rs, mask, o, B, H, Sq, Sk, s);
-  if (D == 256) return launch_attn_core<256>(q, q_bs, q_rs, k, v, kv_bs, kv_rs, mask, o, B, H, Sq, Sk, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+// The hits and misses of the core's tensor-map cache (sf_encode) since the
+// library was loaded, into out[0] and out[1]. Returns 0.
+extern "C" int btia_attn_core_map_stats(long long* out) {
+  out[0] = sf_map_stats().hits;
+  out[1] = sf_map_stats().misses;
+  return 0;
 }

@@ -1,16 +1,20 @@
-// Short-sequence attention at a large batch on Hopper: the kernel of K4
-// (fanout.cu) and K6 (bicross.cu).
+// Short-sequence attention at a large batch on Hopper: the kernel of K1 and
+// K2's attention core (fused_attn.cu), K4 (fanout.cu) and K6 (bicross.cu).
 //
-// Replaces the bodies of btia_tpu/ops/attention.py:_fanout_kernel (K4) and
-// the kernel closure of btia_tpu/ops/bicross.py:_bicross_pallas (K6). Both
-// TPU kernels attend a few dozen to a few hundred keys per row at batches of
-// 64 to 2048 rows and 12 heads.
+// Replaces the attention of btia_tpu/ops/fused_attn.py:_fused_kernel (K1)
+// and _staticq_kernel (K2), the body of btia_tpu/ops/attention.py:
+// _fanout_kernel (K4) and the kernel closure of btia_tpu/ops/bicross.py:
+// _bicross_pallas (K6). All four TPU kernels attend a few dozen to a few
+// hundred keys per row at batches of 64 to 2048 rows and 12 heads.
 //
 // What bounds it on an H100: bytes. K4 at 64 x 197 <- 32 (D 64) moves 45 MB
 // of q/k/v/o (13.4 us at 3.35 TB/s) for under 1 us of tensor-core work; K6
-// at the pooled BTIA shape (2048 x 12 heads, 50 <-> 32) about 1 GB. What
-// such a kernel has to do is keep enough bytes in flight while it computes,
-// and spend few instructions per item. So:
+// at the pooled BTIA shape (2048 x 12 heads, 50 <-> 32) about 1 GB. K1/K2's
+// core at the serve step reads q and the [k|v] GEMM output and writes o:
+// 0.40 GB at a BERT site (0.120 ms), 0.52 GB at a BTIA site (0.154 ms) and,
+// for K2, 0.72 GB (0.214 ms) with its 64-row query table read once, not
+// once a batch row. What such a kernel has to do is keep enough bytes in
+// flight while it computes, and spend few instructions per item. So:
 //
 // * Work items, not a block per tile. An item is (problem, group of batch
 //   rows, head, 64-row q tile); K6's two directions are two problems of one
@@ -27,7 +31,11 @@
 //   mbarriers: two Q slots and two K/V stages. Item i + 1's loads run while
 //   the consumer warpgroup computes item i, and the other resident blocks
 //   of the SM fill the gaps. TMA zero-fills rows past S, batch rows past B
-//   and the columns [dw, DP) of a head narrower than its template.
+//   and the columns [dw, DP) of a head narrower than its template. K1/K2's
+//   operands are the projection GEMM's outputs as they lie (q rows of H*D,
+//   k and v side by side in rows of 2*H*D), read through their strides, so
+//   no head transpose or split of [k|v] is copied; a shared query table
+//   (K2, q_shared) is one batch row of Q that every item loads.
 // * Scores, probabilities and O in registers, as in K3 (flash_bshd.cu):
 //   S = Q K^T on wgmma m64nBNk16 from shared memory, the softmax with quad
 //   shuffles, O += P V with P as the register A operand and V an MN-major B.
@@ -45,19 +53,19 @@
 //   columns [0, dw) only.
 //
 // Two softmax semantics (template parameter ZERO):
-// * K4 (ZERO): a -1e9 bias on masked keys before the row max, exp2 times the
-//   {0, 1} key mask, the denominator floored at 1e-30, the division after
-//   PV; a fully masked row gives exactly 0 (attention.py:349-412).
+// * K1, K2 and K4 (ZERO): a -1e9 bias on masked keys before the row max,
+//   exp2 times the {0, 1} key mask, the denominator floored at 1e-30, the
+//   division after PV; a fully masked row gives exactly 0
+//   (attention.py:349-412, fused_attn.py:262-271).
 // * K6: a -1e9 bias on masked keys, keys past Sk excluded, the division
 //   after PV (_attn_block_log2, defer_div=True); a fully masked row
 //   averages V over the Sk real keys, as mha_reference and K5 do.
-// In both, q is multiplied by scale*log2(e) in f32 and rounded to bf16 in
-// shared memory. Keys past Sk and keys of another batch row of a packed
-// tile are -inf. A stale row of a stage (past pack * k_span) meets a
-// probability of exactly 0; the shared memory is zeroed once at the start.
-//
-// The zero-rows mode is written so that K1/K2's attention core can take it
-// (B >= 64, Sq * Sk <= 32768): nothing in it is specific to K4's layout.
+// In both, q is multiplied by qscale (scale*log2(e)) in f32 and rounded to
+// bf16 in shared memory; K1/K2 fold that factor into wq/bq and pass 1,
+// which skips the pass (bf16 x 1 rounds to itself). Keys past Sk and keys
+// of another batch row of a packed tile are -inf. A stale row of a stage
+// (past pack * k_span) meets a probability of exactly 0; the shared memory
+// is zeroed once at the start.
 
 #pragma once
 
@@ -99,6 +107,7 @@ struct SfLayout {
 struct SfProblem {
   const void* mask;  // (B, Sk) {0, 1}: f32 (mask_bytes 4) or bool (1); or null
   int mask_bytes;
+  int q_shared;  // Q is one (1, H, Sq, dw) table that every batch row reads
   bf16* o;
   long long ob, oh, os;
   int B, H, Sq, Sk;
@@ -218,7 +227,7 @@ short_flash_kernel(const __grid_constant__ SfParams P) {
         for (int j = 0; j < pr.pack; ++j)
           for (int cb = 0; cb < L::NB; ++cb)
             tma_load_4d(qd + cb * L::Q_BLK + j * pr.q_span * 128, &P.qm[w.p], &qfull[slot], cb * 64, w.q0, w.h,
-                        w.b0 + j);
+                        pr.q_shared ? 0 : w.b0 + j);
         const int nkt = pr.pack > 1 ? 1 : (pr.Sk + BN - 1) / BN;
         for (int kt = 0; kt < nkt; ++kt, ++c) {
           const int s = c % SF_STAGES;
@@ -254,21 +263,24 @@ short_flash_kernel(const __grid_constant__ SfParams P) {
     const uint32_t q_addr = smem_u32(sq);
 
     // Q into the log2 domain, rounded to bf16, in place (an elementwise map,
-    // so the swizzle does not matter), then handed to the async proxy.
+    // so the swizzle does not matter), then handed to the async proxy. K1/K2
+    // hand Q already scaled (qscale 1): the loaded tile is used as it lies.
     mbar_wait(&qfull[slot], (n / SF_STAGES) & 1);
+    if (P.qscale != 1.f) {
 #pragma unroll
-    for (int i = t; i < L::Q_BYTES / 16; i += 128) {
-      uint4 v = reinterpret_cast<uint4*>(sq)[i];
-      __nv_bfloat162* hv = reinterpret_cast<__nv_bfloat162*>(&v);
+      for (int i = t; i < L::Q_BYTES / 16; i += 128) {
+        uint4 v = reinterpret_cast<uint4*>(sq)[i];
+        __nv_bfloat162* hv = reinterpret_cast<__nv_bfloat162*>(&v);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(hv[e]);
-        hv[e] = __floats2bfloat162_rn(f.x * P.qscale, f.y * P.qscale);
+        for (int e = 0; e < 4; ++e) {
+          const float2 f = __bfloat1622float2(hv[e]);
+          hv[e] = __floats2bfloat162_rn(f.x * P.qscale, f.y * P.qscale);
+        }
+        reinterpret_cast<uint4*>(sq)[i] = v;
       }
-      reinterpret_cast<uint4*>(sq)[i] = v;
+      fence_proxy_async();
+      named_barrier(1, 128);
     }
-    fence_proxy_async();
-    named_barrier(1, 128);
 
     // The packed batch row of this thread's two rows (0 when not packed).
     const int jr0 = packed ? r0 / pr.q_span : 0, jr1 = packed ? (r0 + 8) / pr.q_span : 0;
@@ -449,7 +461,8 @@ short_flash_kernel(const __grid_constant__ SfParams P) {
 }
 
 // ---------------------------------------------------------------------------
-// Host side, shared by K4's entry (fanout.cu) and K6's (bicross.cu).
+// Host side, shared by K1/K2's entry (fused_attn.cu), K4's (fanout.cu) and
+// K6's (bicross.cu).
 // ---------------------------------------------------------------------------
 
 // A (B, H, S, D) bf16 operand: its base (16-byte aligned) and its batch,
@@ -460,31 +473,47 @@ struct SfOperand {
   long long b, h, s;
 };
 
-// One problem: q (B, H, Sq, dw), k / v (B, H, Sk, dw), o (B, H, Sq, dw),
-// mask (B, Sk) {0, 1} of mask_bytes 4 (f32) or 1 (bool), or null; plan: the
-// host planner's pack, q_span,
-// k_span, groups and q_tiles (ops/attention.py:short_plan).
+// One problem: q (B, H, Sq, dw), or with q_shared one (1, H, Sq, dw) table
+// that every batch row reads; k / v (B, H, Sk, dw), o (B, H, Sq, dw), mask
+// (B, Sk) {0, 1} of mask_bytes 4 (f32) or 1 (bool), or null; plan: the host
+// planner's pack, q_span, k_span, groups and q_tiles
+// (ops/attention.py:short_plan).
 struct SfHostProblem {
   SfOperand q, k, v, o;
   const void* mask;
   int mask_bytes;
   int B, H, Sq, Sk;
   const int* plan;
+  int q_shared;
 };
+
+// Hits and misses of one source file's tensor-map cache (sf_encode).
+struct SfMapStats {
+  long long hits, misses;
+};
+
+static inline SfMapStats& sf_map_stats() {
+  static SfMapStats stats{0, 0};
+  return stats;
+}
 
 // A 4-D tensor map over a (B, H, S, D) operand: dims {dw, S, H, B}, a box of
 // 64 columns by `rows`. Encoding one is a driver call of a few microseconds,
 // and a launch encodes three or six, as long as the kernel itself at a train
 // step's shapes; the same operands recur from call to call (the caching
-// allocator hands out the same addresses), so the last 64 maps are kept,
-// keyed by everything that determines them.
+// allocator hands out the same addresses), so the last SF_MAP_CACHE maps are
+// kept, keyed by everything that determines them. Each source file that
+// includes this header has its own cache: K1/K2's 21 launches a serve step
+// (three maps each) do not evict K4's or K6's.
+constexpr int SF_MAP_CACHE = 256;
+
 static inline int sf_encode(CUtensorMap* map, const SfOperand& t, int B, int H, int S, int dw, int rows) {
   struct Entry {
     CUtensorMap map;
     SfOperand t;
     int B, H, S, dw, rows;
   };
-  static Entry cache[64];
+  static Entry cache[SF_MAP_CACHE];
   static int filled = 0, next = 0;
   static std::mutex mu;
   std::lock_guard<std::mutex> lock(mu);
@@ -493,9 +522,11 @@ static inline int sf_encode(CUtensorMap* map, const SfOperand& t, int B, int H, 
     if (e.t.ptr == t.ptr && e.t.b == t.b && e.t.h == t.h && e.t.s == t.s && e.B == B && e.H == H && e.S == S &&
         e.dw == dw && e.rows == rows) {
       *map = e.map;
+      ++sf_map_stats().hits;
       return 0;
     }
   }
+  ++sf_map_stats().misses;
   const uint64_t dims[4] = {static_cast<uint64_t>(dw), static_cast<uint64_t>(S), static_cast<uint64_t>(H),
                             static_cast<uint64_t>(B)};
   const uint64_t strides[3] = {2ull * t.s, 2ull * t.h, 2ull * t.b};
@@ -503,8 +534,8 @@ static inline int sf_encode(CUtensorMap* map, const SfOperand& t, int B, int H, 
   const int err = encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, t.ptr, dims, strides, box);
   if (err == 0) {
     cache[next] = Entry{*map, t, B, H, S, dw, rows};
-    next = (next + 1) % 64;
-    if (filled < 64) ++filled;
+    next = (next + 1) % SF_MAP_CACHE;
+    if (filled < SF_MAP_CACHE) ++filled;
   }
   return err;
 }
@@ -548,13 +579,14 @@ static int sf_launch(const SfHostProblem* hp, int np, int dw, float qscale, cuda
     if (h.mask != nullptr && h.mask_bytes != 1 && h.mask_bytes != 4) return static_cast<int>(cudaErrorInvalidValue);
     pr.mask = h.mask;
     pr.mask_bytes = h.mask_bytes;
+    pr.q_shared = h.q_shared;
     pr.o = static_cast<bf16*>(const_cast<void*>(h.o.ptr));
     pr.ob = h.o.b, pr.oh = h.o.h, pr.os = h.o.s;
     pr.B = h.B, pr.H = h.H, pr.Sq = h.Sq, pr.Sk = h.Sk;
     pr.pack = h.plan[0], pr.q_span = h.plan[1], pr.k_span = h.plan[2], pr.groups = h.plan[3];
     pr.q_tiles = h.plan[4];
     pr.items = pr.groups * pr.H * pr.q_tiles;
-    int err = sf_encode(&P.qm[p], h.q, h.B, h.H, h.Sq, dw, pr.q_span);
+    int err = sf_encode(&P.qm[p], h.q, h.q_shared ? 1 : h.B, h.H, h.Sq, dw, pr.q_span);
     if (err == 0) err = sf_encode(&P.km[p], h.k, h.B, h.H, h.Sk, dw, pr.k_span);
     if (err == 0) err = sf_encode(&P.vm[p], h.v, h.B, h.H, h.Sk, dw, pr.k_span);
     if (err != 0) return err;

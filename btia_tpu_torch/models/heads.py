@@ -18,7 +18,7 @@ from torch import nn
 
 from btia_tpu_torch.core.dtypes import DTypePolicy
 from btia_tpu_torch.models.layers import Dense, Dropout, LayerNorm, LayerNormParams, Mlp, _param
-from btia_tpu_torch.ops.fused_attn import fused_static_q_attention
+from btia_tpu_torch.ops.fused_attn import fused_static_q_attention, prepare_once
 
 
 class ADHead(nn.Module):
@@ -46,8 +46,14 @@ class ADHead(nn.Module):
     def forward(self, tokens: torch.Tensor, token_mask: Optional[torch.Tensor],
                 drop: Optional[Dropout] = None, train: bool = False) -> torch.Tensor:
         cd, acc = self.policy.compute_dtype, self.policy.accum_dtype
+        q = self.answer_queries
+        # Where no gradient flows, the cast table is one tensor per version
+        # of the parameter, so K2's projected query table, prepared from it,
+        # is prepared once too (``prepare_once``).
+        queries = (q.to(cd) if torch.is_grad_enabled() and q.requires_grad
+                   else prepare_once((q,), ("cast", cd), lambda: (q.to(cd),))[0])
         feats = fused_static_q_attention(
-            self.answer_queries.to(cd), tokens.to(cd), token_mask,
+            queries, tokens.to(cd), token_mask,
             self.q_proj.kernel, self.q_proj.bias, self.k_proj.kernel, self.k_proj.bias,
             self.v_proj.kernel, self.v_proj.bias, self.o_proj.kernel, self.o_proj.bias,
             self.num_heads, kv_ln=self.ln_kv.triple(), residual=True,

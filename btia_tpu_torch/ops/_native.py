@@ -31,13 +31,14 @@ NVCC_FLAGS = (
 )
 LIB_NAME = "libbtia_kernels.so"
 
-_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LLP = ctypes.POINTER(ctypes.c_longlong)  # a host array of strides
 _IP = ctypes.POINTER(ctypes.c_int)  # a host array of plan values
 _SIGNATURES = {
     "btia_layernorm": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
     "btia_gemm_bias": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _P),
-    "btia_attn_core": (_P, _LL, _I, _P, _P, _LL, _I, _P, _P, _I, _I, _I, _I, _I, _P),
+    "btia_attn_core": (_P, _P, _P, _P, _I, _P, _LLP, _IP, _I, _I, _I, _I, _I, _I, _P),
+    "btia_attn_core_map_stats": (_LLP,),
     "btia_flash_bshd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
     "btia_fanout": (_P, _P, _P, _P, _P, _LLP, _IP, _I, _I, _I, _I, _I, _F, _P),
     "btia_mha_bhsd": (_P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _I, _F, _P),

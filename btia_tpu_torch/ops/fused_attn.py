@@ -13,9 +13,15 @@ in:
   batch-invariant (K, Din) query table projected once, a kv pre-LN and the
   raw query table as residual.
 
-Routing is by device: a CUDA tensor launches the hand-written kernel chain in
-``csrc/fused_attn.cu`` (counted in the entry's ``.launches``) or raises; a CPU
-tensor takes the plain PyTorch twin. The gate is the reference's
+Routing is by device: a CUDA tensor launches the hand-written kernel chain
+(counted in the entry's ``.launches``) or raises; a CPU tensor takes the plain
+PyTorch twin. The chain is K7's LN prologue, the projection GEMM of
+``csrc/fused_attn.cu``, the attention core on the short-sequence kernel of
+``csrc/short_flash.cuh`` (K4's, entry ``btia_attn_core``; the work items
+planned by ``attention.short_plan``), the output GEMM and K7's post-LN. The
+GEMMs' weights (the scaled q projection, ``[wk|wv]``, wo, the f32 biases and
+K2's projected query table) are prepared once per weight version
+(``prepare_once``), not once a call. The gate is the reference's
 (``_fuses``, ``fused_attn.py:1027-1035`` with one device): the switch on
 the kernels, a batch of at least ``FANOUT_MIN_BATCH`` (64), a shape the core
 admits (``core_admits``: Sq*Sk <= 32768 and D % 64 == 0), and q/kv input,
@@ -40,6 +46,8 @@ attention goes through K4. The key mask gets no gradient.
 from __future__ import annotations
 
 import contextlib
+import ctypes
+import weakref
 from typing import Optional, Tuple
 
 import torch
@@ -47,6 +55,7 @@ import torch
 from btia_tpu_torch.ops import _native
 from btia_tpu_torch.ops.attention import (
     FANOUT_MIN_BATCH, LOG2E, SMALL_SCORE_TILE, TILE_HEAD_WIDTHS, _resolved_impl, attend_log2, mha_bshd,
+    short_plan,
 )
 from btia_tpu_torch.ops.norms import _layernorm_cuda, _ln_exact, layernorm
 
@@ -81,8 +90,8 @@ def core_takes(head_dim: int) -> bool:
 def core_admits(sq: int, sk: int, head_dim: int) -> bool:
     """Whether a site's attention fits the fused kernels: the reference's
     shape gate (``btia_tpu/ops/fused_attn.py:1030-1031``). The core computes
-    every such shape at the widths it takes: score tiles whole in shared
-    memory where they fit, else tiled."""
+    every such shape at the widths it takes: rows of up to 64 queries a
+    tile, keys in tiles of 32 (or 64) through an online softmax."""
     return sq * sk <= SMALL_SCORE_TILE and head_dim % 64 == 0
 
 
@@ -134,6 +143,72 @@ def _fused_dense_plain(x_q, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
     return out
 
 
+_PREPARED: dict = {}
+
+
+def prepare_once(sources, tag, make):
+    """``make()``, a tuple of tensors computed from `sources` (tensors), once
+    per version of the sources: kept under their identity and `tag`, and
+    made again when any source is updated in place (an optimizer step,
+    ``load_state_dict``: ``_version`` moves) or gets other storage
+    (``data_ptr``). An entry goes when a source is freed. The tensors are
+    made outside autograd and inference mode, so the cached ones are
+    ordinary tensors wherever they are used. Sources that are inference
+    tensors keep no version counter and are prepared on every call.
+    ``prepare_once.builds`` counts the preparations."""
+    if any(t.is_inference() for t in sources):
+        return make()
+    key = (tag, *map(id, sources))
+    stamp = tuple((t._version, t.data_ptr()) for t in sources)
+    hit = _PREPARED.get(key)
+    if hit is not None and hit[1] == stamp and all(r() is t for r, t in zip(hit[0], sources)):
+        return tuple(sources[x] if isinstance(x, int) else x for x in hit[2])
+    # inference_mode(False) turns grad mode on: no_grad goes inside it.
+    with torch.inference_mode(False), torch.no_grad():
+        out = make()
+    prepare_once.builds += 1
+    # A result that is a source itself (a cast to the dtype it has) is kept
+    # by its index, so that the entry holds no source alive.
+    held = tuple(next((i for i, t in enumerate(sources) if o is t), o) for o in out)
+    drop = lambda _ref, key=key, cache=_PREPARED: cache.pop(key, None)
+    _PREPARED[key] = ([weakref.ref(t, drop) for t in sources], stamp, held)
+    return out
+
+
+prepare_once.builds = 0
+
+
+def prepared_bytes() -> int:
+    """Device and host bytes held by ``prepare_once``'s entries."""
+    return sum(t.numel() * t.element_size() for _, _, held in _PREPARED.values()
+               for t in held if isinstance(t, torch.Tensor))
+
+
+def _dense_weights(wq, bq, wk, bk, wv, bv, wo, bo, num_heads, cd):
+    """K1's GEMM operands (``prepare_once``): wq*c in cd and bq*c in f32
+    (c = scale*log2(e)), [wk|wv] in cd and [bk|bv] in f32, wo in cd and bo
+    in f32; each value the per-call formula's."""
+    def make():
+        c = (1.0 / (wq.shape[1] // num_heads) ** 0.5) * LOG2E
+        return ((wq.float() * c).to(cd).contiguous(), bq.float() * c,
+                torch.cat([wk, wv], dim=1).to(cd), torch.cat([bk, bv]).float(),
+                wo.to(cd).contiguous(), bo.float().contiguous())
+
+    return prepare_once((wq, bq, wk, bk, wv, bv, wo, bo), ("dense", num_heads, cd), make)
+
+
+def _static_q_weights(queries, wq, bq, wk, bk, wv, bv, wo, bo, num_heads, cd):
+    """K2's operands (``prepare_once``): the projected (K, HD) query table
+    (``_static_q_table``), [wk|wv] in cd and [bk|bv] in f32, wo in cd and bo
+    in f32, and the raw queries in cd (the residual)."""
+    def make():
+        return (_static_q_table(queries, wq, bq, num_heads, cd).contiguous(),
+                torch.cat([wk, wv], dim=1).to(cd), torch.cat([bk, bv]).float(),
+                wo.to(cd).contiguous(), bo.float().contiguous(), queries.to(cd).contiguous())
+
+    return prepare_once((queries, wq, bq, wk, bk, wv, bv, wo, bo), ("static_q", num_heads, cd), make)
+
+
 def _gemm_cuda(a2, w, b, resid=None, resid_rows=0):
     """bf16(a2 @ w + b) (+ resid rows, repeating every resid_rows), on the
     projection GEMM (``gemm_bias_wgmma_kernel``): TMA reads a2 (M, K) and w
@@ -161,26 +236,71 @@ def _gemm_cuda(a2, w, b, resid=None, resid_rows=0):
     return out
 
 
-def _core_cuda(q, q_bs, kv, B, Sq, Sk, HD, num_heads, colmask):
-    """Attention core over q rows (stride HD; q_bs elements between batch
-    rows, 0 for a shared table) and kv = [k | v] rows of width 2*HD."""
+def core_operands(Sq: int, Sk: int, HD: int, num_heads: int) -> dict:
+    """Where the attention core reads its (B, H, S, D) operands in the
+    chain's buffers: q in the (B*Sq, HD) GEMM output (or K2's (Sq, HD)
+    table), k and v in the (B*Sk, 2*HD) [k|v] GEMM output, o in a
+    (B*Sq, HD) buffer. Per operand, its element offset from its buffer's
+    base and its (batch, head, row) strides: v starts HD elements into each
+    [k|v] row. A shared table is read at batch coordinate 0 for every batch
+    row; its batch stride only has to be a nonzero multiple of 8."""
+    D = HD // num_heads
+    rows, kv = [Sq * HD, D, HD], [Sk * 2 * HD, D, 2 * HD]
+    return {"q": (0, rows), "k": (0, kv), "v": (HD, kv), "o": (0, rows)}
+
+
+def _core_launcher(q, kv, kv_mask, B, Sq, Sk, num_heads, q_shared=False):
+    """Check the core's operands and bind one launch of its C entry
+    (``btia_attn_core``, the short-sequence kernel in its zero-rows mode):
+    q (B*Sq, HD) rows already in the log2 domain, or with q_shared K2's
+    (Sq, HD) table for every batch row; kv (B*Sk, 2*HD) = [k | v] rows;
+    kv_mask (B, Sk), bool (read as bytes) or {0, 1} f32, or None. Returns
+    (launch, out): each launch() writes the (B*Sq, HD) result into out and
+    returns the entry's code."""
+    HD = q.shape[1]
     D = HD // num_heads
     if HD != num_heads * D or not (core_takes(D) and core_admits(Sq, Sk, D)):
         raise ValueError(
             f"attention core takes head widths {TILE_HEAD_WIDTHS} and Sq*Sk <= {SMALL_SCORE_TILE}, "
             f"got D = {HD / num_heads:g}, Sq = {Sq}, Sk = {Sk}"
         )
+    _native.require(q, "attention core q")
+    _native.require(kv, "attention core [k|v]")
+    if q.shape[0] != (Sq if q_shared else B * Sq) or kv.shape != (B * Sk, 2 * HD):
+        raise ValueError(f"attention core: q {tuple(q.shape)} and [k|v] {tuple(kv.shape)} do not fit "
+                         f"B = {B}, Sq = {Sq}, Sk = {Sk}, HD = {HD}")
+    # TMA reads each operand from a 16-byte aligned base: v, HD elements into
+    # the [k|v] rows, is aligned only for HD % 8 == 0.
+    if HD % 8 or q.data_ptr() % 16 or kv.data_ptr() % 16:
+        raise ValueError(f"attention core: q and [k|v] must be 16-byte aligned with HD % 8 == 0, got HD = {HD}")
+    if kv_mask is None:
+        mask, mask_bytes = None, 4
+    elif kv_mask.dtype == torch.bool:
+        mask, mask_bytes = kv_mask.contiguous(), 1
+    else:
+        mask, mask_bytes = kv_mask.to(torch.float32).contiguous(), 4
+    if mask is not None and mask.shape != (B, Sk):
+        raise ValueError(f"attention core: key mask {tuple(mask.shape)}, expected {(B, Sk)}")
     out = torch.empty((B * Sq, HD), dtype=q.dtype, device=q.device)
-    mask = None if colmask is None else colmask.to(torch.float32).contiguous()
-    _native.check(
-        _native.lib().btia_attn_core(
-            q.data_ptr(), q_bs, HD,
-            kv.data_ptr(), kv.data_ptr() + HD * kv.element_size(), Sk * 2 * HD, 2 * HD,
-            None if mask is None else mask.data_ptr(), out.data_ptr(),
-            B, num_heads, D, Sq, Sk, _native.stream(q),
-        ),
-        "btia_attn_core",
-    )
+    ops = core_operands(Sq, Sk, HD, num_heads)
+    strides = (ctypes.c_longlong * 12)(*(s for name in "qkvo" for s in ops[name][1]))
+    plan = short_plan([(B, num_heads, Sq, Sk)], D)
+    plan_c = (ctypes.c_int * len(plan))(*plan)
+    v_off = ops["v"][0] * kv.element_size()
+    lib, stream = _native.lib(), _native.stream(q)
+
+    def launch():  # holds q, kv and mask alive while it can be called
+        return lib.btia_attn_core(q.data_ptr(), kv.data_ptr(), kv.data_ptr() + v_off,
+                                  None if mask is None else mask.data_ptr(), mask_bytes, out.data_ptr(),
+                                  strides, plan_c, B, num_heads, Sq, Sk, D, int(q_shared), stream)
+
+    return launch, out
+
+
+def _core_cuda(q, kv, kv_mask, B, Sq, Sk, num_heads, q_shared=False):
+    """The attention core of K1/K2 on the card (``_core_launcher``)."""
+    launch, out = _core_launcher(q, kv, kv_mask, B, Sq, Sk, num_heads, q_shared)
+    _native.check(launch(), "btia_attn_core")
     return out
 
 
@@ -190,23 +310,22 @@ def _fused_dense_cuda(x_q, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
     out-projection GEMM with the residual -> post-LN, all hand-written."""
     B, Sq, Din = x_q.shape
     Sk = x_kv.shape[1]
-    HD = wq.shape[1]
     cd = x_q.dtype
     # Serving replicates one image's tokens over its questions as a view
     # with a zero stride; the kernels read packed rows.
     x_q, x_kv = x_q.contiguous(), x_kv.contiguous()
     _native.require(x_q, "fused_dense_attention x_q")
     _native.require(x_kv, "fused_dense_attention x_kv")
-    c = (1.0 / (HD // num_heads) ** 0.5) * LOG2E
+    wq_c, bq_c, wkv, bkv, wo_c, bo_c = _dense_weights(wq, bq, wk, bk, wv, bv, wo, bo, num_heads, cd)
     xq2 = x_q.view(B * Sq, Din)
     xkv2 = x_kv.view(B * Sk, x_kv.shape[2])
     # The LN prologue and post-LN are K7's kernel, launched as part of K1.
     xq_in = _layernorm_cuda(xq2, *q_ln) if q_ln else xq2
     xkv_in = _layernorm_cuda(xkv2, *kv_ln) if kv_ln else xkv2
-    q = _gemm_cuda(xq_in, (wq.float() * c).to(cd), bq.float() * c)
-    kv = _gemm_cuda(xkv_in, torch.cat([wk, wv], dim=1), torch.cat([bk, bv]))
-    attn = _core_cuda(q, Sq * HD, kv, B, Sq, Sk, HD, num_heads, kv_mask)
-    out = _gemm_cuda(attn, wo, bo, resid=xq2 if residual else None, resid_rows=B * Sq)
+    q = _gemm_cuda(xq_in, wq_c, bq_c)
+    kv = _gemm_cuda(xkv_in, wkv, bkv)
+    attn = _core_cuda(q, kv, kv_mask, B, Sq, Sk, num_heads)
+    out = _gemm_cuda(attn, wo_c, bo_c, resid=xq2 if residual else None, resid_rows=B * Sq)
     if post_ln:
         _layernorm_cuda(out, *post_ln, out=out)
     return out.view(B, Sq, wo.shape[1])
@@ -359,17 +478,16 @@ def _static_q_cuda(queries, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
     shared query table -> out-projection GEMM with the query residual."""
     B, Sk, Din = x_kv.shape
     K = queries.shape[0]
-    HD = wq.shape[1]
     cd = x_kv.dtype
     x_kv = x_kv.contiguous()
     _native.require(x_kv, "fused_static_q_attention x_kv")
-    q2 = _static_q_table(queries, wq, bq, num_heads, cd).contiguous()
+    q2, wkv, bkv, wo_c, bo_c, qraw = _static_q_weights(queries, wq, bq, wk, bk, wv, bv, wo, bo, num_heads, cd)
     xkv2 = x_kv.view(B * Sk, Din)
     xkv_in = _layernorm_cuda(xkv2, *kv_ln) if kv_ln else xkv2
-    kv = _gemm_cuda(xkv_in, torch.cat([wk, wv], dim=1), torch.cat([bk, bv]))
-    attn = _core_cuda(q2, 0, kv, B, K, Sk, HD, num_heads, kv_mask)
-    qraw = queries.to(cd).contiguous() if residual else None
-    out = _gemm_cuda(attn, wo, bo, resid=qraw, resid_rows=K)
+    kv = _gemm_cuda(xkv_in, wkv, bkv)
+    # One query table for every batch row: never expanded over the batch.
+    attn = _core_cuda(q2, kv, kv_mask, B, K, Sk, num_heads, q_shared=True)
+    out = _gemm_cuda(attn, wo_c, bo_c, resid=qraw if residual else None, resid_rows=K)
     return out.view(B, K, wo.shape[1])
 
 

@@ -19,6 +19,12 @@ Phases, each fatal on failure:
    192 and 256 (6, 4 and 3 heads of a 768-wide model); then the backward
    pass of each autograd
    Function (K1-K4) against autograd through its twin; then K1/K2's
+   attention core alone through its C entry (``btia_attn_core``, the
+   short-sequence kernel of ``csrc/short_flash.cuh``) at every K1/K2 serve
+   and train site shape and at head widths 128, 192 and 256 (K2 with its
+   one shared query table), against ``attend_log2`` within max|ref|/32, the
+   all-PAD row exactly 0, timed beside the twin, SDPA and the bytes bound;
+   then K1/K2's
    projection GEMM (``gemm_bias_wgmma_kernel``) alone at each serve shape
    (q, kv and out with the residual of the text and BTIA-image rows, K2's
    kv and its out with the query residual repeating every 64 rows) and
@@ -55,8 +61,10 @@ Phases, each fatal on failure:
    and agree with the same model run on the CPU;
 4. run the bench-shaped serve step (encode_image -> answer_questions ->
    top-k) with every launch counter set to 0 just before one step and read
-   just after: K1 = 20, K2 = 1, K3 = 24, the others 0 launches; then time
-   a few steps; the same step under ``set_attention_impl("xla")`` (every
+   just after: K1 = 20, K2 = 1, K3 = 24, the others 0 launches; a second
+   step prepares none of K1/K2's weights again (``prepare_once``); then
+   time a few steps, counting the core's tensor-map cache hits; the same
+   step under ``set_attention_impl("xla")`` (every
    counter 0) and under ``disable_fused()`` (K3 = 24, K4 = 21, the others
    0), each timed, its logits within a tenth of the largest logit of the
    default step's; then the step's 74 standalone LayerNorms (the plain
@@ -114,6 +122,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import ctypes
 import json
 import subprocess
 import sys
@@ -190,6 +199,26 @@ GEMM_TRAIN_SITES = (
     ("train_image_q", B_TRAIN * N_VIT_B, 768, 768, 0, 4),
     ("train_image_kv", B_TRAIN * N_VIT_B, 768, 1536, 0, 4),
     ("train_image_out", B_TRAIN * N_VIT_B, 768, 768, 0, 4),
+)
+# K1/K2's attention core alone, through its C entry (the short-sequence
+# kernel, csrc/short_flash.cuh), at each site shape of the serve and train
+# steps and at the wide heads of phases 2 and 5b: (name, B, Sq, Sk, heads of
+# a 768-wide model, key mask, K2's shared query table, launches per serve
+# step, per train step). Serve: 12 BERT sites 32 <- 32, 4 BTIA img <- txt
+# 50 <- 32 and 4 txt <- img 32 <- 50 (no mask), K2's 64 answer queries over
+# 82 tokens; train: 12 BERT 32 <- 32, 4 + 4 BTIA 197 <- 32 and 32 <- 197.
+BQ = B_IMG * N_Q
+CORE_SITES = (
+    ("serve_bert", BQ, SEQ, SEQ, 12, True, False, 12, 0),
+    ("serve_i2t", BQ, N_IMG_TOK, SEQ, 12, True, False, 4, 0),
+    ("serve_t2i", BQ, SEQ, N_IMG_TOK, 12, False, False, 4, 0),
+    ("serve_k2", BQ, 64, N_IMG_TOK + SEQ, 12, True, True, 1, 0),
+    *((f"serve_k2_d{768 // h}", BQ, 64, N_IMG_TOK + SEQ, h, True, True, 0, 0) for h in WIDE_HEADS),
+    ("train_bert", B_TRAIN, SEQ, SEQ, 12, True, False, 0, 12),
+    ("train_i2t", B_TRAIN, N_VIT_B, SEQ, 12, True, False, 0, 4),
+    ("train_t2i", B_TRAIN, SEQ, N_VIT_B, 12, False, False, 0, 4),
+    *((f"train_{site}_d{768 // h}", B_TRAIN, sq, SEQ, h, True, False, 0, 0)
+      for h in WIDE_HEADS for site, sq in (("bert", SEQ), ("i2t", N_VIT_B))),
 )
 # K5 at every padded-width template (64, 128, 192, 256), at widths that are
 # not multiples of 64, and at D = 100, which takes the wrapper's padded copy.
@@ -312,7 +341,6 @@ def check_kernels(torch, dev):
     g = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
     D, H, HDv = 768, 12, 1024
-    BQ = B_IMG * N_Q
 
     def randn(*shape, std=1.0, dtype=bf):
         return (torch.randn(*shape, generator=g, device=dev) * std).to(dtype)
@@ -670,6 +698,83 @@ def check_gemm(torch, dev):
         per_step[path]["launches"] = sum(x["launches_per_step"] for x in got)
         log(f"  GEMM per {path.replace('_', ' ')} ({per_step[path]['launches']} launches): kernel "
             f"{per_step[path]['ms']:.3f} ms, addmm {per_step[path]['library_ms']:.3f} ms, "
+            f"bound {per_step[path]['bound_ms']:.3f} ms")
+    return rows, per_step
+
+
+def check_core(torch, dev):
+    """Phase 2, K1/K2's attention core alone (CORE_SITES): the C entry of the
+    short-sequence kernel bound by ``_core_launcher`` on the operands the
+    chain hands it (q rows in the log2 domain, or K2's one query table; the
+    [k|v] GEMM output; the bool key mask, its last row all PAD), held
+    against ``attend_log2`` within max|ref|/32 (the twins' tolerance), the
+    all-PAD row exactly 0, and timed (CUDA events) beside the plain twin,
+    SDPA on the same buffers' head views (the yardstick only) and the bytes
+    bound. Direct C calls: no launch counter moves."""
+    import torch.nn.functional as F
+
+    from btia_tpu_torch.ops import attention as A
+    from btia_tpu_torch.ops import fused_attn as FA
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    bf, HD = torch.bfloat16, 768
+    rows = {}
+    for name, B, sq, sk, heads, masked, shared, per_serve, per_train in CORE_SITES:
+        D = HD // heads
+        # Scores of a few units in the log2 domain, as the folded projection gives.
+        q = (torch.randn(sq if shared else B * sq, HD, generator=g, device=dev) * D**-0.25).to(bf)
+        kv = (torch.randn(B * sk, 2 * HD, generator=g, device=dev) * D**-0.25).to(bf)
+        mask = None
+        if masked:
+            mask = _question_mask(torch, dev, g, B, min(sk, SEQ))
+            if sk > SEQ:  # K2's image tokens, then the question
+                mask = torch.cat([torch.ones(B, sk - SEQ, dtype=torch.bool, device=dev), mask], 1)
+                mask[-1] = False
+        launch, out = FA._core_launcher(q, kv, mask, B, sq, sk, heads, q_shared=shared)
+        code = launch()
+        torch.cuda.synchronize()
+        if code != 0:
+            raise AssertionError(f"core {name}: btia_attn_core returned CUDA error {code}")
+        q3 = q[None].expand(B, sq, HD) if shared else q.view(B, sq, HD)
+        k3, v3 = kv[:, :HD].reshape(B, sk, HD), kv[:, HD:].reshape(B, sk, HD)
+        cm = mask.float() if masked else torch.ones(B, sk, device=dev)
+        plain = lambda: A.attend_log2(q3, k3, v3, cm, heads)
+        ref = plain().float()
+        got = out.view(B, sq, HD).float()
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"core {name}: output is not finite")
+        err, tol = (got - ref).abs().max().item(), ref.abs().max().item() / 32
+        if not err <= tol:
+            raise AssertionError(f"core {name}: kernel disagrees with attend_log2: {err} > {tol}")
+        if masked and bool(got[-1].any()):
+            raise AssertionError(f"core {name}: the all-PAD row is not 0")
+        split = lambda t, S: t.view(-1, S, heads, D).transpose(1, 2)
+        qs = split(q, sq).expand(B, heads, sq, D) if shared else split(q, sq)
+        keep = mask[:, None, None, :] if masked else None
+        sdpa = lambda: F.scaled_dot_product_attention(qs, split(kv[:, :HD], sk), split(kv[:, HD:], sk),
+                                                      attn_mask=keep)
+        row = {
+            "shape": [B, sq, sk, heads, D], "shared_query_table": shared, "masked": masked,
+            "plan": A.short_plan([(B, heads, sq, sk)], D),
+            "launches_per_serve_step": per_serve, "launches_per_train_step": per_train,
+            "max_abs_err": err, "tol": tol,
+            "ms": cuda_time_ms(launch, 20), "plain_ms": cuda_time_ms(plain, 3),
+            "library_ms": cuda_time_ms(sdpa, 20), "library": "F.scaled_dot_product_attention",
+        }
+        row["bound_ms"], row["bound_by"] = bound_ms(4 * B * heads * sq * sk * D, nbytes(q, kv, mask, out))
+        log(f"  core {name} ({B} x {sq} <- {sk}, {heads} heads of {D}{', one query table' if shared else ''}): "
+            f"err {err:.4g} (tol {tol:.4g}) C entry {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+            f"SDPA {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        rows[name] = row
+        del q, kv, mask, out, ref, got, launch
+    torch.cuda.empty_cache()
+    per_step = {}
+    for path, key in (("serve_step", "launches_per_serve_step"), ("train_step", "launches_per_train_step")):
+        got = [r for r in rows.values() if r[key]]
+        per_step[path] = {k: sum(r[k] * r[key] for r in got) for k in ("ms", "library_ms", "bound_ms")}
+        per_step[path]["launches"] = sum(r[key] for r in got)
+        log(f"  core per {path.replace('_', ' ')} ({per_step[path]['launches']} launches): C entry "
+            f"{per_step[path]['ms']:.3f} ms, SDPA {per_step[path]['library_ms']:.3f} ms, "
             f"bound {per_step[path]['bound_ms']:.3f} ms")
     return rows, per_step
 
@@ -1096,8 +1201,7 @@ def routing_switches_phase(torch, dev, smi, model, host_imgs, host_qids, serve_s
     return res
 
 
-_PORTED = ("gemm_bias_wgmma_kernel", "attn_core_kernel", "attn_core_tiled_kernel", "ln_warp_kernel",
-           "ln_block_kernel", "flash_attn_kernel", "short_flash_kernel",
+_PORTED = ("gemm_bias_wgmma_kernel", "ln_warp_kernel", "ln_block_kernel", "flash_attn_kernel", "short_flash_kernel",
            "quant_rows_kernel", "quant_rows_loop_kernel", "int8_gemm_kernel")
 
 
@@ -1686,6 +1790,7 @@ def main() -> int:
     from btia_tpu_torch.infer.predict import Predictor
     from btia_tpu_torch.models.model import build_model
     from btia_tpu_torch.ops import _native
+    from btia_tpu_torch.ops import fused_attn as FA
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -1700,6 +1805,7 @@ def main() -> int:
     # Phase 2: kernels against their plain twins.
     log("phase 2: kernels vs plain twins (bf16, serving-step shapes)")
     rows = check_kernels(torch, dev)
+    core_rows, core_step = check_core(torch, dev)
     gemm_rows, gemm_step = check_gemm(torch, dev)
     int8_rows = check_int8_kernel(torch, dev)
     counters = launch_counters()
@@ -1772,14 +1878,24 @@ def main() -> int:
     if vals.shape != (B_IMG, N_Q, 5) or not np.isfinite(vals).all():
         raise AssertionError("serve step: bad top-k")
     main_counts = counts
+    # K1/K2's weights were prepared in the first step; an unchanged model
+    # prepares nothing again.
+    builds = FA.prepare_once.builds
     serve_step(1)
     torch.cuda.synchronize()
+    if FA.prepare_once.builds != builds:
+        raise AssertionError(f"a second serve step prepared {FA.prepare_once.builds - builds} weight sets again")
+    map_stats = (ctypes.c_longlong * 2)()
+    _native.lib().btia_attn_core_map_stats(map_stats)
+    maps_before = list(map_stats)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for i in range(TIMED_STEPS):
         serve_step(i)
     torch.cuda.synchronize()
     step_ms = 1e3 * (time.perf_counter() - t0) / TIMED_STEPS
+    _native.lib().btia_attn_core_map_stats(map_stats)
+    core_maps = {"hits": map_stats[0] - maps_before[0], "misses": map_stats[1] - maps_before[1]}
     if "--profile" in sys.argv[1:]:
         profile_step(torch, lambda: serve_step(0), smi)
     kernel_ms = (12 * rows["bert"]["ms"] + 4 * rows["btia_i2t"]["ms"]
@@ -1791,6 +1907,9 @@ def main() -> int:
             "pairs_per_s": B_IMG * N_Q / (step_ms / 1e3),
             "ported_kernels_ms_per_step": kernel_ms,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "prepared_weight_sets": len(FA._PREPARED), "prepared_weights_mb": FA.prepared_bytes() / 1e6,
+            "weight_sets_prepared_in_timed_steps": FA.prepare_once.builds - builds,
+            "core_tensor_maps_in_timed_steps": core_maps,
             "card": smi,
         }
     }))
@@ -1849,8 +1968,15 @@ def main() -> int:
             e["sites"] = {s: rows[s] for s in sites}
         kernels.append(e)
     kernels[6]["serve_step_layernorms"] = ln_census
-    # K1/K2's projection GEMM, alone at the serve shapes (both launch it).
+    # K1/K2's projection GEMM, alone at the serve shapes (both launch it),
+    # and their attention core alone on the short-sequence kernel.
     kernels[0]["projection_gemm"] = {"sites": gemm_rows, "per_step": gemm_step}
+    for i, prefix in ((0, ("serve_bert", "serve_i2t", "serve_t2i", "train_")), (1, ("serve_k2",))):
+        kernels[i]["attention_core"] = {
+            "kernel_source": "btia_tpu_torch/csrc/short_flash.cuh", "entry": "btia_tpu_torch/csrc/fused_attn.cu",
+            "sites": {n: r for n, r in core_rows.items() if n.startswith(prefix)},
+        }
+    kernels[0]["attention_core"]["per_step"] = core_step
     kernels[4]["kernel_source"] = "btia_tpu_torch/csrc/flash_bshd.cu"  # K5's entry runs K3's kernel
     for i in (3, 5):  # K4's and K6's entries run the short-sequence kernel
         kernels[i]["kernel_source"] = "btia_tpu_torch/csrc/short_flash.cuh"
@@ -1872,6 +1998,7 @@ def main() -> int:
         "wide_heads": {hw: [r["eval_card_vs_cpu_max_abs_err"], r["eval_max_logit"]] for hw, r in wide.items()},
         "pathvqa_vit": [pathvqa["eval_card_vs_cpu_max_abs_err"], pathvqa["eval_max_logit"]],
         "gemm_ms_per_step": gemm_step,
+        "core_ms_per_step": core_step,
         "serve_ms_by_switch": {w: v["ms_per_step"] for w, v in switches.items()},
         "serve_layernorms": [ln_census["standalone_layernorms"], ln_census["k7_ms_per_step"],
                              ln_census["plain_ms_per_step"]],

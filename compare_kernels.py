@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's K3, K4, K5, K6 and K1/K2 projection GEMM against another
-checkout's on one card, in turns.
+"""Time the port's K3, K4, K5, K6 and K1/K2's attention core and projection
+GEMM against another checkout's on one card, in turns.
 
     git archive <commit> btia_tpu_torch | tar -x -C runs/parent
     python3 compare_kernels.py runs/parent
@@ -12,9 +12,13 @@ tree, parent, and prints both pairs of times (CUDA events, ms a call) with
 the largest difference between the two outputs. K3's shapes are also timed
 through K5's entry with K3's packed strides: the 4-D (B, H, S, D) tensor-map
 path over the same bytes. K4 runs at the six training shapes and the four
-serve shapes of ``chip_smoke.py``'s phase 2, K6 at phase 2b's two; where the
-other checkout's K4 / K6 entry has the earlier C signature (no strides or
-plan), it is called that way. Inputs are random from a seed; the card's name
+serve shapes of ``chip_smoke.py``'s phase 2, K6 at phase 2b's two, K1/K2's
+attention core (``btia_attn_core``) at the four serve site shapes (K2's with
+one shared query table) and the train site shapes (BTIA img <- txt also at
+D 128, 192 and 256); where the other checkout's K4 / K6 / core entry has an
+earlier C signature (no strides or plan; the core's: the wmma kernel's
+row strides and an f32 key mask, given the same mask as 0 / 1), it is
+called that way. Inputs are random from a seed; the card's name
 and power limit are printed first. Needs one CUDA card and ``nvcc``.
 """
 
@@ -43,6 +47,13 @@ K4_SHAPES = ((64, 32, 32, 12, True), (64, 197, 32, 12, True), (64, 32, 197, 12, 
              (2048, 64, 82, 12, True))
 # K6: (B, H, Ni, Nt, D, bicross_bshd's transposed views): pooled, long tile.
 K6_SHAPES = ((2048, 12, 50, 32, 64, False), (16, 12, 577, 64, 64, True))
+# K1/K2's attention core: (B, Sq, Sk, heads of a 768-wide model, key mask,
+# K2's shared query table): the serve sites (BERT, BTIA both ways, K2), the
+# train sites, and img <- txt at D 128 / 192 / 256.
+CORE_SHAPES = ((2048, 32, 32, 12, True, False), (2048, 50, 32, 12, True, False), (2048, 32, 50, 12, False, False),
+               (2048, 64, 82, 12, True, True), (64, 32, 32, 12, True, False), (64, 197, 32, 12, True, False),
+               (64, 32, 197, 12, False, False), (64, 197, 32, 6, True, False), (64, 197, 32, 4, True, False),
+               (64, 197, 32, 3, True, False))
 # The projection GEMM: (name, M, K, N, rows its residual repeats over).
 GEMM_SHAPES = (("text_q", 65536, 768, 768, 0), ("text_kv", 65536, 768, 1536, 0),
                ("text_out", 65536, 768, 768, 65536), ("image_q", 102400, 768, 768, 0),
@@ -193,6 +204,32 @@ def main() -> int:
 
         turns(f"K6 {B} x {H} heads, {Ni} <-> {Nt}, D {D}{', transposed views' if views else ''}", k6)
         del xs
+
+    from btia_tpu_torch.ops.fused_attn import core_operands
+
+    for B, Sq, Sk, H, masked, shared in CORE_SHAPES:
+        HD, D = 768, 768 // H
+        q = (torch.randn(Sq if shared else B * Sq, HD, generator=g, device=dev) * D**-0.25).to(bf)
+        kv = (torch.randn(B * Sk, 2 * HD, generator=g, device=dev) * D**-0.25).to(bf)
+        m = torch.rand(B, Sk, generator=g, device=dev) > 0.2 if masked else None
+        mf = None if m is None else m.float()  # the wmma core's f32 mask
+        plan = short_plan([(B, H, Sq, Sk)], D)
+
+        def core(lib, q=q, kv=kv, m=m, mf=mf, B=B, Sq=Sq, Sk=Sk, H=H, D=D, HD=HD, shared=shared, plan=plan):
+            o = torch.empty(B * Sq, HD, dtype=bf, device=dev)
+            v_ptr = kv.data_ptr() + 2 * HD
+            if lib.btia_attn_core.argtypes[1] is ctypes.c_longlong:  # the wmma core's C signature
+                return (lambda: lib.btia_attn_core(q.data_ptr(), 0 if shared else Sq * HD, HD, kv.data_ptr(), v_ptr,
+                                                   Sk * 2 * HD, 2 * HD, None if mf is None else mf.data_ptr(),
+                                                   o.data_ptr(), B, H, D, Sq, Sk, stream)), o
+            ops = core_operands(Sq, Sk, HD, H)
+            st = (ctypes.c_longlong * 12)(*(s for n in "qkvo" for s in ops[n][1]))
+            pl = (ctypes.c_int * len(plan))(*plan)
+            return (lambda: lib.btia_attn_core(q.data_ptr(), kv.data_ptr(), v_ptr, None if m is None else m.data_ptr(),
+                                               1, o.data_ptr(), st, pl, B, H, Sq, Sk, D, int(shared), stream)), o
+
+        turns(f"K1/K2 core {B} x {Sq} <- {Sk}, {H} heads of {D}{', one query table' if shared else ''}", core)
+        del q, kv, m, mf
 
     for name, M, K, N, rr in GEMM_SHAPES:
         a = torch.randn(M, K, generator=g, device=dev).to(bf)

@@ -347,5 +347,5 @@ def test_cuda_wrappers_raise_through_the_predicates(Dh):
     with pytest.raises(ValueError, match="K4 kernel takes head widths " + widths):
         A._fanout_cuda(x, x, x, torch.ones(1, 4), H)
     with pytest.raises(ValueError, match="attention core takes head widths " + widths):
-        FA._core_cuda(x.view(4, H * Dh), 0, torch.zeros(4, 2 * H * Dh), 1, 4, 4, H * Dh, H, None)
+        FA._core_cuda(x.view(4, H * Dh), torch.zeros(4, 2 * H * Dh), None, 1, 4, 4, H)
     assert not (A.k3_takes(Dh) or A.k4_takes(Dh) or FA.core_takes(Dh))
