@@ -1,4 +1,5 @@
-"""Attention-driven (AD) answer head (port of ``btia_tpu/models/heads.py``).
+"""Answer heads (port of ``btia_tpu/models/heads.py``): the attention-driven
+(AD) head and the pool-and-MLP head (``SimpleClassifier``).
 
 Learned answer queries attend over the fused image+question tokens through
 K2 (``fused_static_q_attention``) with the kv LayerNorm and the query
@@ -11,13 +12,17 @@ an answer table).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from btia_tpu_torch.core.dtypes import DTypePolicy
-from btia_tpu_torch.models.layers import Dense, Dropout, LayerNorm, LayerNormParams, Mlp, _param
+from btia_tpu_torch.models.layers import (
+    Dense, Dropout, LayerNorm, LayerNormParams, Mlp, _param, masked_mean, maybe_drop,
+)
 from btia_tpu_torch.ops.fused_attn import fused_static_q_attention, prepare_once
 
 
@@ -66,3 +71,24 @@ class ADHead(nn.Module):
             pooled = feats.mean(dim=1)
             logits = pooled.to(acc) @ self.answer_table.to(acc).T
         return (logits + self.answer_bias).float()
+
+
+class SimpleClassifier(nn.Module):
+    """The mlp head (``heads.py:128-162``): the mean of the image tokens and
+    the masked mean of the text tokens, concatenated -> fc1 (2 * dim wide,
+    compute dtype) -> exact (erf) GELU -> dropout -> fc_out in the accum
+    dtype -> f32 logits."""
+
+    def __init__(self, dim: int, vocab_size: int, hidden_mult: float = 2.0,
+                 policy: DTypePolicy = DTypePolicy(), device=None):
+        super().__init__()
+        hidden = int(dim * hidden_mult)
+        self.fc1 = Dense(2 * dim, hidden, policy, device)
+        self.fc_out = Dense(hidden, vocab_size, dataclasses.replace(policy, compute_dtype=policy.accum_dtype),
+                            device)
+
+    def forward(self, img_tokens: torch.Tensor, txt_tokens: torch.Tensor, txt_mask: Optional[torch.Tensor],
+                drop: Optional[Dropout] = None, train: bool = False) -> torch.Tensor:
+        joint = torch.cat([img_tokens.mean(dim=1), masked_mean(txt_tokens, txt_mask)], dim=-1)
+        x = maybe_drop(F.gelu(self.fc1(joint), approximate="none"), drop)
+        return self.fc_out(x).float()

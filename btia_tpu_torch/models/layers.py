@@ -40,6 +40,15 @@ def maybe_drop(x: torch.Tensor, drop: Optional[Dropout]) -> torch.Tensor:
     return x if drop is None else drop(x)
 
 
+def masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor], dim: int = 1) -> torch.Tensor:
+    """Mean over tokens, ignoring padding (``layers.py:masked_mean``): x
+    (B, S, D), mask (B, S) True = a real token."""
+    if mask is None:
+        return x.mean(dim)
+    m = mask.to(x.dtype)[..., None]
+    return (x * m).sum(dim) / torch.clamp_min(m.sum(dim), 1.0)
+
+
 def _param(*shape, device) -> nn.Parameter:
     return nn.Parameter(torch.empty(*shape, dtype=torch.float32, device=device))
 

@@ -1,25 +1,26 @@
 """BTIAADNet — model assembly and the serving API (port of
 ``btia_tpu/models/model.py``).
 
-The port carries the ViT + BERT + BTIA + AD-head configurations
-(``streaming_vitl``, ``pathvqa_vit``, ``vqa_med_full``); the ResNet and LSTM
-encoders and the mlp head are still to be ported (ROADMAP Queue 1). On the
-card, under the bf16 policy, ``streaming_vitl`` is served through
-``Predictor`` (the serving entry points) and ``vqa_med_full`` trains and
-evaluates through ``train.trainer.Trainer`` (``forward`` with ``train`` on
-and off); ``chip_smoke.py`` drives both, and ``pathvqa_vit`` (the same
-kernels at its own shapes: 197-token BTIA sites on the tiled attention
-core, its AD head's 256 x 229 attention unfused on K3) through one train
-step and an eval forward. The fp32 policy runs on the CPU only. With ``int8_ffn`` under the
+Every registered configuration builds: {ResNet | ViT-B/16 | ViT-L/336} x
+{LSTM | BERT} x BTIA fusion x {AD head | mlp head}. On the card, under the
+bf16 policy, ``streaming_vitl`` is served through ``Predictor`` (the
+serving entry points) and ``vqa_med_full`` trains and evaluates through
+``train.trainer.Trainer`` (``forward`` with ``train`` on and off);
+``chip_smoke.py`` drives both, ``pathvqa_vit`` through one train step and
+an eval forward, and ``vqa_rad_lstm`` (ResNet-50, bi-LSTM, mlp head) and
+``slake_bert`` (ResNet-50, BERT, mlp head) through serving, ``Predictor``,
+training and evaluation; under the fp32 policy (``tiny_test``'s, or
+``model.mixed_precision=False``) the fused sites run on the f32 kernels. With ``int8_ffn`` under the
 bf16 policy, every Mlp of a deterministic forward runs its two products
 through K8 (``ops/quant.py``); a train forward stays on the fp path, as in
-the reference (``model.py:36-43``).
+the reference (``model.py:36-43``). Only ``model.remat`` is refused.
 
 ``encode_image`` / ``answer_questions`` split the forward so that the image
 encoder runs once per image and only the question tower, fusion and head fan
-out per question. Every entry point takes ``train`` (dropout on, as the
-reference's ``train`` flag) and, when the config's dropout is above 0, the
-``torch.Generator`` the dropout masks are drawn from.
+out per question. Every entry point takes ``train`` (dropout on and, with a
+ResNet, BatchNorm on batch statistics with its running averages updated, as
+the reference's ``train`` flag) and, when the config's dropout is above 0,
+the ``torch.Generator`` the dropout masks are drawn from.
 """
 
 from __future__ import annotations
@@ -36,29 +37,16 @@ from btia_tpu_torch.core.device import resolve_device
 from btia_tpu_torch.core.dtypes import DTypePolicy, default_policy
 from btia_tpu_torch.models.bert import BertQuestionEncoder, BertSpec
 from btia_tpu_torch.models.btia import BTIA
-from btia_tpu_torch.models.heads import ADHead
+from btia_tpu_torch.models.heads import ADHead, SimpleClassifier
 from btia_tpu_torch.models.layers import Dense, Dropout, LayerNorm
+from btia_tpu_torch.models.lstm import LSTMQuestionEncoder
+from btia_tpu_torch.models.resnet import build_resnet
 from btia_tpu_torch.models.vit import VIT_SPECS, ViT
 from btia_tpu_torch.ops.ingest import preprocess_images, resize_matrix
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     cfg.validate()
-    if cfg.image_encoder not in VIT_SPECS:
-        raise NotImplementedError(
-            f"image encoder {cfg.image_encoder!r}: the ResNet encoders are not "
-            "ported yet (ROADMAP Queue 1, 'ResNet / LSTM / SimpleClassifier')"
-        )
-    if cfg.question_encoder != "bert":
-        raise NotImplementedError(
-            "the LSTM question encoder is not ported yet (ROADMAP Queue 1, "
-            "'ResNet / LSTM / SimpleClassifier')"
-        )
-    if cfg.head != "ad":
-        raise NotImplementedError(
-            "the mlp head (SimpleClassifier) is not ported yet (ROADMAP Queue 1, "
-            "'ResNet / LSTM / SimpleClassifier')"
-        )
     if cfg.remat:
         raise NotImplementedError(
             "model.remat (rematerialised blocks in the backward pass) is not "
@@ -75,37 +63,53 @@ class BTIAADNet(nn.Module):
         if cfg.int8_ffn and cfg.mixed_precision:  # serving-only int8 FFNs (K8)
             policy = dataclasses.replace(policy, int8=True)
         self.policy: DTypePolicy = policy
-        self.image_encoder = ViT(VIT_SPECS[cfg.image_encoder], policy, device)
-        self.question_encoder = BertQuestionEncoder(
-            BertSpec(
-                vocab_size=cfg.bert_vocab_size,
-                dim=cfg.bert_hidden,
-                depth=cfg.bert_layers,
-                num_heads=cfg.bert_heads,
-                mlp_dim=4 * cfg.bert_hidden,
-            ),
-            policy,
-            device,
-        )
+        if cfg.image_encoder in VIT_SPECS:
+            self.image_encoder = ViT(VIT_SPECS[cfg.image_encoder], policy, device)
+        else:
+            self.image_encoder = build_resnet(cfg.image_encoder, policy, device)
+        if cfg.question_encoder == "lstm":
+            self.question_encoder = LSTMQuestionEncoder(
+                cfg.question_vocab_size, cfg.word_embed_dim, cfg.lstm_hidden,
+                cfg.lstm_bidirectional, policy, device,
+            )
+            txt_dim = self.question_encoder.out_dim
+        else:
+            self.question_encoder = BertQuestionEncoder(
+                BertSpec(
+                    vocab_size=cfg.bert_vocab_size,
+                    dim=cfg.bert_hidden,
+                    depth=cfg.bert_layers,
+                    num_heads=cfg.bert_heads,
+                    mlp_dim=4 * cfg.bert_hidden,
+                ),
+                policy,
+                device,
+            )
+            txt_dim = cfg.bert_hidden
         self.img_proj = Dense(cfg.image_dim, cfg.hidden_dim, policy, device)
-        self.txt_proj = Dense(cfg.bert_hidden, cfg.hidden_dim, policy, device)
+        self.txt_proj = Dense(txt_dim, cfg.hidden_dim, policy, device)
         self.img_ln = LayerNorm(cfg.hidden_dim, policy, device=device)
         self.txt_ln = LayerNorm(cfg.hidden_dim, policy, device=device)
         self.btia = BTIA(cfg.hidden_dim, cfg.num_heads, cfg.btia_layers, cfg.mlp_ratio, policy, device)
-        self.head = ADHead(
-            cfg.hidden_dim, cfg.num_heads, cfg.answer_vocab_size,
-            num_queries=cfg.num_answer_queries, policy=policy, device=device,
-        )
+        if cfg.head == "ad":
+            self.head = ADHead(
+                cfg.hidden_dim, cfg.num_heads, cfg.answer_vocab_size,
+                num_queries=cfg.num_answer_queries, policy=policy, device=device,
+            )
+        else:
+            self.head = SimpleClassifier(cfg.hidden_dim, cfg.answer_vocab_size, policy=policy, device=device)
 
     # ---- staged API (encode once, fan out questions) ---------------------
 
     def _pool_image_tokens(self, feats: torch.Tensor) -> torch.Tensor:
-        """Bilinear-downsample the patch tokens to a (g, g) grid via two
-        matrix products, keeping the CLS token (``model.py:116-136``)."""
+        """Bilinear-downsample the patch or grid tokens to a (g, g) grid via
+        two matrix products, keeping a ViT's CLS token (a ResNet has none;
+        ``model.py:114-136``)."""
         gt = self.cfg.image_pool_grid
         if not gt:
             return feats
-        cls, grid = feats[:, :1], feats[:, 1:]
+        has_cls = self.cfg.image_encoder in VIT_SPECS
+        cls, grid = (feats[:, :1], feats[:, 1:]) if has_cls else (None, feats)
         B, N, D = grid.shape
         g = int(round(N**0.5))
         if g <= gt:
@@ -114,7 +118,8 @@ class BTIAADNet(nn.Module):
         x = grid.reshape(B, g, g, D)
         x = torch.einsum("hH,bHwc->bhwc", m, x)
         x = torch.einsum("wW,bhWc->bhwc", m, x)
-        return torch.cat([cls, x.reshape(B, gt * gt, D)], dim=1)
+        x = x.reshape(B, gt * gt, D)
+        return torch.cat([cls, x], dim=1) if has_cls else x
 
     def _dropout(self, train: bool, generator: Optional[torch.Generator]) -> Optional[Dropout]:
         if not train or self.cfg.dropout == 0.0:
@@ -142,6 +147,8 @@ class BTIAADNet(nn.Module):
                         generator: Optional[torch.Generator] = None) -> torch.Tensor:
         drop = self._dropout(train, generator)
         img_f, txt_f = self.btia(img_tokens, txt_tokens, txt_mask, drop, train)
+        if self.cfg.head != "ad":
+            return self.head(img_f, txt_f, txt_mask, drop, train)
         tokens = torch.cat([img_f, txt_f], dim=1)
         img_valid = torch.ones(img_f.shape[:2], dtype=torch.bool, device=img_f.device)
         token_mask = torch.cat([img_valid, txt_mask], dim=1)
@@ -215,18 +222,22 @@ _SMALL_INIT = ("cls_token", "pos_embed", "answer_queries", "answer_table", "answ
 
 @torch.no_grad()
 def init_params(model: nn.Module, generator: torch.Generator) -> None:
-    """Random weights from `generator`: Dense kernels lecun-normal, biases
-    zero, LayerNorm scales one, embeddings normal(1/sqrt(dim)), learned
-    tokens and answer tables normal(0.02)."""
+    """Random weights from `generator`: Dense, conv and recurrent kernels
+    lecun-normal (a conv kernel, (out, in, kh, kw), over its fan-in in * kh
+    * kw), biases zero, LayerNorm and BatchNorm scales one, embeddings
+    normal(1/sqrt(dim)), learned tokens and answer tables normal(0.02).
+    BatchNorm's running statistics (buffers) keep their 0 and 1."""
     for name, p in model.named_parameters():
         leaf = name.rsplit(".", 1)[-1]
         if leaf == "scale":
             p.fill_(1.0)
-        elif leaf in ("bias", "answer_bias"):
+        elif leaf in ("bias", "answer_bias", "hh_bias"):
             p.zero_()
         elif leaf in _SMALL_INIT:
             p.normal_(0.0, 0.02, generator=generator)
-        elif leaf == "kernel":
+        elif leaf == "kernel" and p.ndim == 4:
+            p.normal_(0.0, 1.0 / math.sqrt(p[0].numel()), generator=generator)
+        elif leaf in ("kernel", "hh_kernel"):
             p.normal_(0.0, 1.0 / math.sqrt(p.shape[0]), generator=generator)
         elif leaf == "embedding":
             p.normal_(0.0, 1.0 / math.sqrt(p.shape[1]), generator=generator)

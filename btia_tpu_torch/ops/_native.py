@@ -34,6 +34,8 @@ LIB_NAME = "libbtia_kernels.so"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LLP = ctypes.POINTER(ctypes.c_longlong)  # a host array of strides
 _IP = ctypes.POINTER(ctypes.c_int)  # a host array of plan values
+_FP = ctypes.POINTER(ctypes.c_float)  # a host array of scales
+_PP = ctypes.POINTER(ctypes.c_void_p)  # a host array of device pointers
 _SIGNATURES = {
     "btia_layernorm": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
     "btia_gemm_bias": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _P),
@@ -45,6 +47,8 @@ _SIGNATURES = {
     "btia_bicross": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _LLP, _IP, _I, _I, _I, _I, _I, _F, _P),
     "btia_int8_quant_rows": (_P, _P, _P, _I, _I, _P),
     "btia_int8_gemm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "btia_attn_simt": (_PP, _LLP, _IP, _FP, _I, _I, _I, _I, _I, _P),
+    "btia_gemm_f32": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _P),
 }
 
 
@@ -153,10 +157,13 @@ def aligned(t: torch.Tensor) -> torch.Tensor:
     return t.clone() if t.data_ptr() % 16 else t
 
 
-def require(t: torch.Tensor, what: str, dtype: torch.dtype = torch.bfloat16) -> None:
-    """Raise unless t is a contiguous CUDA tensor of `dtype`."""
-    if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():
+def require(t: torch.Tensor, what: str, dtype=torch.bfloat16, contiguous: bool = True) -> None:
+    """Raise unless t is a CUDA tensor of `dtype` (a dtype or a tuple of
+    them), contiguous unless the kernel reads it through its strides."""
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if not t.is_cuda or t.dtype not in dtypes or (contiguous and not t.is_contiguous()):
+        layout = "contiguous " if contiguous else ""
         raise ValueError(
-            f"{what}: the CUDA kernel takes a contiguous {dtype} CUDA tensor, "
+            f"{what}: the CUDA kernel takes a {layout}{' or '.join(map(str, dtypes))} CUDA tensor, "
             f"got {t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
         )

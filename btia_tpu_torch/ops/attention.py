@@ -27,11 +27,15 @@ switch is on the kernels:
 * otherwise, and always under ``"xla"``, the reference's einsum road
   (``attention.py:801-811``): ``mha_reference`` on (B, H, S, D) views.
 
-The roads are the reference's gates, whatever the head width. The
-``*_takes`` predicates say which head widths each CUDA kernel is built for
-(K3 and K4: ``TILE_HEAD_WIDTHS``, the multiples of 64 up to 256; K5 and
-K6, in ``ops/bicross.py``: every width up to 256), and each wrapper raises
-through its predicate on a CUDA tensor of another width. K3 and K5 share one
+The roads are the reference's gates, whatever the head width or dtype.
+Each CUDA entry picks its kernel by (dtype, head width), ``attention_route``:
+bf16 at the widths its tensor-core kernel is built for goes there (the
+``*_takes`` predicates: K3 and K4 ``TILE_HEAD_WIDTHS``, the multiples of 64
+up to 256; K5 and K6, in ``ops/bicross.py``, every width up to 256); f32 at
+any width up to ``SIMT_MAX_HEAD_WIDTH`` (1024), and bf16 above 256, go to
+the CUDA-core kernel ``csrc/attn_simt.cu`` (``simt_attention``), which
+computes f32 in f32; any other operand raises before anything is built. No
+route casts f32 to bf16. K3 and K5 share one
 kernel (``csrc/flash_bshd.cu``): K5 gives it the (B, H, S, D) views with
 their own strides, K3 the packed (B, S, H*D) layout. K4 and K6 share the
 short-sequence kernel (``csrc/short_flash.cuh``), whose work items
@@ -219,30 +223,116 @@ def _bhsd_operand(t: torch.Tensor, what: str):
     return t, st
 
 
-# Head widths the tiles of K1/K2's core, K3 and K4 are built for: the
-# multiples of 64 up to 256. The reference's gates (``D % 64 == 0``) have no
-# upper bound; a wider head raises on the card.
+# Head widths the tensor-core tiles of K1/K2's core, K3 and K4 are built
+# for: the multiples of 64 up to 256. The reference's gates (``D % 64 == 0``)
+# have no upper bound; a wider head goes to the CUDA-core kernel.
 TILE_HEAD_WIDTHS = (64, 128, 192, 256)
+# The CUDA-core kernel (csrc/attn_simt.cu) takes every head width up to
+# 1024, ViT-L's hidden width and the widest head a registered config can
+# give; its 16 x D f32 q rows and accumulator stay in shared memory.
+SIMT_MAX_HEAD_WIDTH = 1024
+_SIMT_ELEM = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def attention_route(dtype: torch.dtype, head_dim: int, tensor_core_takes) -> Optional[str]:
+    """The kernel an attention entry launches for operands of `dtype` at
+    head width `head_dim`: "wgmma" (the entry's tensor-core kernel, bf16 at
+    the widths `tensor_core_takes` names), "simt" (``csrc/attn_simt.cu``:
+    f32 at any width up to ``SIMT_MAX_HEAD_WIDTH``, bf16 from 257 to it), or
+    None where no kernel takes them."""
+    if head_dim != int(head_dim):  # H does not divide H*D
+        return None
+    if dtype == torch.bfloat16 and tensor_core_takes(head_dim):
+        return "wgmma"
+    wide = dtype == torch.float32 or (dtype == torch.bfloat16 and head_dim > 256)
+    return "simt" if wide and 1 <= head_dim <= SIMT_MAX_HEAD_WIDTH else None
+
+
+def _route_or_raise(dtype, head_dim, tensor_core_takes, what, widths) -> str:
+    route = attention_route(dtype, head_dim, tensor_core_takes)
+    if route is None:
+        raise ValueError(
+            f"{what} takes head widths {widths} in bf16, and up to {SIMT_MAX_HEAD_WIDTH} in f32 "
+            f"(in bf16 above 256) on the CUDA-core kernel; got {dtype} at D = {head_dim:g}"
+        )
+    return route
+
+
+def simt_attention(problems, head_dim: int, mult_mask: bool) -> None:
+    """Launch the CUDA-core attention kernel (``csrc/attn_simt.cu``) on one
+    or two problems (K6's two directions), each ``(ptrs, mask, strides,
+    dims, qscale, like)``: device pointers of q, k, v and o; a (B, Sk) key
+    mask (bool, read as bytes, or {0, 1} f32) or None; the (batch, head, row)
+    strides in elements of q, k, v and o (12); (B, H, Sq, Sk); the factor q
+    is scaled by (then rounded to the element type); and a tensor of the
+    problem's dtype and device. ``mult_mask`` picks K1/K2/K4's mask (after
+    exp2, a fully masked row gives 0) over K3/K5/K6's additive -1e9.
+    Counts its launches in ``.launches``."""
+    like = problems[0][5]
+    masks = [None if m is None else (m.contiguous() if m.dtype == torch.bool else m.to(torch.float32).contiguous())
+             for _, m, *_ in problems]
+    mask_bytes = {1 if m.dtype == torch.bool else 4 for m in masks if m is not None} or {4}
+    if len(mask_bytes) != 1:
+        raise ValueError("simt_attention: the problems' key masks must share a dtype")
+    ptrs, strides, dims, scales = [], [], [], []
+    for (p, _, st, dm, qs, _), m in zip(problems, masks):
+        ptrs += [*p, None if m is None else m.data_ptr()]
+        strides += list(st)
+        dims += list(dm)
+        scales.append(qs)
+    n = len(problems)
+    _native.check(
+        _native.lib().btia_attn_simt(
+            (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_longlong * len(strides))(*strides),
+            (ctypes.c_int * len(dims))(*dims), (ctypes.c_float * n)(*scales), n, head_dim,
+            mask_bytes.pop(), int(mult_mask), _SIMT_ELEM[like.dtype], _native.stream(like),
+        ),
+        "btia_attn_simt",
+    )
+    simt_attention.launches += 1
+
+
+simt_attention.launches = 0
+
+
+def _simt_bshd(q, k, v, mask, num_heads, qscale, mult_mask, what):
+    """The CUDA-core kernel on packed (B, S, H*D) q, k, v (K3, K4)."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    for t in (q, k, v):  # the route took q's dtype: f32 or bf16
+        _native.require(t, what, q.dtype)
+    out = torch.empty_like(q)
+    B, Sq, HD = q.shape
+    st = [s for t in (q, k, v, out) for s in fanout_strides(t, num_heads)]
+    simt_attention([((q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()), mask, st,
+                     (B, num_heads, Sq, k.shape[1]), qscale, q)], HD // num_heads, mult_mask)
+    return out
+
+
+def _simt_bhsd_operand(t):
+    """A (B, H, S, D) operand with D packed, and its (batch, head, row)
+    strides: read in place through them, a zero (broadcast) stride too."""
+    t = t if t.stride(-1) == 1 else t.contiguous()
+    return t, list(t.stride()[:3])
 
 
 def k3_takes(head_dim: int) -> bool:
-    """Whether K3's CUDA kernel is built for this head width."""
+    """Whether K3's tensor-core (bf16) kernel is built for this head width."""
     return head_dim in TILE_HEAD_WIDTHS
 
 
 def k4_takes(head_dim: int) -> bool:
-    """Whether K4's CUDA kernel is built for this head width."""
+    """Whether K4's tensor-core (bf16) kernel is built for this head width."""
     return head_dim in TILE_HEAD_WIDTHS
 
 
-# K5's widest head: the kernel's four templates pad D to 64, 128, 192 or
-# 256 in shared memory. The reference pads any width; a wider head raises on
-# the card.
+# K5's widest head on the tensor cores: the kernel's four templates pad D to
+# 64, 128, 192 or 256 in shared memory. The reference pads any width; a
+# wider head takes the CUDA-core kernel.
 K5_MAX_HEAD_WIDTH = 256
 
 
 def k5_takes(head_dim: int) -> bool:
-    """Whether K5's CUDA kernel takes this head width: every width up to
+    """Whether K5's tensor-core (bf16) kernel takes this head width: every width up to
     256 (one not a multiple of 8 through a padded copy)."""
     return 1 <= head_dim <= K5_MAX_HEAD_WIDTH
 
@@ -250,10 +340,18 @@ def k5_takes(head_dim: int) -> bool:
 def _mha_bhsd_cuda(q, k, v, kv_mask) -> torch.Tensor:
     B, H, Sq, D = q.shape
     Sk = k.shape[2]
-    if not k5_takes(D):
-        raise ValueError(f"K5 kernel takes head widths up to {K5_MAX_HEAD_WIDTH}, got {D}")
+    route = _route_or_raise(q.dtype, D, k5_takes, "K5 kernel", f"up to {K5_MAX_HEAD_WIDTH}")
     if min(B, Sq, Sk) == 0:
         raise ValueError(f"K5 kernel takes B, Sq, Sk >= 1, got {(B, Sq, Sk)}")
+    if route == "simt":
+        for t in (q, k, v):
+            _native.require(t, "mha_bhsd_attention", q.dtype, contiguous=False)
+        ops = [_simt_bhsd_operand(t) for t in (q, k, v)]
+        out = torch.empty_like(ops[0][0])
+        st = [s for _, x in ops for s in x] + list(out.stride()[:3])
+        simt_attention([(tuple(t.data_ptr() for t, _ in ops) + (out.data_ptr(),), kv_mask, st,
+                         (B, H, Sq, Sk), _log2_scale(D), q)], D, mult_mask=False)
+        return out
     dw = -(-D // 8) * 8
     if dw != D:
         # TMA reads rows of 16-byte multiples: one zero-padded copy, the
@@ -300,7 +398,9 @@ def mha_bhsd_attention(
     kv_mask: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """K5: q (B, H, Sq, D), k/v (B, H, Sk, D) in any strides with D packed,
-    kv_mask (B, Sk) True=valid; D up to 256 on the card (``k5_takes``).
+    kv_mask (B, Sk) True=valid; on the card bf16 D up to 256 on the tensor
+    cores (``k5_takes``), f32 and wider bf16 heads up to 1024 on the
+    CUDA-core kernel (``attention_route``).
 
     A CUDA tensor launches the kernel (counted in ``.launches``) or raises;
     a CPU tensor takes the plain twin. A row whose every key is masked
@@ -356,10 +456,12 @@ def _bshd_flash_cuda(q, k, v, kv_mask, num_heads: int) -> torch.Tensor:
     B, Sq, HD = q.shape
     Sk = k.shape[1]
     D = HD // num_heads
-    if HD != num_heads * D or not k3_takes(D):
-        raise ValueError(f"K3 kernel takes head widths {TILE_HEAD_WIDTHS}, got {HD / num_heads:g}")
+    route = _route_or_raise(q.dtype, HD / num_heads, k3_takes,
+                            "K3 kernel", TILE_HEAD_WIDTHS)
     if Sq == 0 or Sk == 0 or B == 0:
         raise ValueError(f"K3 kernel takes B, Sq, Sk >= 1, got {(B, Sq, Sk)}")
+    if route == "simt":
+        return _simt_bshd(q, k, v, kv_mask, num_heads, _log2_scale(D), False, "bshd_flash_attention")
     q, k, v = _native.aligned(q), _native.aligned(k), _native.aligned(v)
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _native.require(t, f"bshd_flash_attention {name}")
@@ -401,8 +503,9 @@ def bshd_flash_attention(
     kv_mask: Optional[torch.Tensor],
     num_heads: int,
 ) -> torch.Tensor:
-    """K3: q (B, Sq, H*D), k/v (B, Sk, H*D), kv_mask (B, Sk) True=valid;
-    D in ``TILE_HEAD_WIDTHS`` on the card (``k3_takes``).
+    """K3: q (B, Sq, H*D), k/v (B, Sk, H*D), kv_mask (B, Sk) True=valid; on
+    the card bf16 D in ``TILE_HEAD_WIDTHS`` on the tensor cores
+    (``k3_takes``), f32 and bf16 heads of 257-1024 on the CUDA-core kernel.
 
     A CUDA tensor launches the kernel (counted in ``.launches``) or raises;
     a CPU tensor takes the plain twin."""
@@ -487,10 +590,12 @@ def _fanout_cuda(q, k, v, colmask, num_heads: int, pack: bool = True) -> torch.T
     B, Sq, HD = q.shape
     Sk = k.shape[1]
     D = HD // num_heads
-    if HD != num_heads * D or not k4_takes(D):
-        raise ValueError(f"K4 kernel takes head widths {TILE_HEAD_WIDTHS}, got {HD / num_heads:g}")
+    route = _route_or_raise(q.dtype, HD / num_heads, k4_takes,
+                            "K4 kernel", TILE_HEAD_WIDTHS)
     if min(B, Sq, Sk) == 0:
         raise ValueError(f"K4 kernel takes B, Sq, Sk >= 1, got {(B, Sq, Sk)}")
+    if route == "simt":
+        return _simt_bshd(q, k, v, colmask.to(torch.float32), num_heads, _log2_scale(D), True, "fanout_attention")
     q, k, v = _native.aligned(q), _native.aligned(k), _native.aligned(v)
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _native.require(t, f"fanout_attention {name}")
@@ -534,8 +639,9 @@ def fanout_attention(
     colmask: torch.Tensor,
     num_heads: int,
 ) -> torch.Tensor:
-    """K4: q (B, Sq, H*D), k/v (B, Sk, H*D), colmask (B, Sk) f32 {0, 1};
-    D in ``TILE_HEAD_WIDTHS`` on the card (``k4_takes``).
+    """K4: q (B, Sq, H*D), k/v (B, Sk, H*D), colmask (B, Sk) f32 {0, 1}; on
+    the card bf16 D in ``TILE_HEAD_WIDTHS`` on the tensor cores
+    (``k4_takes``), f32 and bf16 heads of 257-1024 on the CUDA-core kernel.
 
     A fully masked row gives 0. A CUDA tensor launches the kernel (counted
     in ``.launches``) or raises; a CPU tensor takes the plain twin."""

@@ -27,8 +27,12 @@ the kernels, a batch of at least ``FANOUT_MIN_BATCH`` (64), a shape the core
 admits (``core_admits``: Sq*Sk <= 32768 and D % 64 == 0), and q/kv input,
 head and output widths that are multiples of 128. Every serve, train and
 eval site of the registered configs passes it; a ``Predictor`` bucket or a
-``StreamingServer`` batch under 64 rows does not. The CUDA core is built for
-the widths ``core_takes`` names (64 to 256) and raises on a wider head.
+``StreamingServer`` batch under 64 rows does not. Under the bf16 policy the
+chain runs on the tensor cores, its core at the widths ``core_takes`` names
+(64 to 256); f32 operands (the fp32 policy) run the projections on
+``gemm_f32`` (``csrc/gemm_f32.cu``) and the core on the CUDA-core attention
+kernel (``csrc/attn_simt.cu``), which also takes bf16 heads from 257 to 1024
+wide. Nothing is cast to bf16 on the f32 route.
 Other sites take the unfused road of projections + ``mha_bshd``, as the
 reference does, and so do all sites under ``set_attention_impl("xla")`` or
 inside ``disable_fused()``. ``interpret=True`` forces the fused road past
@@ -54,8 +58,8 @@ import torch
 
 from btia_tpu_torch.ops import _native
 from btia_tpu_torch.ops.attention import (
-    FANOUT_MIN_BATCH, LOG2E, SMALL_SCORE_TILE, TILE_HEAD_WIDTHS, _resolved_impl, attend_log2, mha_bshd,
-    short_plan,
+    FANOUT_MIN_BATCH, LOG2E, SMALL_SCORE_TILE, TILE_HEAD_WIDTHS, _resolved_impl, _route_or_raise,
+    attend_log2, mha_bshd, short_plan, simt_attention,
 )
 from btia_tpu_torch.ops.norms import _layernorm_cuda, _ln_exact, layernorm
 
@@ -82,7 +86,7 @@ def disable_fused():
 
 
 def core_takes(head_dim: int) -> bool:
-    """Whether the CUDA attention core of K1/K2 is built for this head
+    """Whether the tensor-core (bf16) attention core of K1/K2 is built for this head
     width: ``TILE_HEAD_WIDTHS``, the multiples of 64 up to 256."""
     return head_dim in TILE_HEAD_WIDTHS
 
@@ -209,10 +213,41 @@ def _static_q_weights(queries, wq, bq, wk, bk, wv, bv, wo, bo, num_heads, cd):
     return prepare_once((queries, wq, bq, wk, bk, wv, bv, wo, bo), ("static_q", num_heads, cd), make)
 
 
+def gemm_f32(a2, w, b, resid=None, resid_rows=0):
+    """a2 @ w + b (+ resid rows, repeating every resid_rows) in f32 on the
+    CUDA cores (``csrc/gemm_f32.cu``): the projection GEMM of the fp32
+    policy, every product an f32 FFMA. Counts its launches in
+    ``.launches``."""
+    M, K = a2.shape
+    N = w.shape[1]
+    a2, w, b = a2.contiguous(), w.contiguous(), b.float().contiguous()
+    _native.require(a2, "f32 GEMM input", torch.float32)
+    _native.require(w, "f32 GEMM weight", torch.float32)
+    if resid is not None:
+        resid = resid.contiguous()
+        _native.require(resid, "f32 GEMM residual", torch.float32)
+    out = torch.empty((M, N), dtype=torch.float32, device=a2.device)
+    _native.check(
+        _native.lib().btia_gemm_f32(
+            a2.data_ptr(), w.data_ptr(), b.data_ptr(), None if resid is None else resid.data_ptr(),
+            max(resid_rows, 1), out.data_ptr(), M, N, K, _native.stream(a2),
+        ),
+        "btia_gemm_f32",
+    )
+    gemm_f32.launches += 1
+    return out
+
+
+gemm_f32.launches = 0
+
+
 def _gemm_cuda(a2, w, b, resid=None, resid_rows=0):
     """bf16(a2 @ w + b) (+ resid rows, repeating every resid_rows), on the
     projection GEMM (``gemm_bias_wgmma_kernel``): TMA reads a2 (M, K) and w
-    (K, N) as they lie, at 16-byte aligned addresses."""
+    (K, N) as they lie, at 16-byte aligned addresses. f32 operands take
+    ``gemm_f32``."""
+    if a2.dtype == torch.float32:
+        return gemm_f32(a2, w, b, resid, resid_rows)
     M, K = a2.shape
     N = w.shape[1]
     if K % 8 or N % 8:
@@ -298,9 +333,33 @@ def _core_launcher(q, kv, kv_mask, B, Sq, Sk, num_heads, q_shared=False):
 
 
 def _core_cuda(q, kv, kv_mask, B, Sq, Sk, num_heads, q_shared=False):
-    """The attention core of K1/K2 on the card (``_core_launcher``)."""
-    launch, out = _core_launcher(q, kv, kv_mask, B, Sq, Sk, num_heads, q_shared)
-    _native.check(launch(), "btia_attn_core")
+    """The attention core of K1/K2 on the card: bf16 at ``core_takes``'s
+    widths on the short-sequence kernel (``_core_launcher``); f32, and bf16
+    from 257 to 1024 wide, on the CUDA-core kernel (``simt_attention``),
+    reading the same buffers through the same strides."""
+    HD = q.shape[1]
+    D = HD // num_heads
+    route = _route_or_raise(q.dtype, HD / num_heads, core_takes,
+                            "attention core", TILE_HEAD_WIDTHS)
+    if route == "wgmma":
+        launch, out = _core_launcher(q, kv, kv_mask, B, Sq, Sk, num_heads, q_shared)
+        _native.check(launch(), "btia_attn_core")
+        return out
+    for t in (q, kv):
+        _native.require(t, "attention core", q.dtype, contiguous=False)
+    if q.shape[0] != (Sq if q_shared else B * Sq) or kv.shape != (B * Sk, 2 * HD):
+        raise ValueError(f"attention core: q {tuple(q.shape)} and [k|v] {tuple(kv.shape)} do not fit "
+                         f"B = {B}, Sq = {Sq}, Sk = {Sk}, HD = {HD}")
+    q, kv = q.contiguous(), kv.contiguous()
+    out = torch.empty((B * Sq, HD), dtype=q.dtype, device=q.device)
+    ops = core_operands(Sq, Sk, HD, num_heads)
+    if q_shared:  # K2's one table for every batch row
+        ops["q"] = (0, [0, *ops["q"][1][1:]])
+    base = {"q": q, "k": kv, "v": kv, "o": out}
+    ptrs = tuple(base[n].data_ptr() + ops[n][0] * q.element_size() for n in "qkvo")
+    # q arrives in the log2 domain: scaled by 1.
+    simt_attention([(ptrs, kv_mask, [s for n in "qkvo" for s in ops[n][1]], (B, num_heads, Sq, Sk), 1.0, q)],
+                   D, mult_mask=True)
     return out
 
 
@@ -314,8 +373,9 @@ def _fused_dense_cuda(x_q, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
     # Serving replicates one image's tokens over its questions as a view
     # with a zero stride; the kernels read packed rows.
     x_q, x_kv = x_q.contiguous(), x_kv.contiguous()
-    _native.require(x_q, "fused_dense_attention x_q")
-    _native.require(x_kv, "fused_dense_attention x_kv")
+    # The chain runs bf16 (tensor cores) and f32 (CUDA cores) operands.
+    _native.require(x_q, "fused_dense_attention x_q", (torch.bfloat16, torch.float32))
+    _native.require(x_kv, "fused_dense_attention x_kv", cd)
     wq_c, bq_c, wkv, bkv, wo_c, bo_c = _dense_weights(wq, bq, wk, bk, wv, bv, wo, bo, num_heads, cd)
     xq2 = x_q.view(B * Sq, Din)
     xkv2 = x_kv.view(B * Sk, x_kv.shape[2])
@@ -480,7 +540,7 @@ def _static_q_cuda(queries, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
     K = queries.shape[0]
     cd = x_kv.dtype
     x_kv = x_kv.contiguous()
-    _native.require(x_kv, "fused_static_q_attention x_kv")
+    _native.require(x_kv, "fused_static_q_attention x_kv", (torch.bfloat16, torch.float32))
     q2, wkv, bkv, wo_c, bo_c, qraw = _static_q_weights(queries, wq, bq, wk, bk, wv, bv, wo, bo, num_heads, cd)
     xkv2 = x_kv.view(B * Sk, Din)
     xkv_in = _layernorm_cuda(xkv2, *kv_ln) if kv_ln else xkv2

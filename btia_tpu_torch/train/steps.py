@@ -10,6 +10,15 @@ is 0 at step 0, with the encoders in their own group at
 same update as optax's ``adamw`` (bias-corrected moments, decoupled decay
 lr * wd * p), so it carries the moments.
 
+A train step's forward runs with ``train=True``, so a ResNet's BatchNorm
+normalises with the batch statistics and updates its running averages (the
+buffers ``mean`` and ``var``) in place, as the reference's step returns the
+new ``batch_stats`` (``steps.py:164-192``); the K-step call does so at every
+step. The ResNet's parameters are in the encoder group, and weight decay
+covers every parameter, BatchNorm's scale and bias too, as optax's
+``adamw`` does. The state dict, and so a checkpoint, carries the running
+statistics beside the parameters.
+
 A step's dropout masks come from a ``torch.Generator`` seeded from
 (train.seed, step), the counterpart of ``fold_in(rng, step)``: a resumed run
 draws the masks the uninterrupted run drew. The mesh (data / model

@@ -54,6 +54,15 @@ Phases, each fatal on failure:
    impl="pallas")``) and its fully masked row against the mean of V; K7's
    block-per-row kernel at small shapes; each Function's backward against
    autograd through its twin;
+2c. the CUDA-core kernels: the attention of ``csrc/attn_simt.cu`` through
+   each entry's CUDA half in f32 (K1's core at ``vqa_rad_lstm``'s 64 x 49 <-
+   32 and 32 <- 49, K2's 2048 x 64 <- 82 with its shared table, K3 at ViT-B,
+   K4, K5 at ViT-L on transposed views, K6 pooled) within 1e-4 of the
+   largest magnitude, and in bf16 at head widths 384, 512, 768 and 1024
+   (K1's core, K3, K4, K5, K6) within 1/32 of it; the f32 GEMM of
+   ``csrc/gemm_f32.cu`` at the fp32 forwards' projection shapes within 1e-4;
+   each timed beside its twin, SDPA or ``F.linear`` (TF32 off) and the bound
+   on the CUDA cores (67 TFLOP/s f32);
 3. serve a few requests through ``Predictor.predict_answers`` on the
    full-width ``streaming_vitl`` with seeded random weights (buckets of
    1-8 questions: under the fused sites' batch floor of 64, so K1 = K2 = 0
@@ -103,16 +112,42 @@ Phases, each fatal on failure:
    just after (K1 = 16, K3 = 13, K4 = 16: the head's 256 x 229 score tile is
    above 32768, so it goes unfused to K3), then one eval forward (K1 = 16,
    K3 = 13) against the same model and weights on the CPU on two rows,
-   logits within a tenth of the largest.
+   logits within a tenth of the largest;
+6. full-width ``vqa_rad_lstm`` (ResNet-50 at 224, bi-LSTM 512, hidden 512,
+   8 heads of 64, 2 BTIA layers, an mlp head over 512 answers), bf16: the
+   16 x 128 serve step with every counter (K1..K8 and the two CUDA-core
+   kernels) set to 0 just before and read just after (K1 4: its BTIA
+   sites), timed, one image's 64 questions against the CPU within a tenth
+   of the largest logit; three ``Predictor`` requests (no kernel: buckets
+   under the batch floor); one ``Trainer`` call of its registered 8 scanned
+   steps at batch 64 on a synthetic VQA-RAD corpus (K1 32, K4 32; finite
+   losses, the BatchNorm statistics moved); one eval forward (K1 4) against
+   the CPU on two rows; one train step against the CPU under each policy
+   (bf16: loss, gradient norm and BatchNorm statistics within phase 5's
+   bounds; fp32: the gradients too, K1 and K4 on the CUDA-core kernels; see
+   ``train_step_card_vs_cpu``);
+6b. full-width ``slake_bert`` (ResNet-50, BERT-base, 2 BTIA layers, mlp
+   head), bf16, not timed: one serve step (K1 16: 12 BERT and 4 BTIA sites),
+   one train step through ``Trainer`` (K1 16, K4 16), one eval forward, each
+   against the CPU;
+6c. the fp32 policy against the CPU within 1e-3 of the largest logit (f32
+   on both sides with TF32 off, the convolutions' too): ``vqa_rad_lstm``'s
+   eval forward at batch 64 (K1 4, each on 3 f32 GEMMs and the CUDA-core
+   attention), ``streaming_vitl``'s serve step of 2 images x 32 questions
+   (K1 20, K2 1, K3 24; CUDA-core attention 45, f32 GEMM 62), and
+   ``tiny_test`` (no kernel), one train step (loss and gradient norm within
+   1e-4) and a ``Predictor`` answer.
 
-With ``--profile`` it also runs one serve step, one int8 serve step and one
-train step under ``torch.profiler`` and prints the device time by kernel and
-the device's idle share.
+With ``--profile`` it also runs one serve step, one int8 serve step, one
+train step and one ``vqa_rad_lstm`` serve step under ``torch.profiler``
+and prints the device time by kernel and the device's idle share.
 
-It prints a ``summary`` line, a ``kernels`` JSON line of all eight kernels
-(``launches`` is a kernel's count summed over the four main-path runs, the
-serve step, the int8 serve step, the train step and the ops API run of phase
-2b, and ``launches_by_path`` splits it), the
+It prints a ``summary`` line, a ``kernels`` JSON line of the eight kernel
+entries and the two CUDA-core kernels (``launches`` is a kernel's count
+summed over the main-path runs: the serve step, the int8 serve step, the
+train step, the ops API run of phase 2b, the serve steps and train runs of
+phases 6 and 6b and the fp32 forwards of phase 6c; ``launches_by_path``
+splits it), the
 card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``. It exits non-zero, and prints no
 result, when no CUDA device is present or the package is missing.
@@ -260,6 +295,63 @@ OPS_COUNTS = [0, 0, 0, 0, 3, 2, 5, 0]
 SERVE_LN_CENSUS = {(B_IMG * 577, 1024): 49, (B_IMG * N_IMG_TOK, 768): 1,
                    (B_IMG * N_Q * SEQ, 768): 18, (B_IMG * N_Q * N_IMG_TOK, 768): 4,
                    (B_IMG * N_Q * 64, 768): 2}
+# Phase 2c, the CUDA-core kernels (csrc/attn_simt.cu, csrc/gemm_f32.cu): the
+# f32 attention at each entry's shape on the fp32 path (name, entry, dims),
+# among them K2 and K3 as phase 6c's streaming_vitl serve step gives them
+# (64 pairs; 2 ViT-L images of 577 tokens), and bf16 at head widths 384 to
+# 1024 (heads of a 768- or 1024-wide model).
+# The bound takes the card's peak for the operands' type: f32 at 67 TFLOP/s
+# (H100 SXM, NVIDIA's data sheet: f32 outside the tensor cores, which f32
+# operands cannot use without rounding), bf16 at the bf16 tensor-core peak,
+# though this kernel computes bf16 operands on the CUDA cores too.
+PEAK_F32_SIMT = 67e12
+SIMT_F32_CASES = (
+    ("k1_core_f32_i2t", "core", dict(B=B_TRAIN, Sq=49, Sk=SEQ, H=8, D=64, masked=True)),
+    ("k1_core_f32_t2i", "core", dict(B=B_TRAIN, Sq=SEQ, Sk=49, H=8, D=64, masked=False)),
+    ("k2_core_f32", "core", dict(B=BQ, Sq=64, Sk=N_IMG_TOK + SEQ, H=12, D=64, masked=True, shared=True)),
+    ("k2_core_f32_b64", "core", dict(B=B_TRAIN, Sq=64, Sk=N_IMG_TOK + SEQ, H=12, D=64, masked=True, shared=True)),
+    ("k3_f32_vitb", "k3", dict(B=B_TRAIN, Sq=N_VIT_B, Sk=N_VIT_B, H=12, D=64, masked=False)),
+    ("k3_f32_vitl", "k3", dict(B=2, Sq=577, Sk=577, H=16, D=64, masked=False)),
+    ("k4_f32_i2t", "k4", dict(B=B_TRAIN, Sq=49, Sk=SEQ, H=8, D=64, masked=True)),
+    ("k5_f32_vitl", "k5", dict(B=B_IMG, Sq=577, Sk=577, H=16, D=64, masked=False)),
+    ("k6_f32_pooled", "k6", dict(B=BQ, Sq=N_IMG_TOK, Sk=SEQ, H=12, D=64, masked=True)),
+)
+WIDE_D = ((384, 2), (512, 2), (768, 1), (1024, 1))  # (D, heads)
+SIMT_WIDE_SHAPES = {"core": (B_TRAIN, 49, SEQ), "k3": (B_TRAIN, N_VIT_B, N_VIT_B), "k4": (B_TRAIN, 49, SEQ),
+                    "k5": (B_IMG, 577, 577), "k6": (B_TRAIN, N_IMG_TOK, SEQ)}
+# The f32 GEMM at the projection shapes of the fp32 forwards of phase 6c
+# (name, M, K, N, residual rows): vqa_rad_lstm's BTIA img <- txt site at
+# batch 64 (49 image and 32 text tokens, width 512) and streaming_vitl's
+# serve step of 64 pairs (BERT text rows, K2's 82-token kv rows, width 768).
+GEMM_F32_SITES = (
+    ("lstm_i2t_q", B_TRAIN * 49, 512, 512, 0),
+    ("lstm_i2t_kv", B_TRAIN * SEQ, 512, 1024, 0),
+    ("lstm_i2t_out", B_TRAIN * 49, 512, 512, B_TRAIN * 49),
+    ("vitl_text_kv", B_TRAIN * SEQ, 768, 1536, 0),
+    ("vitl_text_out", B_TRAIN * SEQ, 768, 768, B_TRAIN * SEQ),
+    ("vitl_head_kv", B_TRAIN * (N_IMG_TOK + SEQ), 768, 1536, 0),
+)
+NEW_KERNELS = ("simt_attention", "gemm_f32")
+# Phase 6, vqa_rad_lstm (ResNet-50, bi-LSTM, 2 BTIA layers at 8 heads of
+# 64, mlp head), bf16: K1 at its 4 BTIA sites (49 image tokens, 32 text) a
+# forward; in training K4 in the backward of each. Counts K1..K8 and then
+# the two CUDA-core kernels.
+LSTM_SERVE_COUNTS = [4, 0, 0, 0, 0, 0, 0, 0, 0, 0]
+LSTM_TRAIN_STEP_COUNTS = [4, 0, 0, 4, 0, 0, 0, 0, 0, 0]
+# Phase 6b, slake_bert (ResNet-50, BERT-base, 2 BTIA layers at 12 heads of
+# 64, mlp head): 12 BERT + 4 BTIA K1 sites.
+SLAKE_SERVE_COUNTS = [16, 0, 0, 0, 0, 0, 0, 0, 0, 0]
+SLAKE_TRAIN_COUNTS = [16, 0, 0, 16, 0, 0, 0, 0, 0, 0]
+# Phase 6c, the fp32 policy: vqa_rad_lstm's eval forward at batch 64 (4 K1
+# sites, each 3 f32 GEMMs and one CUDA-core core); streaming_vitl's serve
+# step of 2 images x 32 questions (20 K1 sites, K2, 24 ViT-L blocks on K3,
+# all on the CUDA-core attention: 45; 60 + 2 f32 GEMMs); tiny_test none.
+F32_LSTM_COUNTS = [4, 0, 0, 0, 0, 0, 0, 0, 4, 12]
+F32_VITL_COUNTS = [20, 1, 24, 0, 0, 0, 0, 0, 45, 62]
+F32_TINY_COUNTS = [0] * 10
+
+
+T0 = time.perf_counter()
 
 
 def log(*a):
@@ -1202,7 +1294,7 @@ def routing_switches_phase(torch, dev, smi, model, host_imgs, host_qids, serve_s
 
 
 _PORTED = ("gemm_bias_wgmma_kernel", "ln_warp_kernel", "ln_block_kernel", "flash_attn_kernel", "short_flash_kernel",
-           "quant_rows_kernel", "quant_rows_loop_kernel", "int8_gemm_kernel")
+           "quant_rows_kernel", "quant_rows_loop_kernel", "int8_gemm_kernel", "attn_simt_kernel", "gemm_f32_kernel")
 
 
 def profile_step(torch, step, smi, what="serve_step"):
@@ -1238,8 +1330,9 @@ def profile_step(torch, step, smi, what="serve_step"):
             groups["other"] += ms
     busy = sum(groups.values())
     top = sorted(kernels, key=lambda r: -r[2])[:15]
-    # A template kernel's name reads "void int8_gemm_kernel<...>(...)".
-    own = lambda p, n: n.removeprefix("void ").startswith((p + "(", p + "<"))
+    # A template kernel's name reads "void int8_gemm_kernel<...>(...)", one
+    # in an anonymous namespace "void (anonymous namespace)::...".
+    own = lambda p, n: n.removeprefix("void ").removeprefix("(anonymous namespace)::").startswith((p + "(", p + "<"))
     ported = {p: [sum(c for n, c, _ in kernels if own(p, n)),
                   sum(ms for n, _, ms in kernels if own(p, n))] for p in _PORTED}
     log(json.dumps({"profile": {
@@ -1766,6 +1859,638 @@ def streaming_phase(torch, dev, smi, model, cfg):
     return out
 
 
+def new_counters():
+    """The CUDA-core kernels' launch counters (NEW_KERNELS)."""
+    from btia_tpu_torch.ops import attention as A
+    from btia_tpu_torch.ops import fused_attn as FA
+
+    return (A.simt_attention, FA.gemm_f32)
+
+
+def _simt_case(torch, dev, name, entry, dims, dt, g):
+    """(kernel, plain twin, SDPA yardstick, flops, bytes) of one attention
+    call through an entry's CUDA half, with its operands."""
+    import torch.nn.functional as F
+
+    from btia_tpu_torch.ops import attention as A
+    from btia_tpu_torch.ops import bicross as BX
+    from btia_tpu_torch.ops import fused_attn as FA
+
+    B, Sq, Sk, H, D = (dims[k] for k in ("B", "Sq", "Sk", "H", "D"))
+    HD = H * D
+    r = lambda *s: torch.randn(*s, generator=g, device=dev).to(dt)
+    mask = _question_mask(torch, dev, g, B, Sk) if dims.get("masked") else None
+    heads = lambda x, S: x.reshape(-1, S, H, D).transpose(1, 2)  # (B, S, H*D) -> (B, H, S, D)
+    sdpa_mask = None if mask is None else mask[:, None, None, :]
+    ops = 4 * B * H * Sq * Sk * D
+    if entry == "core":
+        shared = dims.get("shared", False)
+        q = r(Sq if shared else B * Sq, HD)
+        kv = r(B * Sk, 2 * HD)
+        qv = q[None].expand(B, Sq, HD) if shared else q.view(B, Sq, HD)
+        k, v = kv[:, :HD].reshape(B, Sk, HD), kv[:, HD:].reshape(B, Sk, HD)
+        cm = torch.ones(B, Sk, device=dev) if mask is None else mask.float()
+        kernel = lambda: FA._core_cuda(q, kv, mask, B, Sq, Sk, H, q_shared=shared)
+        plain = lambda: A.attend_log2(qv, k, v, cm, H).reshape(B * Sq, HD)
+        library = lambda: F.scaled_dot_product_attention(heads(qv, Sq), heads(k, Sk), heads(v, Sk), sdpa_mask)
+        return kernel, plain, library, ops, nbytes(q, kv, mask) + B * Sq * HD * q.element_size()
+    if entry in ("k3", "k4"):
+        q, k, v = r(B, Sq, HD), r(B, Sk, HD), r(B, Sk, HD)
+        library = lambda: F.scaled_dot_product_attention(heads(q, Sq), heads(k, Sk), heads(v, Sk), sdpa_mask)
+        if entry == "k3":
+            kernel = lambda: A._bshd_flash_cuda(q, k, v, mask, H)
+            plain = lambda: A._bshd_flash_plain(q, k, v, mask, H)
+        else:
+            cm = torch.ones(B, Sk, device=dev) if mask is None else mask.float()
+            kernel = lambda: A._fanout_cuda(q, k, v, cm, H)
+            plain = lambda: A._fanout_plain(q, k, v, cm, H)
+        return kernel, plain, library, ops, nbytes(q, k, v, mask, q)
+    if entry == "k5":  # mha_bshd's long road: (B, S, H, D) buffers as (B, H, S, D) views
+        q, k, v = (r(B, S, H, D).transpose(1, 2) for S in (Sq, Sk, Sk))
+        return (lambda: A._mha_bhsd_cuda(q, k, v, mask), lambda: A._mha_bhsd_plain(q, k, v, mask),
+                lambda: F.scaled_dot_product_attention(q, k, v, sdpa_mask), ops, nbytes(q, k, v, mask, q))
+    qi, ki, vi = (r(B, H, Sq, D) for _ in range(3))  # k6: both directions
+    qt, kt, vt = (r(B, H, Sk, D) for _ in range(3))
+    library = lambda: (F.scaled_dot_product_attention(qi, kt, vt, sdpa_mask),
+                       F.scaled_dot_product_attention(qt, ki, vi))
+    return (lambda: BX._bicross_cuda(qi, ki, vi, qt, kt, vt, mask),
+            lambda: BX._bicross_plain(qi, ki, vi, qt, kt, vt, mask), library, 2 * ops,
+            nbytes(qi, ki, vi, qt, kt, vt, mask, qi, qt))
+
+
+def _simt_row(torch, name, kernel, plain, library, flops, nbytes_, dt, iters=5):
+    """Hold a CUDA-core kernel against its twin (f32: 1e-4 of the largest
+    magnitude, one f32 sum order apart; bf16: 1/32 of it, as phase 2) and
+    time it, the twin and the library call beside the bound at the card's
+    peak for the operands' type."""
+    out = _flat_f32(kernel())
+    torch.cuda.synchronize()
+    ref = _flat_f32(plain())
+    torch.cuda.synchronize()
+    scale = ref.abs().max().item()
+    err = (out - ref).abs().max().item()
+    tol = (1e-4 if dt == torch.float32 else 1 / 32) * scale
+    finite = bool(torch.isfinite(out).all())
+    del out, ref
+    row = {"dtype": str(dt).replace("torch.", ""), "max_abs_err": err, "tol": tol, "max_ref": scale,
+           "ms": cuda_time_ms(kernel, iters), "plain_ms": cuda_time_ms(plain, 2),
+           "library_ms": cuda_time_ms(library, iters)}
+    peak = PEAK_F32_SIMT if dt == torch.float32 else PEAK_BF16_FLOPS
+    row["bound_ms"], row["bound_by"] = bound_ms(flops, nbytes_, peak)
+    log(f"  {name}: err {err:.4g} (tol {tol:.4g}) kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        f"library {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    if not (finite and err <= tol):
+        raise AssertionError(f"{name}: kernel disagrees with its plain twin: {err} > {tol} (finite {finite})")
+    return row
+
+
+def check_simt(torch, dev):
+    """Phase 2c: the CUDA-core attention kernel through each entry's CUDA
+    half (K1/K2's core, K3, K4, K5, K6) in f32 at the fp32 path's shapes and
+    in bf16 at head widths 384 to 1024, and the f32 GEMM at the fp32
+    forwards' projection shapes, each against its twin and timed beside
+    SDPA or ``F.linear`` (TF32 off) and the bound."""
+    import torch.nn.functional as F
+
+    from btia_tpu_torch.ops import fused_attn as FA
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    attn, gemm = {}, {}
+    log("phase 2c: the CUDA-core kernels vs their twins (f32; bf16 at D 384-1024)")
+    cases = [(n, e, d, torch.float32) for n, e, d in SIMT_F32_CASES]
+    for D, H in WIDE_D:
+        for entry, (B, Sq, Sk) in SIMT_WIDE_SHAPES.items():
+            dims = dict(B=B, Sq=Sq, Sk=Sk, H=H, D=D, masked=entry != "k3")
+            cases.append((f"{entry}_bf16_d{D}", entry, dims, torch.bfloat16))
+    for name, entry, dims, dt in cases:
+        kernel, plain, library, flops, nb = _simt_case(torch, dev, name, entry, dims, dt, g)
+        attn[name] = {"entry": entry, **dims, **_simt_row(torch, name, kernel, plain, library, flops, nb, dt)}
+        del kernel, plain, library
+        torch.cuda.empty_cache()
+    assert torch.backends.cuda.matmul.allow_tf32 is False  # the yardstick in full f32
+    for name, M, K, N, rr in GEMM_F32_SITES:
+        a = torch.randn(M, K, generator=g, device=dev)
+        w = torch.randn(K, N, generator=g, device=dev) / K**0.5
+        b = torch.randn(N, generator=g, device=dev)
+        res = torch.randn(rr, N, generator=g, device=dev) if rr else None
+        kernel = lambda: FA.gemm_f32(a, w, b, res, rr)
+        plain = lambda: a @ w + b + (0 if res is None else res)
+        wt = w.t().contiguous()
+        library = lambda: F.linear(a, wt, b)
+        row = _simt_row(torch, f"gemm_f32 {name} {M}x{K}x{N}", kernel, plain, library, 2 * M * N * K,
+                        nbytes(a, w, b, res) + M * N * 4, torch.float32, iters=10)
+        gemm[name] = {"M": M, "K": K, "N": N, "residual_rows": rr, **row}
+    return attn, gemm
+
+
+def _lstm_qids(rng, shape, vocab):
+    """Right-padded question rows of 4..32 real tokens."""
+    import numpy as np
+
+    ids = np.zeros((*shape, SEQ), np.int64)
+    flat = ids.reshape(-1, SEQ)
+    for i in range(flat.shape[0]):
+        n = rng.randint(4, SEQ + 1)
+        flat[i, :n] = rng.randint(1, vocab, n)
+    return ids
+
+
+def _counts(counters):
+    return [f.launches for f in counters]
+
+
+def _card_vs_cpu(torch, model, fn, what, tol_frac):
+    """fn(model, device) on the card and on a CPU copy of the model; the
+    logits within tol_frac of the CPU's largest. Returns (err, scale)."""
+    dev = next(model.parameters()).device
+    cpu_model = copy.deepcopy(model).to("cpu")
+    with torch.inference_mode():
+        out_gpu = fn(model, dev).float().cpu()
+        out_cpu = fn(cpu_model, "cpu").float()
+    del cpu_model
+    err, scale = (out_gpu - out_cpu).abs().max().item(), out_cpu.abs().max().item()
+    log(f"  {what}: card vs CPU max abs err {err:.4g} at max |logit| {scale:.4g} (tol {tol_frac} x)")
+    if not (bool(torch.isfinite(out_gpu).all()) and err <= tol_frac * scale):
+        raise AssertionError(f"{what}: card and CPU logits disagree: {err} > {tol_frac * scale}")
+    return err, scale
+
+
+def _step_on(torch, dev, name, batch_fn, counters, mixed, bn_running=False):
+    """One train step (dropout 0: the two devices' generators draw other
+    masks) of `name` under the bf16 (mixed) or fp32 policy on the card and
+    on a CPU copy, same weights and batch of 64; with `bn_running` the image
+    encoder's BatchNorms normalise by their running statistics. Under fp32
+    the step runs a second time on a CPU copy with every weight one f32 ulp
+    away (the witness of how far rounding alone moves the gradients).
+    cuDNN's global TF32 setting is left at PyTorch's default (on) for the
+    step: the fp32 convolutions turn it off themselves. Under fp32 on
+    running statistics the card runs the step once more with the encoder's
+    convolutions as plain ``F.conv2d`` under that setting, in TF32: the
+    yardstick the encoder's bound must reject. Returns the card's launch
+    counts and, per device, the loss, the gradients and the BatchNorm
+    running statistics after the step."""
+    from btia_tpu_torch.configs import get_config
+    from btia_tpu_torch.models.model import build_model
+    from btia_tpu_torch.train.steps import cross_entropy
+
+    cfg = get_config(name, **{"model.dropout": 0.0, "model.mixed_precision": mixed})
+    model = build_model(cfg.model, device=dev, seed=1)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    images, qids, labels = batch_fn(cfg)
+
+    def run(m, device):
+        if bn_running:  # the encoder called as in eval, the rest in train mode
+            enc = m.image_encoder
+            enc.forward = lambda x, drop=None, train=False, f=enc.forward: f(x, drop, False)
+        logits = m(images.to(device), qids.to(device), train=True)
+        loss = cross_entropy(logits, labels.to(device))
+        loss.backward()
+        return {"loss": loss.item(), "grads": {n: p.grad.float().cpu() for n, p in m.named_parameters()},
+                "stats": {n: b.float().cpu() for n, b in m.named_buffers()}}
+
+    witness_model = None
+    if not mixed:
+        witness_model = copy.deepcopy(cpu_model)
+        with torch.no_grad():
+            for p in witness_model.parameters():
+                p.copy_(torch.nextafter(p, torch.full_like(p, float("inf"))))
+    torch.cuda.synchronize()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        _zero(counters)
+        card = run(model, dev)
+        counts = _counts(counters)
+        if not mixed and bn_running:
+            import torch.nn.functional as F
+
+            from btia_tpu_torch.models import resnet
+
+            model.zero_grad(set_to_none=True)
+            resnet._F32Conv.apply = staticmethod(lambda x, w, s, p: F.conv2d(x, w, stride=s, padding=p))
+            try:
+                card["tf32_yardstick"] = run(model, dev)
+            finally:
+                del resnet._F32Conv.apply  # back to torch.autograd.Function's
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    t0 = time.perf_counter()
+    cpu = run(cpu_model, "cpu")
+    cpu["seconds"] = time.perf_counter() - t0
+    if witness_model is not None:
+        cpu["witness"] = run(witness_model, "cpu")
+    del model, cpu_model, witness_model
+    torch.cuda.empty_cache()
+    return counts, card, cpu
+
+
+def _cat(d, names):
+    import torch
+
+    return torch.cat([d[n].flatten() for n in names])
+
+
+def _rel_l2(a, b, names):
+    x, y = _cat(a, names), _cat(b, names)
+    return ((x - y).norm() / y.norm()).item()
+
+
+def train_step_card_vs_cpu(torch, dev, name, batch_fn, counters, expected):
+    """One train step at batch 64 on the card against the CPU, same weights
+    and batch, under both policies, each twice: with the image encoder's
+    BatchNorms on batch statistics (training as registered) and on their
+    running statistics.
+
+    On batch statistics a randomly initialised ResNet-50 amplifies rounding:
+    in f32 on the CPU, every weight moved by one ulp (the witness) moves the
+    encoder's gradients by as much as the card does (an H100 run: 2.7-2.9 %
+    against 2.8-3.0 %). So there the bf16 step is held on its loss (1 %),
+    gradient norm (2 %) and BatchNorm statistics (5 % relative L2), and the
+    fp32 step's encoder gradients within 5 % and twice the witness.
+
+    Every other gradient is held, and every gradient on running statistics.
+    bf16 on running statistics: phase 5's bounds outside the encoder (loss
+    1 %, norm 2 %, relative L2 5 %, each tensor above 1 % of the largest
+    norm within 10 %; an H100 run: 0.5-1.2 %, worst 3.8 %), the encoder's
+    gradients within 5 % (2.6-2.8 %). fp32, with cuDNN's global TF32
+    setting on: the loss within 1e-4, the gradient norm within 1e-3
+    (relative), the gradients outside the encoder within 1e-3 relative L2
+    (3e-5 on batch statistics, 7e-7 on running ones) and each tensor above
+    1 % of the largest norm within 1e-2, the BatchNorm statistics within
+    1e-4; on running statistics the encoder's gradients within 2e-3 and
+    twice the witness (1.9-3.7e-4, witness 6.9e-4), where the same step with
+    TF32 convolutions must fall outside (9.7e-3). `expected` is the bf16
+    step's counts; the f32 step launches the same entries, K1 and K4 on the
+    CUDA-core kernels."""
+    res = {}
+    for mixed in (True, False):
+        for bn_running in (False, True):
+            policy, r, ok, counts, want = _step_check(torch, dev, name, batch_fn, counters, expected, mixed,
+                                                      bn_running)
+            res[policy] = r
+            if not ok:
+                raise AssertionError(f"{name}: card and CPU {policy} train steps disagree: {r}")
+            if counts != want:
+                raise AssertionError(f"{name} {policy} card-vs-CPU step launch counts {counts} != {want}")
+    return res
+
+
+def _step_check(torch, dev, name, batch_fn, counters, expected, mixed, bn_running):
+    """One step of train_step_card_vs_cpu: (policy, record, within its
+    bounds, launch counts, expected counts)."""
+    import numpy as np
+
+    counts, card, cpu = _step_on(torch, dev, name, batch_fn, counters, mixed, bn_running)
+    names = [n for n in cpu["grads"] if not n.endswith("k_proj.bias")]  # 0 in exact arithmetic
+    enc = [n for n in names if n.startswith("image_encoder.")]
+    other = [n for n in names if not n.startswith("image_encoder.")]
+    norm = lambda d: _cat(d["grads"], names).norm().item()
+    stats = sorted(cpu["stats"])
+    sizes = {n: cpu["grads"][n].norm().item() for n in other}
+    big = [n for n in other if sizes[n] >= 0.01 * max(sizes.values())]
+    per = {n: _rel_l2(card["grads"], cpu["grads"], [n]) for n in big}
+    r = {"loss_card": card["loss"], "loss_cpu": cpu["loss"], "grad_norm_card": norm(card),
+         "grad_norm_cpu": norm(cpu), "grad_rel_l2_image_encoder": _rel_l2(card["grads"], cpu["grads"], enc),
+         "grad_rel_l2_rest": _rel_l2(card["grads"], cpu["grads"], other),
+         "worst_rel_l2_rest": max(per.values()), "worst_param_rest": max(per, key=per.get),
+         "bn_stats_rel_l2": _rel_l2(card["stats"], cpu["stats"], stats), "cpu_seconds": cpu["seconds"],
+         "launches": dict(zip(KERNELS + NEW_KERNELS, counts))}
+    if "witness" in cpu:
+        w = cpu["witness"]
+        r["witness_grad_rel_l2_image_encoder"] = _rel_l2(w["grads"], cpu["grads"], enc)
+        r["witness_grad_rel_l2_rest"] = _rel_l2(w["grads"], cpu["grads"], other)
+    if "tf32_yardstick" in card:
+        r["tf32_yardstick_grad_rel_l2_image_encoder"] = _rel_l2(card["tf32_yardstick"]["grads"], cpu["grads"], enc)
+    loss_rel = abs(r["loss_card"] - r["loss_cpu"]) / abs(r["loss_cpu"])
+    norm_rel = abs(r["grad_norm_card"] - r["grad_norm_cpu"]) / r["grad_norm_cpu"]
+    if mixed and not bn_running:
+        ok = loss_rel <= 0.01 and norm_rel <= 0.02 and r["bn_stats_rel_l2"] <= 0.05
+    elif mixed:
+        ok = (loss_rel <= 0.01 and norm_rel <= 0.02 and r["grad_rel_l2_rest"] <= 0.05
+              and r["worst_rel_l2_rest"] <= 0.1 and r["grad_rel_l2_image_encoder"] <= 0.05)
+    else:
+        enc_rel, cap = r["grad_rel_l2_image_encoder"], (2e-3 if bn_running else 0.05)
+        ok = (loss_rel <= 1e-4 and norm_rel <= 1e-3 and r["grad_rel_l2_rest"] <= 1e-3
+              and r["worst_rel_l2_rest"] <= 1e-2 and r["bn_stats_rel_l2"] <= 1e-4
+              and enc_rel <= cap and enc_rel <= 2 * r["witness_grad_rel_l2_image_encoder"])
+        if bn_running:
+            ok = ok and r["tf32_yardstick_grad_rel_l2_image_encoder"] > cap
+    # Under fp32, K1 on its f32 chain (a core and 3 GEMMs a site), K4 in the
+    # backward: each a CUDA-core attention launch.
+    want = expected if mixed else expected[:8] + [expected[0] + expected[3], 3 * expected[0]]
+    policy = ("bf16" if mixed else "fp32") + ("_bn_running" if bn_running else "")
+    log(f"  {name} card vs CPU train step, {policy}: {json.dumps(r)}")
+    return policy, r, bool(ok and np.isfinite(r["loss_card"])), counts, want
+
+
+def _bert_qids(rng, shape, vocab):
+    return rng.randint(1, vocab, (*shape, SEQ)).astype("int64")
+
+
+def _serve_phase(torch, dev, smi, model, cfg, vocab, qids_fn, counters, expected, what, timed):
+    """One 16 x 128 serve step with every counter set to 0 just before and
+    read just after, then (timed) a few steps; the logits of one image's 64
+    questions (K1 fused, batch 64) against the CPU within a tenth of the
+    largest logit, as phase 3."""
+    import numpy as np
+
+    rng = np.random.RandomState(11)
+    size = max(256, cfg.model.image_size)
+    host_imgs = [rng.randint(0, 256, (B_IMG, size, size, 3)).astype(np.uint8) for _ in range(2)]
+    host_qids = [qids_fn(rng, (B_IMG, N_Q), vocab) for _ in range(2)]
+    step = serve_step_fn(torch, dev, model, host_imgs, host_qids, cfg.model.answer_vocab_size)
+    torch.cuda.synchronize()
+    _zero(counters)
+    vals, _ = step(0)
+    torch.cuda.synchronize()
+    counts = _counts(counters)
+    log(f"  {what}: one serve step launched " + ", ".join(f"{k} {c}" for k, c in zip(KERNELS + NEW_KERNELS, counts)))
+    if counts != expected:
+        raise AssertionError(f"{what} serve-step launch counts {counts} != {expected}")
+    if vals.shape != (B_IMG, N_Q, 5) or not np.isfinite(vals).all():
+        raise AssertionError(f"{what} serve step: bad top-k")
+    res = {"launches": dict(zip(KERNELS + NEW_KERNELS, counts))}
+    if timed:
+        step(1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for i in range(TIMED_STEPS):
+            step(i)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / TIMED_STEPS
+        res.update({"steps": TIMED_STEPS, "ms_per_step": ms, "pairs_per_s": B_IMG * N_Q / (ms / 1e3),
+                    "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+        if "--profile" in sys.argv[1:]:
+            profile_step(torch, lambda: step(0), smi, f"{what}_serve_step")
+    img = torch.from_numpy(host_imgs[0][:1])
+    ids = torch.from_numpy(host_qids[0][:1, :64])
+    res["card_vs_cpu_max_abs_err"], res["card_vs_cpu_max_logit"] = _card_vs_cpu(
+        torch, model, lambda m, d: m.answer_questions(m.encode_image(img.to(d)), ids.to(d)),
+        f"{what} serve, 1 image x 64 questions", 0.1)
+    return res
+
+
+def _eval_vs_cpu(torch, dev, model, batch, counters, expected, what):
+    """One eval forward of the batch on the card, counted, against the same
+    model on the CPU on its first two rows within a tenth of the largest
+    logit (phases 5b and 5c)."""
+    model.eval()
+    images, qids = batch["images"], batch["question_ids"]
+    with torch.inference_mode():
+        _zero(counters)
+        out = model(images, qids, train=False)
+        torch.cuda.synchronize()
+        counts = _counts(counters)
+    if counts != expected or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"{what} eval forward: launch counts {counts} != {expected} or not finite")
+    err, scale = _card_vs_cpu(torch, model, lambda m, d: m(images[:2].to(d), qids[:2].to(d)),
+                              f"{what} eval, first 2 of {images.shape[0]} rows", 0.1)
+    return {"launches": dict(zip(KERNELS + NEW_KERNELS, counts)), "card_vs_cpu_max_abs_err": err,
+            "card_vs_cpu_max_logit": scale}
+
+
+def vqa_rad_lstm_phase(torch, dev, smi, counters):
+    """Phase 6: full-width vqa_rad_lstm (ResNet-50 at 224, bi-LSTM 512,
+    hidden 512, 8 heads of 64, 2 BTIA layers, mlp head over 512 answers),
+    bf16, seeded random weights: the 16 x 128 serve step (K1 at its 4 BTIA
+    sites), timed; a few Predictor requests (buckets of at most 8: no K1);
+    one call of its registered 8 scanned train steps at batch 64 through
+    Trainer on a synthetic VQA-RAD corpus (K1 4 and K4 4 a step; finite
+    losses, BatchNorm statistics moved), one step against the CPU; one eval
+    forward against the CPU."""
+    import itertools
+
+    import numpy as np
+
+    from btia_tpu_torch.configs import get_config
+    from btia_tpu_torch.data.synthetic import generate_synthetic_dataset
+    from btia_tpu_torch.data.vocab import AnswerVocab, WordVocab
+    from btia_tpu_torch.infer.predict import Predictor
+    from btia_tpu_torch.models.model import build_model
+    from btia_tpu_torch.train.trainer import Trainer, batch_to_device, chunk_to_device
+
+    cfg = get_config("vqa_rad_lstm")
+    model = build_model(cfg.model, device=dev, seed=0)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase 6: vqa_rad_lstm ({n_params / 1e6:.1f} M params), bf16")
+    out = {"serve_step": _serve_phase(torch, dev, smi, model, cfg, cfg.model.question_vocab_size, _lstm_qids,
+                                      counters, LSTM_SERVE_COUNTS, "vqa_rad_lstm", timed=True)}
+    log(json.dumps({"vqa_rad_lstm_serve_step": {**out["serve_step"], "card": smi}}))
+    corpus = ["is the lung normal", "is there a fracture", "is the heart enlarged", "is this an mri",
+              "does the chest show pleural effusion", "is the lesion on the left", "is there a mass",
+              "is the liver normal"]
+    pred = Predictor(model, None, WordVocab.build(corpus), AnswerVocab(["yes", "no"]), cfg, device=dev)
+    rng = np.random.RandomState(12)
+    _zero(counters)
+    for n in (1, 3, 8):
+        img = rng.randint(0, 256, (300, 260, 3)).astype(np.uint8)
+        got = pred.predict_answers(img, corpus[:n])
+        if len(got) != n or not all(a in ("yes", "no") for a in got):
+            raise AssertionError(f"vqa_rad_lstm Predictor returned {got}")
+    counts = _counts(counters)
+    log(f"  Predictor: three requests of 1, 3 and 8 questions launched {counts}")
+    if any(counts):
+        raise AssertionError(f"vqa_rad_lstm Predictor buckets launched kernels: {counts}")
+    out["predictor_launches"] = counts
+    del pred, model
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_rad_") as tmp:
+        root = Path(tmp) / "vqa_rad"
+        generate_synthetic_dataset(root, num_images=100)  # ~130 closed training pairs
+        tcfg = get_config("vqa_rad_lstm", **{"data.data_dir": str(root), "train.warmup_steps": 2})
+        trainer = Trainer(tcfg, Path(tmp) / "run", device=dev)
+        K = tcfg.train.steps_per_call
+        batches = list(itertools.islice(itertools.cycle(list(trainer.data.iterator("train", seed=0))), K))
+        chunk = chunk_to_device(batches, dev)
+        bn_before = trainer.model.image_encoder.stem_bn.mean.clone()
+        torch.cuda.synchronize()
+        _zero(counters)
+        t0 = time.perf_counter()
+        _, ms = trainer.train_step_scan(trainer.state, chunk)
+        torch.cuda.synchronize()
+        call_s = time.perf_counter() - t0
+        counts = _counts(counters)
+        losses = [float(x) for x in ms["loss"]]
+        moved = (trainer.model.image_encoder.stem_bn.mean - bn_before).abs().max().item()
+        expected = [K * c for c in LSTM_TRAIN_STEP_COUNTS]
+        log(f"  one Trainer call of {K} scanned steps at batch {chunk['images'].shape[1]} in {call_s:.2f} s: "
+            f"losses {losses}, stem BatchNorm mean moved {moved:.4g}; launched {counts}")
+        if counts != expected or not np.all(np.isfinite(losses)) or not moved > 0:
+            raise AssertionError(f"vqa_rad_lstm train call: counts {counts} != {expected}, losses {losses}, "
+                                 f"BN moved {moved}")
+        out["train_call"] = {"steps": K, "batch": int(chunk["images"].shape[1]), "seconds": call_s,
+                             "ms_per_step": 1e3 * call_s / K, "losses": losses, "bn_stem_mean_moved": moved,
+                             "launches": dict(zip(KERNELS + NEW_KERNELS, counts))}
+        out["eval"] = _eval_vs_cpu(torch, dev, trainer.model, batch_to_device(batches[0], dev), counters,
+                                   LSTM_SERVE_COUNTS, "vqa_rad_lstm")
+        del trainer, chunk
+    torch.cuda.empty_cache()
+
+    def batch(c):
+        rng = np.random.RandomState(13)
+        images = torch.from_numpy(rng.randint(0, 256, (B_TRAIN, 256, 256, 3)).astype(np.uint8))
+        qids = torch.from_numpy(_lstm_qids(rng, (B_TRAIN,), c.model.question_vocab_size))
+        return images, qids, torch.from_numpy(rng.randint(1, c.model.answer_vocab_size, B_TRAIN))
+
+    out["train_step_vs_cpu"] = train_step_card_vs_cpu(torch, dev, "vqa_rad_lstm", batch, counters,
+                                                      LSTM_TRAIN_STEP_COUNTS)
+    log(json.dumps({"vqa_rad_lstm": {**out, "card": smi}}))
+    return out
+
+
+def slake_bert_phase(torch, dev, smi, counters):
+    """Phase 6b: full-width slake_bert (ResNet-50, BERT-base, 2 BTIA layers
+    at 12 heads of 64, mlp head), bf16, not timed: one serve step (K1 at the
+    12 BERT and 4 BTIA sites), one train step through Trainer on a synthetic
+    SLAKE corpus (K1 16, K4 16) and one eval forward, each against the CPU."""
+    import numpy as np
+
+    from btia_tpu_torch.configs import get_config
+    from btia_tpu_torch.data.synthetic import generate_synthetic_slake
+    from btia_tpu_torch.models.model import build_model
+    from btia_tpu_torch.train.trainer import Trainer, batch_to_device
+
+    cfg = get_config("slake_bert")
+    model = build_model(cfg.model, device=dev, seed=0)
+    log(f"phase 6b: slake_bert ({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params), bf16")
+    out = {"serve_step": _serve_phase(torch, dev, smi, model, cfg, cfg.model.bert_vocab_size, _bert_qids,
+                                      counters, SLAKE_SERVE_COUNTS, "slake_bert", timed=False)}
+    del model
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_slake_") as tmp:
+        root = generate_synthetic_slake(Path(tmp) / "slake", num_images=64)  # 128 English pairs a split
+        tcfg = get_config("slake_bert", **{"data.data_dir": str(root), "train.warmup_steps": 2})
+        trainer = Trainer(tcfg, Path(tmp) / "run", device=dev)
+        batch = batch_to_device(next(iter(trainer.data.iterator("train", seed=0))), dev)
+        torch.cuda.synchronize()
+        _zero(counters)
+        _, m = trainer.train_step(trainer.state, batch)
+        torch.cuda.synchronize()
+        counts = _counts(counters)
+        loss = float(m["loss"])
+        log(f"  one train step at batch {batch['images'].shape[0]}: loss {loss:.5f}; launched {counts}")
+        if counts != SLAKE_TRAIN_COUNTS or not np.isfinite(loss):
+            raise AssertionError(f"slake_bert train step: loss {loss}, counts {counts} != {SLAKE_TRAIN_COUNTS}")
+        out["train_step"] = {"loss": loss, "launches": dict(zip(KERNELS + NEW_KERNELS, counts))}
+        out["eval"] = _eval_vs_cpu(torch, dev, trainer.model, batch, counters, SLAKE_SERVE_COUNTS, "slake_bert")
+        del trainer, batch
+    torch.cuda.empty_cache()
+
+    def batch_fn(c):
+        rng = np.random.RandomState(14)
+        images = torch.from_numpy(rng.randint(0, 256, (B_TRAIN, 256, 256, 3)).astype(np.uint8))
+        qids = np.zeros((B_TRAIN, SEQ), np.int64)
+        for i in range(B_TRAIN):
+            n = rng.randint(3, 16)
+            qids[i, :n] = rng.randint(1, c.model.bert_vocab_size, n)
+        return images, torch.from_numpy(qids), torch.from_numpy(rng.randint(1, c.model.answer_vocab_size, B_TRAIN))
+
+    out["train_step_vs_cpu"] = train_step_card_vs_cpu(torch, dev, "slake_bert", batch_fn, counters,
+                                                      SLAKE_TRAIN_COUNTS)
+    log(json.dumps({"slake_bert": {**out, "card": smi}}))
+    return out
+
+
+def fp32_phase(torch, dev, smi, counters):
+    """Phase 6c: the fp32 policy on the card against the CPU (both f32,
+    TF32 off: the two sum in other orders only, so logits within 1e-3 of
+    the largest): vqa_rad_lstm's eval forward at batch 64 (K1 on the f32
+    GEMM and the CUDA-core attention at its 4 BTIA sites); streaming_vitl's
+    serve step of 2 images x 32 questions (K1, K2 and K3 on the f32 route);
+    tiny_test (no gate passes: no kernel), one train step (loss and gradient
+    norm within 1e-4 relative) and a Predictor answer."""
+    import numpy as np
+
+    from btia_tpu_torch.configs import get_config
+    from btia_tpu_torch.data.vocab import AnswerVocab, WordVocab
+    from btia_tpu_torch.infer.predict import Predictor
+    from btia_tpu_torch.models.model import build_model
+    from btia_tpu_torch.train.steps import create_state, make_train_step
+
+    out = {}
+    rng = np.random.RandomState(15)
+    log("phase 6c: the fp32 policy on the card against the CPU")
+
+    cfg = get_config("vqa_rad_lstm", **{"model.mixed_precision": False})
+    model = build_model(cfg.model, device=dev, seed=2)
+    images = torch.from_numpy(rng.randint(0, 256, (B_TRAIN, 256, 256, 3)).astype(np.uint8))
+    qids = torch.from_numpy(_lstm_qids(rng, (B_TRAIN,), cfg.model.question_vocab_size))
+    torch.cuda.synchronize()
+    _zero(counters)
+    with torch.inference_mode():
+        model(images.to(dev), qids.to(dev))
+    torch.cuda.synchronize()
+    counts = _counts(counters)
+    err, scale = _card_vs_cpu(torch, model, lambda m, d: m(images.to(d), qids.to(d)),
+                              "vqa_rad_lstm fp32 eval forward, batch 64", 1e-3)
+    out["vqa_rad_lstm"] = {"launches": dict(zip(KERNELS + NEW_KERNELS, counts)),
+                           "card_vs_cpu_max_abs_err": err, "card_vs_cpu_max_logit": scale}
+    if counts != F32_LSTM_COUNTS:
+        raise AssertionError(f"vqa_rad_lstm fp32 launch counts {counts} != {F32_LSTM_COUNTS}")
+    del model
+    torch.cuda.empty_cache()
+
+    cfg = get_config("streaming_vitl", **{"model.mixed_precision": False})
+    model = build_model(cfg.model, device=dev, seed=0)
+    size = max(256, cfg.model.image_size)
+    imgs = torch.from_numpy(rng.randint(0, 256, (2, size, size, 3)).astype(np.uint8))
+    ids = torch.from_numpy(_bert_qids(rng, (2, 32), cfg.model.bert_vocab_size))
+    fwd = lambda m, d: m.answer_questions(m.encode_image(imgs.to(d)), ids.to(d))
+    torch.cuda.synchronize()
+    _zero(counters)
+    with torch.inference_mode():
+        fwd(model, dev)
+    torch.cuda.synchronize()
+    counts = _counts(counters)
+    err, scale = _card_vs_cpu(torch, model, fwd, "streaming_vitl fp32 serve step, 2 images x 32 questions", 1e-3)
+    out["streaming_vitl"] = {"launches": dict(zip(KERNELS + NEW_KERNELS, counts)),
+                             "card_vs_cpu_max_abs_err": err, "card_vs_cpu_max_logit": scale}
+    if counts != F32_VITL_COUNTS:
+        raise AssertionError(f"streaming_vitl fp32 launch counts {counts} != {F32_VITL_COUNTS}")
+    del model
+    torch.cuda.empty_cache()
+
+    cfg = get_config("tiny_test", **{"model.dropout": 0.0})
+    model = build_model(cfg.model, device=dev, seed=0)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    B = cfg.train.batch_size
+    batch = {"images": torch.from_numpy(rng.randint(0, 256, (B, 256, 256, 3)).astype(np.uint8)),
+             "question_ids": torch.from_numpy(_lstm_qids(rng, (B,), cfg.model.question_vocab_size)[:, :12]),
+             "answer_ids": torch.from_numpy(rng.randint(1, cfg.model.answer_vocab_size, B))}
+    _zero(counters)
+    metrics = {}
+    for m, d in ((model, dev), (cpu_model, "cpu")):
+        state = create_state(m, cfg, steps_per_epoch=10)
+        _, met = make_train_step(m, cfg)(state, {k: v.to(d) for k, v in batch.items()})
+        metrics[str(d)] = {k: float(v) for k, v in met.items()}
+    counts = _counts(counters)
+    mg, mc = metrics[str(dev)], metrics["cpu"]
+    log(f"  tiny_test train step: card {mg}, CPU {mc}; launched {counts}")
+    if not all(abs(mg[k] - mc[k]) <= 1e-4 * abs(mc[k]) for k in ("loss", "grad_norm")):
+        raise AssertionError(f"tiny_test train step: card {mg} and CPU {mc} disagree")
+    corpus = ["is the lung normal", "what organ is shown", "is there a fracture"]
+    answers = AnswerVocab([f"answer {i}" for i in range(20)])
+    img = rng.randint(0, 256, (200, 240, 3)).astype(np.uint8)
+    got = {}
+    for m, d in ((model, dev), (cpu_model, "cpu")):
+        p = Predictor(m, None, WordVocab.build(corpus), answers, cfg, device=d)
+        got[str(d)] = (p.predict_batch(img, corpus), p.predict_answers(img, corpus))
+    counts = _counts(counters)
+    err = float(np.abs(got[str(dev)][0] - got["cpu"][0]).max())
+    scale = float(np.abs(got["cpu"][0]).max())
+    log(f"  tiny_test Predictor: {got[str(dev)][1]}; card vs CPU logits {err:.4g} at {scale:.4g}; launched {counts}")
+    if not err <= 1e-3 * scale or got[str(dev)][1] != got["cpu"][1] or counts != F32_TINY_COUNTS:
+        raise AssertionError(f"tiny_test Predictor: err {err} > {1e-3 * scale}, answers {got}, counts {counts}")
+    out["tiny_test"] = {"train_step_card": mg, "train_step_cpu": mc, "predictor_max_abs_err": err,
+                        "predictor_max_logit": scale, "launches": dict(zip(KERNELS + NEW_KERNELS, counts))}
+    del model, cpu_model
+    torch.cuda.empty_cache()
+    log(json.dumps({"fp32_policy": {**out, "card": smi}}))
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1779,6 +2504,8 @@ def main() -> int:
         print(f"chip_smoke: btia_tpu_torch/ not found beside {__file__}", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    global T0
+    T0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1811,6 +2538,8 @@ def main() -> int:
     counters = launch_counters()
     ops_rows, ops_counts = ops_api_phase(torch, dev, counters)
     rows.update(ops_rows)
+    simt_attn, simt_gemm = check_simt(torch, dev)
+    log(f"  (phase 2c done at {time.perf_counter() - T0:.0f} s)")
 
     # Phase 3: Predictor on full-width streaming_vitl.
     cfg = get_config("streaming_vitl")
@@ -1931,9 +2660,33 @@ def main() -> int:
     log(json.dumps({"train_step": train["train_step"]}))
     wide = wide_heads_phase(torch, dev, smi, counters)
     pathvqa = pathvqa_phase(torch, dev, smi, counters)
+    log(f"  (phase 5c done at {time.perf_counter() - T0:.0f} s)")
 
-    by_path = [{"serve_step": a, "int8_serve_step": c, "train_step": b, "ops_api": d}
-               for a, b, c, d in zip(main_counts, train["train_counts"], int8_counts, ops_counts)]
+    # Phases 6, 6b and 6c: the ResNet / LSTM / mlp-head configs, and the
+    # fp32 policy, with every counter (K1..K8 and the CUDA-core kernels).
+    all_counters = counters + new_counters()
+    lstm = vqa_rad_lstm_phase(torch, dev, smi, all_counters)
+    log(f"  (phase 6 done at {time.perf_counter() - T0:.0f} s)")
+    slake = slake_bert_phase(torch, dev, smi, all_counters)
+    log(f"  (phase 6b done at {time.perf_counter() - T0:.0f} s)")
+    fp32 = fp32_phase(torch, dev, smi, all_counters)
+    log(f"  (phase 6c done at {time.perf_counter() - T0:.0f} s)")
+    new_paths = {
+        "vqa_rad_lstm_serve_step": lstm["serve_step"]["launches"],
+        "vqa_rad_lstm_train_call": lstm["train_call"]["launches"],
+        "slake_bert_serve_step": slake["serve_step"]["launches"],
+        "slake_bert_train_step": slake["train_step"]["launches"],
+        "fp32_forwards": {k: sum(fp32[c]["launches"][k] for c in ("vqa_rad_lstm", "streaming_vitl", "tiny_test"))
+                          for k in KERNELS + NEW_KERNELS},
+    }
+    by_path = [{"serve_step": a, "int8_serve_step": c, "train_step": b, "ops_api": d,
+                **{p: v[k] for p, v in new_paths.items()}}
+               for a, b, c, d, k in zip(main_counts, train["train_counts"], int8_counts, ops_counts, KERNELS)]
+    for k in NEW_KERNELS:
+        if not new_paths["fp32_forwards"][k]:
+            raise AssertionError(f"{k} was not launched on the fp32 path")
+        if any(v[k] for p, v in new_paths.items() if p != "fp32_forwards"):
+            raise AssertionError(f"{k} was launched on a bf16 path at head widths up to 256: {new_paths}")
     widths = [768 // h for h in WIDE_HEADS]
     k1_sites = ("bert", "btia_i2t", "btia_t2i", "med_bert", "med_i2t", "med_t2i",
                 *(f"med_{site}_d{hw}" for hw in widths for site in ("bert", "i2t")))
@@ -1992,7 +2745,32 @@ def main() -> int:
         "bound_ms_per_step": sum(x["bound_ms"] * x["launches_per_step"] for x in int8_rows.values()),
         "sites": int8_rows,
     })
+    for name, rep, src, replaces, sites in (
+        ("simt_attention", "k1_core_f32_i2t", "btia_tpu_torch/csrc/attn_simt.cu",
+         "btia_tpu/ops/fused_attn.py:179, btia_tpu/ops/fused_attn.py:561, btia_tpu/ops/attention.py:563, "
+         "btia_tpu/ops/attention.py:349, btia_tpu/ops/attention.py:160, btia_tpu/ops/bicross.py:87 "
+         "(K1-K6 on f32 operands and bf16 heads of 257-1024)", simt_attn),
+        ("gemm_f32", "lstm_i2t_q", "btia_tpu_torch/csrc/gemm_f32.cu",
+         "btia_tpu/ops/fused_attn.py:179, btia_tpu/ops/fused_attn.py:561 (K1/K2's projections on f32 operands)",
+         simt_gemm),
+    ):
+        r = sites[rep]
+        paths = {p: v[name] for p, v in new_paths.items()}
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": sum(paths.values()), "launches_by_path": paths,
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "library": "F.scaled_dot_product_attention" if name == "simt_attention" else "F.linear (TF32 off)",
+            "sites": sites,
+        })
     log(json.dumps({"summary": {
+        "vqa_rad_lstm_serve_ms": lstm["serve_step"]["ms_per_step"],
+        "vqa_rad_lstm_pairs_per_s": lstm["serve_step"]["pairs_per_s"],
+        "vqa_rad_lstm_train_ms_per_step": lstm["train_call"]["ms_per_step"],
+        "fp32_card_vs_cpu": {c: [fp32[c].get("card_vs_cpu_max_abs_err"), fp32[c].get("card_vs_cpu_max_logit")]
+                             for c in ("vqa_rad_lstm", "streaming_vitl")},
+        "elapsed_s": time.perf_counter() - T0,
         "serve_ms": step_ms, "int8_serve_ms": int8_res["ms_per_step"],
         "train_ms": train["train_step"]["ms_per_step"],
         "wide_heads": {hw: [r["eval_card_vs_cpu_max_abs_err"], r["eval_max_logit"]] for hw, r in wide.items()},

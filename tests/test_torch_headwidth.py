@@ -336,16 +336,25 @@ def test_static_q_gate_matches_reference(H, HD, B, widths, monkeypatch, restore_
 
 
 @pytest.mark.parametrize("Dh", [32, 96, 320, 384])
-def test_cuda_wrappers_raise_through_the_predicates(Dh):
-    """The CUDA halves of K1/K2's core, K3 and K4 refuse a head width their
-    predicate refuses, before any kernel is built or launched."""
+def test_cuda_wrappers_raise_through_the_predicates(Dh, monkeypatch):
+    """The CUDA halves of K1/K2's core, K3 and K4 refuse a bf16 head width
+    their tensor-core predicate refuses at or below 256 (D = 32, 96), before
+    any kernel is built or launched; above 256 (D = 320, 384) they take the
+    wide route, the CUDA-core kernel, which refuses these CPU tensors before
+    anything is built."""
     H = 2
     x = torch.zeros(1, 4, H * Dh, dtype=torch.bfloat16)
     widths = r"\(64, 128, 192, 256\)"
-    with pytest.raises(ValueError, match="K3 kernel takes head widths " + widths):
+    monkeypatch.setattr(A._native, "lib", lambda: pytest.fail("a kernel was built"))
+    wide = Dh > 256
+    match = (lambda what: r"the CUDA kernel takes a .*CUDA tensor, got torch.bfloat16 on cpu") if wide else (
+        lambda what: what + " takes head widths " + widths)
+    with pytest.raises(ValueError, match=match("K3 kernel")):
         A._bshd_flash_cuda(x, x, x, None, H)
-    with pytest.raises(ValueError, match="K4 kernel takes head widths " + widths):
+    with pytest.raises(ValueError, match=match("K4 kernel")):
         A._fanout_cuda(x, x, x, torch.ones(1, 4), H)
-    with pytest.raises(ValueError, match="attention core takes head widths " + widths):
-        FA._core_cuda(x.view(4, H * Dh), torch.zeros(4, 2 * H * Dh), None, 1, 4, 4, H)
+    with pytest.raises(ValueError, match=match("attention core")):
+        FA._core_cuda(x.view(4, H * Dh), torch.zeros(4, 2 * H * Dh, dtype=torch.bfloat16), None, 1, 4, 4, H)
     assert not (A.k3_takes(Dh) or A.k4_takes(Dh) or FA.core_takes(Dh))
+    for takes in (A.k3_takes, A.k4_takes, FA.core_takes):
+        assert A.attention_route(torch.bfloat16, Dh, takes) == ("simt" if wide else None)

@@ -447,11 +447,18 @@ def test_k5_k6_entries_have_no_fallback():
     with pytest.raises(ValueError, match="unsupported device"):
         BX.bicross_bhsd_attention(t, t, t, t, t, t)
     assert A.mha_bhsd_attention.launches == 0 and BX.bicross_bhsd_attention.launches == 0
-    # The CUDA halves refuse, through their predicates, a width their
-    # kernels do not take, before anything is built or launched.
-    with pytest.raises(ValueError, match="K5 kernel takes head widths up to 256, got 264"):
-        A._mha_bhsd_cuda(*(torch.zeros(1, 2, 8, 264),) * 3, None)
+    # The CUDA halves refuse, through their predicates, a width no kernel
+    # takes (above 1024), before anything is built or launched; from 257 to
+    # 1024 (and in f32) they take the CUDA-core kernel, which refuses a CPU
+    # tensor, also before anything is built.
+    with pytest.raises(ValueError, match=r"K5 kernel takes head widths up to 256 in bf16.*D = 1032"):
+        A._mha_bhsd_cuda(*(torch.zeros(1, 2, 8, 1032),) * 3, None)
     for D in (264, 320):
         x = torch.zeros(1, 2, 8, D)
-        with pytest.raises(ValueError, match=f"K6 kernel takes head widths up to 256, got {D}"):
+        with pytest.raises(ValueError, match="the CUDA kernel takes a torch.float32 CUDA tensor, got torch.float32 on cpu"):
             BX._bicross_cuda(x, x, x, x, x, x, None)
+        with pytest.raises(ValueError, match="the CUDA kernel takes a torch.float32 CUDA tensor, got torch.float32 on cpu"):
+            A._mha_bhsd_cuda(x, x, x, None)
+    x = torch.zeros(1, 2, 8, 1040, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=r"K6 kernel takes head widths up to 256 in bf16.*D = 1040"):
+        BX._bicross_cuda(x, x, x, x, x, x, None)
