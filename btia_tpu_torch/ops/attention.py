@@ -31,11 +31,12 @@ The roads are the reference's gates, whatever the head width or dtype.
 Each CUDA entry picks its kernel by (dtype, head width), ``attention_route``:
 bf16 at the widths its tensor-core kernel is built for goes there (the
 ``*_takes`` predicates: K3 and K4 ``TILE_HEAD_WIDTHS``, the multiples of 64
-up to 256; K5 and K6, in ``ops/bicross.py``, every width up to 256); f32 at
-any width up to ``SIMT_MAX_HEAD_WIDTH`` (1024), and bf16 above 256, go to
-the CUDA-core kernel ``csrc/attn_simt.cu`` (``simt_attention``), which
-computes f32 in f32; any other operand raises before anything is built. No
-route casts f32 to bf16. K3 and K5 share one
+up to 256; K5 and K6, in ``ops/bicross.py``, every width up to 256); bf16
+from 257 to ``SIMT_MAX_HEAD_WIDTH`` (1024) to the wide-head tensor-core
+kernel ``csrc/attn_wide.cu`` (``wide_attention``); f32 at any width up to
+1024 to the CUDA-core kernel ``csrc/attn_simt.cu`` (``simt_attention``),
+which computes f32 in f32; any other operand raises before anything is
+built. No route casts f32 to bf16. K3 and K5 share one
 kernel (``csrc/flash_bshd.cu``): K5 gives it the (B, H, S, D) views with
 their own strides, K3 the packed (B, S, H*D) layout. K4 and K6 share the
 short-sequence kernel (``csrc/short_flash.cuh``), whose work items
@@ -208,85 +209,122 @@ def _bhsd_operand(t: torch.Tensor, what: str):
     copied."""
     if not t.is_cuda or t.dtype != torch.bfloat16:
         raise ValueError(f"{what}: the CUDA kernel takes a bf16 CUDA tensor, got {t.dtype} on {t.device}")
-
-    def strides(x):
-        shape, stride = x.shape, x.stride()
-        span = max([shape[3]] + [stride[i] * shape[i] for i in range(3) if shape[i] > 1])
-        return [span if shape[i] == 1 else stride[i] for i in range(3)]
-
-    st = strides(t)
+    st = _spans(t)
     if t.stride(3) != 1 or t.data_ptr() % 16 or any(s <= 0 or s % 8 for s in st):
         t = t.contiguous()
         if t.data_ptr() % 16:  # packed, but at an unaligned storage offset
             t = t.clone()
-        st = strides(t)
+        st = _spans(t)
     return t, st
 
 
 # Head widths the tensor-core tiles of K1/K2's core, K3 and K4 are built
 # for: the multiples of 64 up to 256. The reference's gates (``D % 64 == 0``)
-# have no upper bound; a wider head goes to the CUDA-core kernel.
+# have no upper bound; a wider bf16 head goes to the wide-head kernel.
 TILE_HEAD_WIDTHS = (64, 128, 192, 256)
-# The CUDA-core kernel (csrc/attn_simt.cu) takes every head width up to
-# 1024, ViT-L's hidden width and the widest head a registered config can
-# give; its 16 x D f32 q rows and accumulator stay in shared memory.
+# The widest head either of the routes below takes: ViT-L's hidden width,
+# the widest head a registered config can give.
 SIMT_MAX_HEAD_WIDTH = 1024
-_SIMT_ELEM = {torch.float32: 0, torch.bfloat16: 1}
+# The f32 kernel (csrc/attn_simt.cu) computes a head's output in slices of
+# at most this many columns, one slice a block (a head up to 64 wide in one
+# slice of 64); the wide bf16 kernel (csrc/attn_wide.cu) in balanced slices
+# of at most WIDE_SLICE columns, as many as a warpgroup's registers hold.
+SIMT_SLICE = 128
+WIDE_SLICE = 256
 
 
 def attention_route(dtype: torch.dtype, head_dim: int, tensor_core_takes) -> Optional[str]:
     """The kernel an attention entry launches for operands of `dtype` at
     head width `head_dim`: "wgmma" (the entry's tensor-core kernel, bf16 at
-    the widths `tensor_core_takes` names), "simt" (``csrc/attn_simt.cu``:
-    f32 at any width up to ``SIMT_MAX_HEAD_WIDTH``, bf16 from 257 to it), or
-    None where no kernel takes them."""
-    if head_dim != int(head_dim):  # H does not divide H*D
+    the widths `tensor_core_takes` names), "wide" (``csrc/attn_wide.cu``,
+    tensor cores: bf16 from 257 to ``SIMT_MAX_HEAD_WIDTH``), "simt"
+    (``csrc/attn_simt.cu``, CUDA cores: f32 at any width up to it), or None
+    where no kernel takes them."""
+    if head_dim != int(head_dim) or not 1 <= head_dim <= SIMT_MAX_HEAD_WIDTH:
         return None
-    if dtype == torch.bfloat16 and tensor_core_takes(head_dim):
-        return "wgmma"
-    wide = dtype == torch.float32 or (dtype == torch.bfloat16 and head_dim > 256)
-    return "simt" if wide and 1 <= head_dim <= SIMT_MAX_HEAD_WIDTH else None
+    if dtype == torch.bfloat16:
+        return "wgmma" if tensor_core_takes(head_dim) else "wide" if head_dim > 256 else None
+    return "simt" if dtype == torch.float32 else None
 
 
 def _route_or_raise(dtype, head_dim, tensor_core_takes, what, widths) -> str:
     route = attention_route(dtype, head_dim, tensor_core_takes)
     if route is None:
         raise ValueError(
-            f"{what} takes head widths {widths} in bf16, and up to {SIMT_MAX_HEAD_WIDTH} in f32 "
-            f"(in bf16 above 256) on the CUDA-core kernel; got {dtype} at D = {head_dim:g}"
+            f"{what} takes head widths {widths} in bf16 (and above 256 up to {SIMT_MAX_HEAD_WIDTH} on the "
+            f"wide-head kernel), and up to {SIMT_MAX_HEAD_WIDTH} in f32 on the CUDA-core kernel; "
+            f"got {dtype} at D = {head_dim:g}"
         )
     return route
 
 
-def simt_attention(problems, head_dim: int, mult_mask: bool) -> None:
-    """Launch the CUDA-core attention kernel (``csrc/attn_simt.cu``) on one
-    or two problems (K6's two directions), each ``(ptrs, mask, strides,
-    dims, qscale, like)``: device pointers of q, k, v and o; a (B, Sk) key
-    mask (bool, read as bytes, or {0, 1} f32) or None; the (batch, head, row)
-    strides in elements of q, k, v and o (12); (B, H, Sq, Sk); the factor q
-    is scaled by (then rounded to the element type); and a tensor of the
-    problem's dtype and device. ``mult_mask`` picks K1/K2/K4's mask (after
-    exp2, a fully masked row gives 0) over K3/K5/K6's additive -1e9.
-    Counts its launches in ``.launches``."""
-    like = problems[0][5]
-    masks = [None if m is None else (m.contiguous() if m.dtype == torch.bool else m.to(torch.float32).contiguous())
-             for _, m, *_ in problems]
+def simt_plan(problems, head_dim: int) -> list:
+    """The f32 kernel's plan (``btia_attn_simt``) for problems of (q, k, v,
+    o, mask, qscale) f32 (B, H, S, D) views: [query rows a block, output
+    columns a block, load path]. 32 rows where every problem's Sq <= 32 (the
+    K1 sites at 32 question tokens), else 64; 64 columns for D <= 64, else
+    ``SIMT_SLICE`` (a wider head splits over the grid); 16-byte copies
+    (path 1) where every pointer is 16-byte aligned and every stride and D
+    are multiples of 4 elements, else 4-byte copies (path 0)."""
+    bq = 32 if all(p[0].shape[2] <= 32 for p in problems) else 64
+    slice_w = 64 if head_dim <= 64 else SIMT_SLICE
+    views = [t for p in problems for t in p[:4]]
+    vec = head_dim % 4 == 0 and all(t.data_ptr() % 16 == 0 and all(s % 4 == 0 for s in t.stride()[:3])
+                                    for t in views)
+    return [bq, slice_w, int(vec)]
+
+
+def wide_plan(dw: int) -> list:
+    """The wide kernel's plan (``btia_attn_wide``) for a head padded to `dw`
+    columns: [slice width, slices]. As few slices of at most ``WIDE_SLICE``
+    columns as cover the head, each rounded up to a multiple of 64 (192 or
+    256 above 256 columns): D 384 as 2 x 192, 512 as 2 x 256, 1024 as
+    4 x 256."""
+    n = -(-dw // WIDE_SLICE)
+    return [-(-dw // (64 * n)) * 64, n]
+
+
+def _problem_args(problems):
+    """The C entries' problem arrays from (q, k, v, o, mask, qscale)
+    (B, H, S, D) views: device pointers (q, k, v, o, mask), (batch, head,
+    row) strides, (B, H, Sq, Sk), the q scales, and the masks' element size
+    (1: bool read as bytes; 4: f32 {0, 1}). Returns them with the masks,
+    which must outlive the launch."""
+    masks = [None if p[4] is None else (p[4].contiguous() if p[4].dtype == torch.bool
+                                        else p[4].to(torch.float32).contiguous()) for p in problems]
     mask_bytes = {1 if m.dtype == torch.bool else 4 for m in masks if m is not None} or {4}
     if len(mask_bytes) != 1:
-        raise ValueError("simt_attention: the problems' key masks must share a dtype")
+        raise ValueError("attention: the problems' key masks must share a dtype")
     ptrs, strides, dims, scales = [], [], [], []
-    for (p, _, st, dm, qs, _), m in zip(problems, masks):
-        ptrs += [*p, None if m is None else m.data_ptr()]
-        strides += list(st)
-        dims += list(dm)
-        scales.append(qs)
+    for (q, k, v, o, _, qscale), m in zip(problems, masks):
+        ptrs += [t.data_ptr() for t in (q, k, v, o)] + [None if m is None else m.data_ptr()]
+        strides += [s for t in (q, k, v, o) for s in t.stride()[:3]]
+        dims += [q.shape[0], q.shape[1], q.shape[2], k.shape[2]]
+        scales.append(qscale)
     n = len(problems)
+    return ((ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_longlong * len(strides))(*strides),
+            (ctypes.c_int * len(dims))(*dims), (ctypes.c_float * n)(*scales), mask_bytes.pop(), masks)
+
+
+def simt_attention(problems, head_dim: int, mult_mask: bool) -> None:
+    """Launch the f32 kernel (``csrc/attn_simt.cu``, CUDA cores) on one or two
+    problems (K6's two directions), each ``(q, k, v, o, mask, qscale)``:
+    f32 (B, H, S, D) views read and written through their strides (o
+    in place); a (B, Sk) key mask (bool, read as bytes, or {0, 1} f32) or
+    None; the factor q is scaled by. ``mult_mask`` picks K1/K2/K4's mask
+    (after exp2, a fully masked row gives 0) over K3/K5/K6's additive -1e9.
+    Counts its launches in ``.launches``."""
+    for p in problems:
+        for t in p[:4]:
+            _native.require(t, "CUDA-core attention", torch.float32, contiguous=False)
+    problems = [(*(t if t.stride(3) == 1 else t.contiguous() for t in p[:3]), *p[3:]) for p in problems]
+    if any(p[3].stride(3) != 1 for p in problems):
+        raise ValueError("CUDA-core attention: the output's columns must be packed")
+    ptrs, strides, dims, scales, mask_bytes, masks = _problem_args(problems)
+    plan = simt_plan(problems, head_dim)
     _native.check(
-        _native.lib().btia_attn_simt(
-            (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_longlong * len(strides))(*strides),
-            (ctypes.c_int * len(dims))(*dims), (ctypes.c_float * n)(*scales), n, head_dim,
-            mask_bytes.pop(), int(mult_mask), _SIMT_ELEM[like.dtype], _native.stream(like),
-        ),
+        _native.lib().btia_attn_simt(ptrs, strides, dims, scales, len(problems), head_dim, mask_bytes,
+                                     int(mult_mask), (ctypes.c_int * 3)(*plan), _native.stream(problems[0][0])),
         "btia_attn_simt",
     )
     simt_attention.launches += 1
@@ -295,24 +333,83 @@ def simt_attention(problems, head_dim: int, mult_mask: bool) -> None:
 simt_attention.launches = 0
 
 
-def _simt_bshd(q, k, v, mask, num_heads, qscale, mult_mask, what):
-    """The CUDA-core kernel on packed (B, S, H*D) q, k, v (K3, K4)."""
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    for t in (q, k, v):  # the route took q's dtype: f32 or bf16
-        _native.require(t, what, q.dtype)
-    out = torch.empty_like(q)
-    B, Sq, HD = q.shape
-    st = [s for t in (q, k, v, out) for s in fanout_strides(t, num_heads)]
-    simt_attention([((q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr()), mask, st,
-                     (B, num_heads, Sq, k.shape[1]), qscale, q)], HD // num_heads, mult_mask)
+def _spans(t: torch.Tensor) -> list:
+    """t's (batch, head, row) strides with a dimension of size 1 given the
+    span of the others: any stride reads its one index, and TMA takes only
+    nonzero multiples of 16 bytes."""
+    shape, stride = t.shape, t.stride()
+    span = max([shape[3]] + [stride[i] * shape[i] for i in range(3) if shape[i] > 1])
+    return [span if shape[i] == 1 else stride[i] for i in range(3)]
+
+
+def wide_operand(t: torch.Tensor, dw: int) -> torch.Tensor:
+    """A (B, H, S, D) bf16 view as the wide kernel's TMA reads it: D padded to
+    dw (one zero-padded copy where D % 8), columns packed, a 16-byte aligned
+    base, (batch, head, row) strides nonzero multiples of 8 elements (a
+    dimension of size 1 takes ``_spans``); a batch stride of 0 (one row that
+    every batch row reads: K2's query table) is kept. Copied only where the
+    view does not allow that."""
+    if t.shape[3] != dw:
+        t = torch.nn.functional.pad(t, (0, dw - t.shape[3]))
+    st = _spans(t)
+    if t.shape[0] > 1 and t.stride(0) == 0:
+        st[0] = 0
+    if t.stride(3) != 1 or t.data_ptr() % 16 or any(s % 8 for s in st) or min(st[1:]) <= 0 or st[0] < 0:
+        t = t.contiguous()
+        if t.data_ptr() % 16:  # packed, but at an unaligned storage offset
+            t = t.clone()
+        st = _spans(t)
+    return t.as_strided(t.shape, (*st, 1))
+
+
+def wide_attention(problems, head_dim: int, mult_mask: bool) -> None:
+    """Launch the wide-head kernel (``csrc/attn_wide.cu``, tensor cores) on
+    one or two problems as ``simt_attention`` takes them, bf16 at head widths
+    of 257 to 1024: q, k and v read in place where TMA can (``wide_operand``),
+    o written in place where its rows are 16-byte aligned, else through one
+    padded buffer. Counts its launches in ``.launches``."""
+    for p in problems:
+        for t in p[:4]:
+            _native.require(t, "wide-head attention", torch.bfloat16, contiguous=False)
+    dw = _round8(head_dim)
+    staged, outs = [], []
+    for q, k, v, o, mask, qscale in problems:
+        st = list(o.stride())
+        direct = dw == head_dim and st[3] == 1 and o.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in st[:3])
+        out = o if direct else torch.empty((*o.shape[:3], dw), dtype=o.dtype, device=o.device)
+        outs.append((o, out))
+        staged.append((wide_operand(q, dw), wide_operand(k, dw), wide_operand(v, dw),
+                       out.as_strided(out.shape, (*_spans(out), 1)), mask, qscale))
+    ptrs, strides, dims, scales, mask_bytes, masks = _problem_args(staged)
+    plan = wide_plan(dw)
+    _native.check(
+        _native.lib().btia_attn_wide(ptrs, strides, dims, scales, len(staged), dw, mask_bytes, int(mult_mask),
+                                     (ctypes.c_int * 2)(*plan), _native.stream(staged[0][0])),
+        "btia_attn_wide",
+    )
+    for o, out in outs:
+        if out is not o:
+            o.copy_(out[..., :head_dim])
+    wide_attention.launches += 1
+
+
+wide_attention.launches = 0
+
+
+def attend(route: str, problems, head_dim: int, mult_mask: bool) -> None:
+    """``simt_attention`` (route "simt") or ``wide_attention`` ("wide")."""
+    (simt_attention if route == "simt" else wide_attention)(problems, head_dim, mult_mask)
+
+
+def _attend_bshd(route, q, k, v, mask, num_heads, qscale, mult_mask, what):
+    """K3 and K4 on the f32 or wide-head kernel: (B, S, H*D) q, k, v read
+    as (B, H, S, D) views; the output packed (B, Sq, H*D)."""
+    for t in (q, k, v):  # the route took q's dtype
+        _native.require(t, what, q.dtype, contiguous=False)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    heads = [t.unflatten(2, (num_heads, -1)).transpose(1, 2) for t in (q, k, v, out)]
+    attend(route, [(*heads, mask, qscale)], q.shape[2] // num_heads, mult_mask)
     return out
-
-
-def _simt_bhsd_operand(t):
-    """A (B, H, S, D) operand with D packed, and its (batch, head, row)
-    strides: read in place through them, a zero (broadcast) stride too."""
-    t = t if t.stride(-1) == 1 else t.contiguous()
-    return t, list(t.stride()[:3])
 
 
 def k3_takes(head_dim: int) -> bool:
@@ -327,7 +424,7 @@ def k4_takes(head_dim: int) -> bool:
 
 # K5's widest head on the tensor cores: the kernel's four templates pad D to
 # 64, 128, 192 or 256 in shared memory. The reference pads any width; a
-# wider head takes the CUDA-core kernel.
+# wider bf16 head takes the wide-head kernel.
 K5_MAX_HEAD_WIDTH = 256
 
 
@@ -343,14 +440,11 @@ def _mha_bhsd_cuda(q, k, v, kv_mask) -> torch.Tensor:
     route = _route_or_raise(q.dtype, D, k5_takes, "K5 kernel", f"up to {K5_MAX_HEAD_WIDTH}")
     if min(B, Sq, Sk) == 0:
         raise ValueError(f"K5 kernel takes B, Sq, Sk >= 1, got {(B, Sq, Sk)}")
-    if route == "simt":
-        for t in (q, k, v):
+    if route != "wgmma":
+        for t in (q, k, v):  # the route took q's dtype
             _native.require(t, "mha_bhsd_attention", q.dtype, contiguous=False)
-        ops = [_simt_bhsd_operand(t) for t in (q, k, v)]
-        out = torch.empty_like(ops[0][0])
-        st = [s for _, x in ops for s in x] + list(out.stride()[:3])
-        simt_attention([(tuple(t.data_ptr() for t, _ in ops) + (out.data_ptr(),), kv_mask, st,
-                         (B, H, Sq, Sk), _log2_scale(D), q)], D, mult_mask=False)
+        out = torch.empty_like(q if q.stride(3) == 1 else q.contiguous())
+        attend(route, [(q, k, v, out, kv_mask, _log2_scale(D))], D, mult_mask=False)
         return out
     dw = -(-D // 8) * 8
     if dw != D:
@@ -399,8 +493,8 @@ def mha_bhsd_attention(
 ) -> torch.Tensor:
     """K5: q (B, H, Sq, D), k/v (B, H, Sk, D) in any strides with D packed,
     kv_mask (B, Sk) True=valid; on the card bf16 D up to 256 on the tensor
-    cores (``k5_takes``), f32 and wider bf16 heads up to 1024 on the
-    CUDA-core kernel (``attention_route``).
+    cores (``k5_takes``), bf16 heads of 257-1024 on the wide-head kernel and
+    f32 up to 1024 on the CUDA-core kernel (``attention_route``).
 
     A CUDA tensor launches the kernel (counted in ``.launches``) or raises;
     a CPU tensor takes the plain twin. A row whose every key is masked
@@ -460,8 +554,8 @@ def _bshd_flash_cuda(q, k, v, kv_mask, num_heads: int) -> torch.Tensor:
                             "K3 kernel", TILE_HEAD_WIDTHS)
     if Sq == 0 or Sk == 0 or B == 0:
         raise ValueError(f"K3 kernel takes B, Sq, Sk >= 1, got {(B, Sq, Sk)}")
-    if route == "simt":
-        return _simt_bshd(q, k, v, kv_mask, num_heads, _log2_scale(D), False, "bshd_flash_attention")
+    if route != "wgmma":
+        return _attend_bshd(route, q, k, v, kv_mask, num_heads, _log2_scale(D), False, "bshd_flash_attention")
     q, k, v = _native.aligned(q), _native.aligned(k), _native.aligned(v)
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _native.require(t, f"bshd_flash_attention {name}")
@@ -505,7 +599,8 @@ def bshd_flash_attention(
 ) -> torch.Tensor:
     """K3: q (B, Sq, H*D), k/v (B, Sk, H*D), kv_mask (B, Sk) True=valid; on
     the card bf16 D in ``TILE_HEAD_WIDTHS`` on the tensor cores
-    (``k3_takes``), f32 and bf16 heads of 257-1024 on the CUDA-core kernel.
+    (``k3_takes``), bf16 heads of 257-1024 on the wide-head kernel, f32 up to
+    1024 on the CUDA-core kernel.
 
     A CUDA tensor launches the kernel (counted in ``.launches``) or raises;
     a CPU tensor takes the plain twin."""
@@ -594,8 +689,9 @@ def _fanout_cuda(q, k, v, colmask, num_heads: int, pack: bool = True) -> torch.T
                             "K4 kernel", TILE_HEAD_WIDTHS)
     if min(B, Sq, Sk) == 0:
         raise ValueError(f"K4 kernel takes B, Sq, Sk >= 1, got {(B, Sq, Sk)}")
-    if route == "simt":
-        return _simt_bshd(q, k, v, colmask.to(torch.float32), num_heads, _log2_scale(D), True, "fanout_attention")
+    if route != "wgmma":
+        return _attend_bshd(route, q, k, v, colmask.to(torch.float32), num_heads, _log2_scale(D), True,
+                            "fanout_attention")
     q, k, v = _native.aligned(q), _native.aligned(k), _native.aligned(v)
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _native.require(t, f"fanout_attention {name}")
@@ -641,7 +737,8 @@ def fanout_attention(
 ) -> torch.Tensor:
     """K4: q (B, Sq, H*D), k/v (B, Sk, H*D), colmask (B, Sk) f32 {0, 1}; on
     the card bf16 D in ``TILE_HEAD_WIDTHS`` on the tensor cores
-    (``k4_takes``), f32 and bf16 heads of 257-1024 on the CUDA-core kernel.
+    (``k4_takes``), bf16 heads of 257-1024 on the wide-head kernel, f32 up to
+    1024 on the CUDA-core kernel.
 
     A fully masked row gives 0. A CUDA tensor launches the kernel (counted
     in ``.launches``) or raises; a CPU tensor takes the plain twin."""

@@ -5,9 +5,10 @@
 
 K6, ``bicross_bhsd_attention`` (``csrc/bicross.cu`` on the short-sequence
 kernel of ``csrc/short_flash.cuh``), computes both directions in one launch,
-at any head width up to 256 in bf16; f32 operands, and bf16 ones from 257 to
-1024 wide, take the CUDA-core kernel (``csrc/attn_simt.cu``), both
-directions in one launch too (``attention.attention_route``). The BTIA block does not call it (its two
+at any head width up to 256 in bf16; bf16 heads from 257 to 1024 take the
+wide-head kernel (``csrc/attn_wide.cu``) and f32 operands the CUDA-core
+kernel (``csrc/attn_simt.cu``), both directions in one launch too
+(``attention.attention_route``). The BTIA block does not call it (its two
 directions are K1 sites, ``models/btia.py``); it is an explicit op and an
 oracle, reached through ``bicross_attention(impl="pallas")``, through
 ``bicross_attention`` with the switch on the kernels and Ni*Nt above
@@ -27,7 +28,7 @@ import torch
 from btia_tpu_torch.ops import _native
 from btia_tpu_torch.ops.attention import (
     SMALL_SCORE_TILE, _bhsd_operand, _log2_scale, _mha_bhsd_plain, _round8, _resolved_impl,
-    _route_or_raise, _simt_bhsd_operand, mha_bshd, mha_reference, short_plan, simt_attention,
+    _route_or_raise, attend, mha_bshd, mha_reference, short_plan,
 )
 
 
@@ -47,7 +48,7 @@ def _bicross_plain(qi, ki, vi, qt, kt, vt, txt_mask):
 
 # K6's widest head on the tensor cores: the short-sequence kernel's
 # templates pad D to 64, 128, 192 or 256 in shared memory, as K5's do. The
-# reference pads any width; a wider head takes the CUDA-core kernel.
+# reference pads any width; a wider bf16 head takes the wide-head kernel.
 K6_MAX_HEAD_WIDTH = 256
 
 
@@ -57,24 +58,14 @@ def k6_takes(head_dim: int) -> bool:
     return 1 <= head_dim <= K6_MAX_HEAD_WIDTH
 
 
-def _bicross_simt(qi, ki, vi, qt, kt, vt, txt_mask):
-    """Both directions in one launch of the CUDA-core kernel (grid z picks
-    the direction), each operand read in place through its strides."""
-    B, H, Ni, D = qi.shape
-    Nt = qt.shape[2]
-    for t in (qi, ki, vi, qt, kt, vt):
+def _bicross_views(route, qi, ki, vi, qt, kt, vt, txt_mask):
+    """Both directions in one launch of the CUDA-core or wide-head kernel
+    (its two problems), each operand read through its strides."""
+    for t in (qi, ki, vi, qt, kt, vt):  # the route took qi's dtype
         _native.require(t, "bicross_bhsd_attention", qi.dtype, contiguous=False)
-    ops = [_simt_bhsd_operand(t) for t in (qi, ki, vi, qt, kt, vt)]
-    (qi, sqi), (ki, ski), (vi, svi), (qt, sqt), (kt, skt), (vt, svt) = ops
-    oi, ot = torch.empty_like(qi), torch.empty_like(qt)
-    so = lambda t: list(t.stride()[:3])
-    c = _log2_scale(D)
-    simt_attention([
-        ((qi.data_ptr(), kt.data_ptr(), vt.data_ptr(), oi.data_ptr()), txt_mask,
-         sqi + skt + svt + so(oi), (B, H, Ni, Nt), c, qi),
-        ((qt.data_ptr(), ki.data_ptr(), vi.data_ptr(), ot.data_ptr()), None,
-         sqt + ski + svi + so(ot), (B, H, Nt, Ni), c, qi),
-    ], D, mult_mask=False)
+    oi, ot = (torch.empty_like(x if x.stride(3) == 1 else x.contiguous()) for x in (qi, qt))
+    c = _log2_scale(qi.shape[3])
+    attend(route, [(qi, kt, vt, oi, txt_mask, c), (qt, ki, vi, ot, None, c)], qi.shape[3], mult_mask=False)
     return oi, ot
 
 
@@ -84,8 +75,8 @@ def _bicross_cuda(qi, ki, vi, qt, kt, vt, txt_mask, pack: bool = True):
     route = _route_or_raise(qi.dtype, D, k6_takes, "K6 kernel", f"up to {K6_MAX_HEAD_WIDTH}")
     if min(B, H, Ni, Nt) == 0:
         raise ValueError(f"K6 kernel takes B, H, Ni, Nt >= 1, got {(B, H, Ni, Nt)}")
-    if route == "simt":
-        return _bicross_simt(qi, ki, vi, qt, kt, vt, txt_mask)
+    if route != "wgmma":
+        return _bicross_views(route, qi, ki, vi, qt, kt, vt, txt_mask)
     dw = _round8(D)
     operands = (qi, ki, vi, qt, kt, vt)
     if dw != D:
@@ -142,8 +133,8 @@ def bicross_bhsd_attention(
     """K6: both directions in one launch. Image side (B, H, Ni, D), text
     side (B, H, Nt, D), in any strides with D packed; txt_mask (B, Nt)
     True=valid; on the card bf16 D up to 256 on the tensor cores
-    (``k6_takes``), f32 and wider bf16 heads up to 1024 on the CUDA-core
-    kernel (``attention_route``)."""
+    (``k6_takes``), bf16 heads of 257-1024 on the wide-head kernel, f32 up
+    to 1024 on the CUDA-core kernel (``attention_route``)."""
     return _Bicross.apply(qi, ki, vi, qt, kt, vt, txt_mask, True)
 
 

@@ -29,10 +29,11 @@ head and output widths that are multiples of 128. Every serve, train and
 eval site of the registered configs passes it; a ``Predictor`` bucket or a
 ``StreamingServer`` batch under 64 rows does not. Under the bf16 policy the
 chain runs on the tensor cores, its core at the widths ``core_takes`` names
-(64 to 256); f32 operands (the fp32 policy) run the projections on
-``gemm_f32`` (``csrc/gemm_f32.cu``) and the core on the CUDA-core attention
-kernel (``csrc/attn_simt.cu``), which also takes bf16 heads from 257 to 1024
-wide. Nothing is cast to bf16 on the f32 route.
+(64 to 256), wider bf16 heads (257 to 1024) on the wide-head kernel
+(``csrc/attn_wide.cu``); f32 operands (the fp32 policy) run the projections
+on ``gemm_f32`` (``csrc/gemm_f32.cu``) and the core on the CUDA-core
+attention kernel (``csrc/attn_simt.cu``). Nothing is cast to bf16 on the
+f32 route.
 Other sites take the unfused road of projections + ``mha_bshd``, as the
 reference does, and so do all sites under ``set_attention_impl("xla")`` or
 inside ``disable_fused()``. ``interpret=True`` forces the fused road past
@@ -59,7 +60,7 @@ import torch
 from btia_tpu_torch.ops import _native
 from btia_tpu_torch.ops.attention import (
     FANOUT_MIN_BATCH, LOG2E, SMALL_SCORE_TILE, TILE_HEAD_WIDTHS, _resolved_impl, _route_or_raise,
-    attend_log2, mha_bshd, short_plan, simt_attention,
+    attend, attend_log2, mha_bshd, short_plan,
 )
 from btia_tpu_torch.ops.norms import _layernorm_cuda, _ln_exact, layernorm
 
@@ -213,11 +214,33 @@ def _static_q_weights(queries, wq, bq, wk, bk, wv, bv, wo, bo, num_heads, cd):
     return prepare_once((queries, wq, bq, wk, bk, wv, bv, wo, bo), ("static_q", num_heads, cd), make)
 
 
+# The H100's SMs: the f32 GEMM's tile choice counts blocks against them.
+H100_SMS = 132
+
+
+# The f32 GEMM's block tiles (rows, columns), largest first: the C entry's
+# tile argument is the index.
+GEMM_F32_TILES = ((128, 128), (128, 64), (64, 64))
+
+
+def gemm_f32_tile(M: int, N: int) -> int:
+    """The f32 GEMM's block tile, an index into ``GEMM_F32_TILES``: the
+    largest whose grid gives each of the H100's SMs two blocks, else the
+    smallest. At ``vqa_rad_lstm``'s 3136 x 512 -> 512 the 128 x 128 grid has
+    100 blocks for 132 SMs and 128 x 64 has 200, so 64 x 64 (392)."""
+    for i, (bm, bn) in enumerate(GEMM_F32_TILES):
+        if -(-M // bm) * -(-N // bn) >= 2 * H100_SMS:
+            return i
+    return len(GEMM_F32_TILES) - 1
+
+
 def gemm_f32(a2, w, b, resid=None, resid_rows=0):
     """a2 @ w + b (+ resid rows, repeating every resid_rows) in f32 on the
     CUDA cores (``csrc/gemm_f32.cu``): the projection GEMM of the fp32
-    policy, every product an f32 FFMA. Counts its launches in
-    ``.launches``."""
+    policy, every product an f32 FFMA. The block tile is
+    ``gemm_f32_tile``'s; W's loads and the epilogue take 16-byte vectors
+    where N % 4 == 0 and the pointers are 16-byte aligned. Counts its
+    launches in ``.launches``."""
     M, K = a2.shape
     N = w.shape[1]
     a2, w, b = a2.contiguous(), w.contiguous(), b.float().contiguous()
@@ -227,10 +250,11 @@ def gemm_f32(a2, w, b, resid=None, resid_rows=0):
         resid = resid.contiguous()
         _native.require(resid, "f32 GEMM residual", torch.float32)
     out = torch.empty((M, N), dtype=torch.float32, device=a2.device)
+    vec = N % 4 == 0 and all(t is None or t.data_ptr() % 16 == 0 for t in (w, b, resid, out))
     _native.check(
         _native.lib().btia_gemm_f32(
             a2.data_ptr(), w.data_ptr(), b.data_ptr(), None if resid is None else resid.data_ptr(),
-            max(resid_rows, 1), out.data_ptr(), M, N, K, _native.stream(a2),
+            max(resid_rows, 1), out.data_ptr(), M, N, K, gemm_f32_tile(M, N), int(vec), _native.stream(a2),
         ),
         "btia_gemm_f32",
     )
@@ -334,9 +358,10 @@ def _core_launcher(q, kv, kv_mask, B, Sq, Sk, num_heads, q_shared=False):
 
 def _core_cuda(q, kv, kv_mask, B, Sq, Sk, num_heads, q_shared=False):
     """The attention core of K1/K2 on the card: bf16 at ``core_takes``'s
-    widths on the short-sequence kernel (``_core_launcher``); f32, and bf16
-    from 257 to 1024 wide, on the CUDA-core kernel (``simt_attention``),
-    reading the same buffers through the same strides."""
+    widths on the short-sequence kernel (``_core_launcher``); bf16 from 257
+    to 1024 wide on the wide-head kernel and f32 on the CUDA-core kernel
+    (``attention.attend``), reading the same buffers as (B, H, S, D) views
+    through the same strides."""
     HD = q.shape[1]
     D = HD // num_heads
     route = _route_or_raise(q.dtype, HD / num_heads, core_takes,
@@ -356,10 +381,10 @@ def _core_cuda(q, kv, kv_mask, B, Sq, Sk, num_heads, q_shared=False):
     if q_shared:  # K2's one table for every batch row
         ops["q"] = (0, [0, *ops["q"][1][1:]])
     base = {"q": q, "k": kv, "v": kv, "o": out}
-    ptrs = tuple(base[n].data_ptr() + ops[n][0] * q.element_size() for n in "qkvo")
+    views = [base[n].as_strided((B, num_heads, Sq if n in "qo" else Sk, D), (*ops[n][1], 1),
+                                base[n].storage_offset() + ops[n][0]) for n in "qkvo"]
     # q arrives in the log2 domain: scaled by 1.
-    simt_attention([(ptrs, kv_mask, [s for n in "qkvo" for s in ops[n][1]], (B, num_heads, Sq, Sk), 1.0, q)],
-                   D, mult_mask=True)
+    attend(route, [(*views, kv_mask, 1.0)], D, mult_mask=True)
     return out
 
 

@@ -54,15 +54,18 @@ Phases, each fatal on failure:
    impl="pallas")``) and its fully masked row against the mean of V; K7's
    block-per-row kernel at small shapes; each Function's backward against
    autograd through its twin;
-2c. the CUDA-core kernels: the attention of ``csrc/attn_simt.cu`` through
-   each entry's CUDA half in f32 (K1's core at ``vqa_rad_lstm``'s 64 x 49 <-
-   32 and 32 <- 49, K2's 2048 x 64 <- 82 with its shared table, K3 at ViT-B,
-   K4, K5 at ViT-L on transposed views, K6 pooled) within 1e-4 of the
-   largest magnitude, and in bf16 at head widths 384, 512, 768 and 1024
-   (K1's core, K3, K4, K5, K6) within 1/32 of it; the f32 GEMM of
-   ``csrc/gemm_f32.cu`` at the fp32 forwards' projection shapes within 1e-4;
-   each timed beside its twin, SDPA or ``F.linear`` (TF32 off) and the bound
-   on the CUDA cores (67 TFLOP/s f32);
+2c. the f32 and wide-head kernels: the CUDA-core attention of
+   ``csrc/attn_simt.cu`` through each entry's CUDA half in f32 (K1's core at
+   ``vqa_rad_lstm``'s 64 x 49 <- 32 and 32 <- 49, K2's 2048 x 64 <- 82 with
+   its shared table, K3 at ViT-B, K4, K5 at ViT-L on transposed views, K6
+   pooled, and K5 at D = 256: two output slices) within 1e-4 of the largest
+   magnitude; the tensor-core attention of ``csrc/attn_wide.cu`` in bf16 at
+   head widths 384, 512, 768 and 1024 (K1's core, K3, K4, K5, K6) and 300
+   (K5, the padded copy) within 1/32 of it, each call seen to move its
+   kernel's counter; the f32 GEMM of ``csrc/gemm_f32.cu`` at the fp32
+   forwards' projection shapes within 1e-4; each timed beside its twin,
+   SDPA or ``F.linear`` (TF32 off) and the bound at the operands' peak
+   (67 TFLOP/s f32 on the CUDA cores, 989 bf16);
 3. serve a few requests through ``Predictor.predict_answers`` on the
    full-width ``streaming_vitl`` with seeded random weights (buckets of
    1-8 questions: under the fused sites' batch floor of 64, so K1 = K2 = 0
@@ -105,6 +108,11 @@ Phases, each fatal on failure:
    read just after (K1 = 20, K3 = 13, K4 = 20), then one eval forward of the
    batch on the card (K1 = 20, K3 = 13) against the same model and weights
    on the CPU on two rows, logits within a tenth of the largest;
+5d. full-width ``vqa_med_full`` with ``model.num_heads`` 2: BTIA and the AD
+   head at head width 384 on the wide-head kernel, as phase 5b: one train
+   step (K1 20 / K3 13 / K4 20, the wide-head kernel 17: 8 BTIA cores, the
+   AD head, 8 K4 calls in the backward) and an eval forward (K1 20 / K3 13,
+   wide 9) against the CPU;
 5c. full-width ``pathvqa_vit`` (ViT-B/16, BERT-base, 2 BTIA layers, an AD
    head of 256 answer queries over 4096 answers) through ``Trainer`` on a
    synthetic PathVQA corpus, ``train.steps_per_call`` cut from 8 to 1: one
@@ -143,11 +151,12 @@ train step and one ``vqa_rad_lstm`` serve step under ``torch.profiler``
 and prints the device time by kernel and the device's idle share.
 
 It prints a ``summary`` line, a ``kernels`` JSON line of the eight kernel
-entries and the two CUDA-core kernels (``launches`` is a kernel's count
-summed over the main-path runs: the serve step, the int8 serve step, the
-train step, the ops API run of phase 2b, the serve steps and train runs of
-phases 6 and 6b and the fp32 forwards of phase 6c; ``launches_by_path``
-splits it), the
+entries, the two CUDA-core kernels and the wide-head kernel (``launches``
+is a kernel's count summed over the main-path runs: the serve step, the
+int8 serve step, the train step, the ops API run of phase 2b, phase 5d's
+train step and eval forward, the serve steps and train runs of phases 6
+and 6b and the fp32 forwards of phase 6c; ``launches_by_path`` splits it),
+the
 card's name and power limit, and as its
 last line ``{"ok": true, "device": {...}}``. It exits non-zero, and prints no
 result, when no CUDA device is present or the package is missing.
@@ -295,15 +304,16 @@ OPS_COUNTS = [0, 0, 0, 0, 3, 2, 5, 0]
 SERVE_LN_CENSUS = {(B_IMG * 577, 1024): 49, (B_IMG * N_IMG_TOK, 768): 1,
                    (B_IMG * N_Q * SEQ, 768): 18, (B_IMG * N_Q * N_IMG_TOK, 768): 4,
                    (B_IMG * N_Q * 64, 768): 2}
-# Phase 2c, the CUDA-core kernels (csrc/attn_simt.cu, csrc/gemm_f32.cu): the
-# f32 attention at each entry's shape on the fp32 path (name, entry, dims),
-# among them K2 and K3 as phase 6c's streaming_vitl serve step gives them
-# (64 pairs; 2 ViT-L images of 577 tokens), and bf16 at head widths 384 to
-# 1024 (heads of a 768- or 1024-wide model).
+# Phase 2c, the f32 and wide-head kernels (csrc/attn_simt.cu,
+# csrc/gemm_f32.cu on the CUDA cores, csrc/attn_wide.cu on the tensor
+# cores): the f32 attention at each entry's shape on the fp32 path (name,
+# entry, dims), among them K2 and K3 as phase 6c's streaming_vitl serve step
+# gives them (64 pairs; 2 ViT-L images of 577 tokens), and one f32 head of
+# 256 (two output slices); bf16 at head widths 384 to 1024 (heads of a 768-
+# or 1024-wide model) and at 300 (the padded copy).
 # The bound takes the card's peak for the operands' type: f32 at 67 TFLOP/s
 # (H100 SXM, NVIDIA's data sheet: f32 outside the tensor cores, which f32
-# operands cannot use without rounding), bf16 at the bf16 tensor-core peak,
-# though this kernel computes bf16 operands on the CUDA cores too.
+# operands cannot use without rounding), bf16 at the bf16 tensor-core peak.
 PEAK_F32_SIMT = 67e12
 SIMT_F32_CASES = (
     ("k1_core_f32_i2t", "core", dict(B=B_TRAIN, Sq=49, Sk=SEQ, H=8, D=64, masked=True)),
@@ -315,10 +325,14 @@ SIMT_F32_CASES = (
     ("k4_f32_i2t", "k4", dict(B=B_TRAIN, Sq=49, Sk=SEQ, H=8, D=64, masked=True)),
     ("k5_f32_vitl", "k5", dict(B=B_IMG, Sq=577, Sk=577, H=16, D=64, masked=False)),
     ("k6_f32_pooled", "k6", dict(B=BQ, Sq=N_IMG_TOK, Sk=SEQ, H=12, D=64, masked=True)),
+    ("k5_f32_d256", "k5", dict(B=2, Sq=577, Sk=577, H=4, D=256, masked=True)),
 )
 WIDE_D = ((384, 2), (512, 2), (768, 1), (1024, 1))  # (D, heads)
 SIMT_WIDE_SHAPES = {"core": (B_TRAIN, 49, SEQ), "k3": (B_TRAIN, N_VIT_B, N_VIT_B), "k4": (B_TRAIN, 49, SEQ),
                     "k5": (B_IMG, 577, 577), "k6": (B_TRAIN, N_IMG_TOK, SEQ)}
+# The wide kernel at a head width that is not a multiple of 8 (K5, one
+# zero-padded copy of q, k and v; two slices of 192 over 304 columns).
+WIDE_ODD = ("k5_bf16_d300", "k5", dict(B=B_IMG, Sq=577, Sk=577, H=1, D=300, masked=True))
 # The f32 GEMM at the projection shapes of the fp32 forwards of phase 6c
 # (name, M, K, N, residual rows): vqa_rad_lstm's BTIA img <- txt site at
 # batch 64 (49 image and 32 text tokens, width 512) and streaming_vitl's
@@ -331,24 +345,30 @@ GEMM_F32_SITES = (
     ("vitl_text_out", B_TRAIN * SEQ, 768, 768, B_TRAIN * SEQ),
     ("vitl_head_kv", B_TRAIN * (N_IMG_TOK + SEQ), 768, 1536, 0),
 )
-NEW_KERNELS = ("simt_attention", "gemm_f32")
+NEW_KERNELS = ("simt_attention", "gemm_f32", "wide_attention")
 # Phase 6, vqa_rad_lstm (ResNet-50, bi-LSTM, 2 BTIA layers at 8 heads of
 # 64, mlp head), bf16: K1 at its 4 BTIA sites (49 image tokens, 32 text) a
 # forward; in training K4 in the backward of each. Counts K1..K8 and then
-# the two CUDA-core kernels.
-LSTM_SERVE_COUNTS = [4, 0, 0, 0, 0, 0, 0, 0, 0, 0]
-LSTM_TRAIN_STEP_COUNTS = [4, 0, 0, 4, 0, 0, 0, 0, 0, 0]
+# NEW_KERNELS: the two CUDA-core kernels and the wide-head kernel.
+LSTM_SERVE_COUNTS = [4, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]
+LSTM_TRAIN_STEP_COUNTS = [4, 0, 0, 4, 0, 0, 0, 0, 0, 0, 0]
 # Phase 6b, slake_bert (ResNet-50, BERT-base, 2 BTIA layers at 12 heads of
 # 64, mlp head): 12 BERT + 4 BTIA K1 sites.
-SLAKE_SERVE_COUNTS = [16, 0, 0, 0, 0, 0, 0, 0, 0, 0]
-SLAKE_TRAIN_COUNTS = [16, 0, 0, 16, 0, 0, 0, 0, 0, 0]
+SLAKE_SERVE_COUNTS = [16, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]
+SLAKE_TRAIN_COUNTS = [16, 0, 0, 16, 0, 0, 0, 0, 0, 0, 0]
 # Phase 6c, the fp32 policy: vqa_rad_lstm's eval forward at batch 64 (4 K1
 # sites, each 3 f32 GEMMs and one CUDA-core core); streaming_vitl's serve
 # step of 2 images x 32 questions (20 K1 sites, K2, 24 ViT-L blocks on K3,
 # all on the CUDA-core attention: 45; 60 + 2 f32 GEMMs); tiny_test none.
-F32_LSTM_COUNTS = [4, 0, 0, 0, 0, 0, 0, 0, 4, 12]
-F32_VITL_COUNTS = [20, 1, 24, 0, 0, 0, 0, 0, 45, 62]
-F32_TINY_COUNTS = [0] * 10
+F32_LSTM_COUNTS = [4, 0, 0, 0, 0, 0, 0, 0, 4, 12, 0]
+F32_VITL_COUNTS = [20, 1, 24, 0, 0, 0, 0, 0, 45, 62, 0]
+F32_TINY_COUNTS = [0] * 11
+# Phase 5d, vqa_med_full with model.num_heads=2 (BTIA and the AD head at
+# head width 384; BERT and ViT-B at 12 heads of 64): a train step's 8 BTIA
+# K1 sites, the AD head's K3 call and the 8 K4 calls of those sites'
+# backward run on the wide-head kernel (17); an eval forward 8 + 1.
+WIDE_KERNEL_HEADS = 2
+WIDE_KERNEL_COUNTS = ([20, 0, 13, 20, 0, 0, 0, 0, 0, 0, 17], [20, 0, 13, 0, 0, 0, 0, 0, 0, 0, 9])
 
 
 T0 = time.perf_counter()
@@ -1533,7 +1553,7 @@ def train_step_vs_cpu(torch, dev, counters):
     return res
 
 
-def wide_heads_phase(torch, dev, smi, counters):
+def wide_heads_phase(torch, dev, smi, counters, heads_list=WIDE_HEADS, expected=None, phase="5b"):
     """Phase 5b: full-width vqa_med_full with model.num_heads 6, 4 and 3, so
     that its 4 BTIA layers and its AD head run at head widths 128, 192 and
     256 (BERT and ViT-B keep 12 heads of 64). For each, through the Trainer
@@ -1542,15 +1562,19 @@ def wide_heads_phase(torch, dev, smi, counters):
     sites, the AD head's K3 call and 8 of the K4 calls at the wide width);
     then one eval forward of a batch on the card against the same model and
     weights on the CPU on its first rows, logits within a tenth of the
-    largest."""
+    largest. Phase 5d runs the same at model.num_heads 2 (head width 384,
+    ``WIDE_KERNEL_COUNTS``: those sites on the wide-head kernel), its counts
+    K1..K8 and NEW_KERNELS."""
     import numpy as np
 
     from btia_tpu_torch.configs import get_config
     from btia_tpu_torch.data.synthetic import generate_synthetic_vqa_med
     from btia_tpu_torch.train.trainer import Trainer, batch_to_device
 
+    train_expected, eval_expected = expected or (TRAIN_COUNTS, EVAL_COUNTS)
+    names = KERNELS + NEW_KERNELS if len(counters) > len(KERNELS) else KERNELS
     results = {}
-    for heads in WIDE_HEADS:
+    for heads in heads_list:
         with tempfile.TemporaryDirectory(prefix="chip_smoke_heads_") as tmp:
             root = Path(tmp) / "vqa_med"
             generate_synthetic_vqa_med(root, num_images=32)  # 64 pairs per split: one batch
@@ -1559,7 +1583,7 @@ def wide_heads_phase(torch, dev, smi, counters):
             hw = cfg.model.hidden_dim // heads
             what = f"num_heads={heads}"
             trainer = Trainer(cfg, Path(tmp) / "run", device=dev)
-            log(f"phase 5b: vqa_med_full with model.{what}: BTIA and the AD head at {heads} heads of "
+            log(f"phase {phase}: vqa_med_full with model.{what}: BTIA and the AD head at {heads} heads of "
                 f"{hw}, BERT and ViT-B at 12 of 64")
             batch = batch_to_device(next(iter(trainer.data.iterator("train", seed=0))), dev)
             torch.cuda.synchronize()
@@ -1569,9 +1593,9 @@ def wide_heads_phase(torch, dev, smi, counters):
             counts = [f.launches for f in counters]
             loss = float(m["loss"])
             log(f"  one train step at batch {B_TRAIN}: loss {loss:.5f}; launched "
-                + ", ".join(f"{k} {c}" for k, c in zip(KERNELS, counts)))
-            if counts != TRAIN_COUNTS or not np.isfinite(loss):
-                raise AssertionError(f"{what} train step: loss {loss}, launch counts {counts} != {TRAIN_COUNTS}")
+                + ", ".join(f"{k} {c}" for k, c in zip(names, counts)))
+            if counts != train_expected or not np.isfinite(loss):
+                raise AssertionError(f"{what} train step: loss {loss}, launch counts {counts} != {train_expected}")
 
             model = trainer.model
             model.eval()
@@ -1587,13 +1611,13 @@ def wide_heads_phase(torch, dev, smi, counters):
             err = (out_gpu[:2].float().cpu() - out_cpu.float()).abs().max().item()
             scale = out_cpu.float().abs().max().item()
             res = {"config": f"vqa_med_full + model.{what}", "head_width": hw, "train_loss": loss,
-                   "train_launches": dict(zip(KERNELS, counts)), "eval_launches": dict(zip(KERNELS, eval_counts)),
+                   "train_launches": dict(zip(names, counts)), "eval_launches": dict(zip(names, eval_counts)),
                    "eval_card_vs_cpu_max_abs_err": err, "eval_max_logit": scale, "card": smi}
             log(json.dumps({f"head_width_{hw}": res}))
             if not bool(torch.isfinite(out_gpu).all()) or not err <= 0.1 * scale:
                 raise AssertionError(f"{what} eval: card and CPU logits disagree: {err} > {0.1 * scale}")
-            if eval_counts != EVAL_COUNTS:
-                raise AssertionError(f"{what} eval launch counts {eval_counts} != {EVAL_COUNTS}")
+            if eval_counts != eval_expected:
+                raise AssertionError(f"{what} eval launch counts {eval_counts} != {eval_expected}")
             results[hw] = res
             del trainer, model, batch, out_gpu
         torch.cuda.empty_cache()
@@ -1860,11 +1884,11 @@ def streaming_phase(torch, dev, smi, model, cfg):
 
 
 def new_counters():
-    """The CUDA-core kernels' launch counters (NEW_KERNELS)."""
+    """The f32 and wide-head kernels' launch counters (NEW_KERNELS)."""
     from btia_tpu_torch.ops import attention as A
     from btia_tpu_torch.ops import fused_attn as FA
 
-    return (A.simt_attention, FA.gemm_f32)
+    return (A.simt_attention, FA.gemm_f32, A.wide_attention)
 
 
 def _simt_case(torch, dev, name, entry, dims, dt, g):
@@ -1944,27 +1968,44 @@ def _simt_row(torch, name, kernel, plain, library, flops, nbytes_, dt, iters=5):
     return row
 
 
+def wide_cases():
+    """Phase 2c's bf16 cases of the wide-head kernel: (name, entry, dims)."""
+    cases = []
+    for D, H in WIDE_D:
+        for entry, (B, Sq, Sk) in SIMT_WIDE_SHAPES.items():
+            cases.append((f"{entry}_bf16_d{D}", entry, dict(B=B, Sq=Sq, Sk=Sk, H=H, D=D, masked=entry != "k3")))
+    return cases + [WIDE_ODD]
+
+
 def check_simt(torch, dev):
-    """Phase 2c: the CUDA-core attention kernel through each entry's CUDA
-    half (K1/K2's core, K3, K4, K5, K6) in f32 at the fp32 path's shapes and
-    in bf16 at head widths 384 to 1024, and the f32 GEMM at the fp32
-    forwards' projection shapes, each against its twin and timed beside
-    SDPA or ``F.linear`` (TF32 off) and the bound."""
+    """Phase 2c: the f32 attention kernel (CUDA cores) through each entry's
+    CUDA half (K1/K2's core, K3, K4, K5, K6) at the fp32 path's shapes and
+    at D 256, the wide-head kernel (tensor cores) through the same halves in
+    bf16 at head widths 300 to 1024, and the f32 GEMM at the fp32 forwards'
+    projection shapes, each against its twin and timed beside SDPA or
+    ``F.linear`` (TF32 off) and the bound. Returns the f32 attention's,
+    the wide kernel's and the GEMM's rows, and each attention case's launch
+    route (the counter its call moved)."""
     import torch.nn.functional as F
 
+    from btia_tpu_torch.ops import attention as A
     from btia_tpu_torch.ops import fused_attn as FA
 
     g = torch.Generator(device=dev).manual_seed(9)
-    attn, gemm = {}, {}
-    log("phase 2c: the CUDA-core kernels vs their twins (f32; bf16 at D 384-1024)")
+    attn, wide, gemm = {}, {}, {}
+    log("phase 2c: the f32 (CUDA-core) and wide-head (tensor-core) kernels vs their twins")
     cases = [(n, e, d, torch.float32) for n, e, d in SIMT_F32_CASES]
-    for D, H in WIDE_D:
-        for entry, (B, Sq, Sk) in SIMT_WIDE_SHAPES.items():
-            dims = dict(B=B, Sq=Sq, Sk=Sk, H=H, D=D, masked=entry != "k3")
-            cases.append((f"{entry}_bf16_d{D}", entry, dims, torch.bfloat16))
+    cases += [(n, e, d, torch.bfloat16) for n, e, d in wide_cases()]
     for name, entry, dims, dt in cases:
         kernel, plain, library, flops, nb = _simt_case(torch, dev, name, entry, dims, dt, g)
-        attn[name] = {"entry": entry, **dims, **_simt_row(torch, name, kernel, plain, library, flops, nb, dt)}
+        counter = A.simt_attention if dt == torch.float32 else A.wide_attention
+        before = counter.launches
+        kernel()
+        torch.cuda.synchronize()
+        if counter.launches != before + 1:
+            raise AssertionError(f"{name}: the call did not launch {counter.__name__}")
+        row = {"entry": entry, **dims, **_simt_row(torch, name, kernel, plain, library, flops, nb, dt)}
+        (attn if dt == torch.float32 else wide)[name] = row
         del kernel, plain, library
         torch.cuda.empty_cache()
     assert torch.backends.cuda.matmul.allow_tf32 is False  # the yardstick in full f32
@@ -1979,8 +2020,8 @@ def check_simt(torch, dev):
         library = lambda: F.linear(a, wt, b)
         row = _simt_row(torch, f"gemm_f32 {name} {M}x{K}x{N}", kernel, plain, library, 2 * M * N * K,
                         nbytes(a, w, b, res) + M * N * 4, torch.float32, iters=10)
-        gemm[name] = {"M": M, "K": K, "N": N, "residual_rows": rr, **row}
-    return attn, gemm
+        gemm[name] = {"M": M, "K": K, "N": N, "residual_rows": rr, "block_tile": FA.GEMM_F32_TILES[FA.gemm_f32_tile(M, N)], **row}
+    return attn, wide, gemm
 
 
 def _lstm_qids(rng, shape, vocab):
@@ -2177,7 +2218,7 @@ def _step_check(torch, dev, name, batch_fn, counters, expected, mixed, bn_runnin
             ok = ok and r["tf32_yardstick_grad_rel_l2_image_encoder"] > cap
     # Under fp32, K1 on its f32 chain (a core and 3 GEMMs a site), K4 in the
     # backward: each a CUDA-core attention launch.
-    want = expected if mixed else expected[:8] + [expected[0] + expected[3], 3 * expected[0]]
+    want = expected if mixed else expected[:8] + [expected[0] + expected[3], 3 * expected[0], 0]
     policy = ("bf16" if mixed else "fp32") + ("_bn_running" if bn_running else "")
     log(f"  {name} card vs CPU train step, {policy}: {json.dumps(r)}")
     return policy, r, bool(ok and np.isfinite(r["loss_card"])), counts, want
@@ -2393,6 +2434,19 @@ def slake_bert_phase(torch, dev, smi, counters):
     return out
 
 
+def _host_ms(torch, fn, calls=3):
+    """ms a call of fn under inference_mode, on the host's clock, each call
+    ending in a synchronize (after one warm call)."""
+    with torch.inference_mode():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / calls
+
+
 def fp32_phase(torch, dev, smi, counters):
     """Phase 6c: the fp32 policy on the card against the CPU (both f32,
     TF32 off: the two sum in other orders only, so logits within 1e-3 of
@@ -2400,7 +2454,9 @@ def fp32_phase(torch, dev, smi, counters):
     GEMM and the CUDA-core attention at its 4 BTIA sites); streaming_vitl's
     serve step of 2 images x 32 questions (K1, K2 and K3 on the f32 route);
     tiny_test (no gate passes: no kernel), one train step (loss and gradient
-    norm within 1e-4 relative) and a Predictor answer."""
+    norm within 1e-4 relative) and a Predictor answer. The first two are
+    also timed (host clock over three calls, each ending in a synchronize,
+    after the counted one)."""
     import numpy as np
 
     from btia_tpu_torch.configs import get_config
@@ -2426,7 +2482,8 @@ def fp32_phase(torch, dev, smi, counters):
     err, scale = _card_vs_cpu(torch, model, lambda m, d: m(images.to(d), qids.to(d)),
                               "vqa_rad_lstm fp32 eval forward, batch 64", 1e-3)
     out["vqa_rad_lstm"] = {"launches": dict(zip(KERNELS + NEW_KERNELS, counts)),
-                           "card_vs_cpu_max_abs_err": err, "card_vs_cpu_max_logit": scale}
+                           "card_vs_cpu_max_abs_err": err, "card_vs_cpu_max_logit": scale,
+                           "ms_per_forward": _host_ms(torch, lambda: model(images.to(dev), qids.to(dev)))}
     if counts != F32_LSTM_COUNTS:
         raise AssertionError(f"vqa_rad_lstm fp32 launch counts {counts} != {F32_LSTM_COUNTS}")
     del model
@@ -2446,7 +2503,8 @@ def fp32_phase(torch, dev, smi, counters):
     counts = _counts(counters)
     err, scale = _card_vs_cpu(torch, model, fwd, "streaming_vitl fp32 serve step, 2 images x 32 questions", 1e-3)
     out["streaming_vitl"] = {"launches": dict(zip(KERNELS + NEW_KERNELS, counts)),
-                             "card_vs_cpu_max_abs_err": err, "card_vs_cpu_max_logit": scale}
+                             "card_vs_cpu_max_abs_err": err, "card_vs_cpu_max_logit": scale,
+                             "ms_per_step": _host_ms(torch, lambda: fwd(model, dev))}
     if counts != F32_VITL_COUNTS:
         raise AssertionError(f"streaming_vitl fp32 launch counts {counts} != {F32_VITL_COUNTS}")
     del model
@@ -2538,7 +2596,7 @@ def main() -> int:
     counters = launch_counters()
     ops_rows, ops_counts = ops_api_phase(torch, dev, counters)
     rows.update(ops_rows)
-    simt_attn, simt_gemm = check_simt(torch, dev)
+    simt_attn, wide_attn, simt_gemm = check_simt(torch, dev)
     log(f"  (phase 2c done at {time.perf_counter() - T0:.0f} s)")
 
     # Phase 3: Predictor on full-width streaming_vitl.
@@ -2659,12 +2717,16 @@ def main() -> int:
     train["train_step"]["card_vs_cpu"] = train_step_vs_cpu(torch, dev, counters)
     log(json.dumps({"train_step": train["train_step"]}))
     wide = wide_heads_phase(torch, dev, smi, counters)
+    # From here on every counter: K1..K8, the CUDA-core kernels and the
+    # wide-head kernel.
+    all_counters = counters + new_counters()
+    wide_kernel = wide_heads_phase(torch, dev, smi, all_counters, (WIDE_KERNEL_HEADS,), WIDE_KERNEL_COUNTS, "5d")
+    log(f"  (phase 5d done at {time.perf_counter() - T0:.0f} s)")
     pathvqa = pathvqa_phase(torch, dev, smi, counters)
     log(f"  (phase 5c done at {time.perf_counter() - T0:.0f} s)")
 
     # Phases 6, 6b and 6c: the ResNet / LSTM / mlp-head configs, and the
-    # fp32 policy, with every counter (K1..K8 and the CUDA-core kernels).
-    all_counters = counters + new_counters()
+    # fp32 policy.
     lstm = vqa_rad_lstm_phase(torch, dev, smi, all_counters)
     log(f"  (phase 6 done at {time.perf_counter() - T0:.0f} s)")
     slake = slake_bert_phase(torch, dev, smi, all_counters)
@@ -2678,15 +2740,22 @@ def main() -> int:
         "slake_bert_train_step": slake["train_step"]["launches"],
         "fp32_forwards": {k: sum(fp32[c]["launches"][k] for c in ("vqa_rad_lstm", "streaming_vitl", "tiny_test"))
                           for k in KERNELS + NEW_KERNELS},
+        "d384_train_step": wide_kernel[768 // WIDE_KERNEL_HEADS]["train_launches"],
+        "d384_eval": wide_kernel[768 // WIDE_KERNEL_HEADS]["eval_launches"],
     }
     by_path = [{"serve_step": a, "int8_serve_step": c, "train_step": b, "ops_api": d,
                 **{p: v[k] for p, v in new_paths.items()}}
                for a, b, c, d, k in zip(main_counts, train["train_counts"], int8_counts, ops_counts, KERNELS)]
-    for k in NEW_KERNELS:
-        if not new_paths["fp32_forwards"][k]:
-            raise AssertionError(f"{k} was not launched on the fp32 path")
-        if any(v[k] for p, v in new_paths.items() if p != "fp32_forwards"):
-            raise AssertionError(f"{k} was launched on a bf16 path at head widths up to 256: {new_paths}")
+    # Each new kernel runs on its own path and no other: the f32 kernels on
+    # the fp32 forwards, the wide-head kernel at head width 384 (phase 5d);
+    # neither on the bf16 paths at head widths up to 256.
+    own = {"simt_attention": ("fp32_forwards",), "gemm_f32": ("fp32_forwards",),
+           "wide_attention": ("d384_train_step", "d384_eval")}
+    for k, paths in own.items():
+        if not all(new_paths[p][k] for p in paths):
+            raise AssertionError(f"{k} was not launched on its path {paths}: {new_paths}")
+        if any(v[k] for p, v in new_paths.items() if p not in paths):
+            raise AssertionError(f"{k} was launched off its path {paths}: {new_paths}")
     widths = [768 // h for h in WIDE_HEADS]
     k1_sites = ("bert", "btia_i2t", "btia_t2i", "med_bert", "med_i2t", "med_t2i",
                 *(f"med_{site}_d{hw}" for hw in widths for site in ("bert", "i2t")))
@@ -2749,10 +2818,14 @@ def main() -> int:
         ("simt_attention", "k1_core_f32_i2t", "btia_tpu_torch/csrc/attn_simt.cu",
          "btia_tpu/ops/fused_attn.py:179, btia_tpu/ops/fused_attn.py:561, btia_tpu/ops/attention.py:563, "
          "btia_tpu/ops/attention.py:349, btia_tpu/ops/attention.py:160, btia_tpu/ops/bicross.py:87 "
-         "(K1-K6 on f32 operands and bf16 heads of 257-1024)", simt_attn),
+         "(K1-K6 on f32 operands)", simt_attn),
         ("gemm_f32", "lstm_i2t_q", "btia_tpu_torch/csrc/gemm_f32.cu",
          "btia_tpu/ops/fused_attn.py:179, btia_tpu/ops/fused_attn.py:561 (K1/K2's projections on f32 operands)",
          simt_gemm),
+        ("wide_attention", "core_bf16_d384", "btia_tpu_torch/csrc/attn_wide.cu",
+         "btia_tpu/ops/fused_attn.py:179, btia_tpu/ops/fused_attn.py:561, btia_tpu/ops/attention.py:563, "
+         "btia_tpu/ops/attention.py:349, btia_tpu/ops/attention.py:160, btia_tpu/ops/bicross.py:87 "
+         "(K1-K6 on bf16 heads of 257-1024)", wide_attn),
     ):
         r = sites[rep]
         paths = {p: v[name] for p, v in new_paths.items()}
@@ -2761,7 +2834,7 @@ def main() -> int:
             "launches": sum(paths.values()), "launches_by_path": paths,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "library": "F.scaled_dot_product_attention" if name == "simt_attention" else "F.linear (TF32 off)",
+            "library": "F.linear (TF32 off)" if name == "gemm_f32" else "F.scaled_dot_product_attention",
             "sites": sites,
         })
     log(json.dumps({"summary": {
@@ -2770,11 +2843,14 @@ def main() -> int:
         "vqa_rad_lstm_train_ms_per_step": lstm["train_call"]["ms_per_step"],
         "fp32_card_vs_cpu": {c: [fp32[c].get("card_vs_cpu_max_abs_err"), fp32[c].get("card_vs_cpu_max_logit")]
                              for c in ("vqa_rad_lstm", "streaming_vitl")},
+        "fp32_ms": [fp32["vqa_rad_lstm"]["ms_per_forward"], fp32["streaming_vitl"]["ms_per_step"]],
         "elapsed_s": time.perf_counter() - T0,
         "serve_ms": step_ms, "int8_serve_ms": int8_res["ms_per_step"],
         "train_ms": train["train_step"]["ms_per_step"],
         "wide_heads": {hw: [r["eval_card_vs_cpu_max_abs_err"], r["eval_max_logit"]] for hw, r in wide.items()},
         "pathvqa_vit": [pathvqa["eval_card_vs_cpu_max_abs_err"], pathvqa["eval_max_logit"]],
+        "wide_kernel_d384": [wide_kernel[768 // WIDE_KERNEL_HEADS][k] for k in ("eval_card_vs_cpu_max_abs_err",
+                                                                               "eval_max_logit")],
         "gemm_ms_per_step": gemm_step,
         "core_ms_per_step": core_step,
         "serve_ms_by_switch": {w: v["ms_per_step"] for w, v in switches.items()},

@@ -1,9 +1,13 @@
 #!/usr/bin/env python3
-"""Time the port's K3, K4, K5, K6 and K1/K2's attention core and projection
-GEMM against another checkout's on one card, in turns.
+"""Time the port's K3, K4, K5, K6, K1/K2's attention core and projection
+GEMM, the f32 attention and GEMM and the wide-head attention against
+another checkout's on one card, in turns.
 
     git archive <commit> btia_tpu_torch | tar -x -C runs/parent
-    python3 compare_kernels.py runs/parent
+    python3 compare_kernels.py runs/parent [groups]
+
+groups: a comma-separated subset of k3, k5, k4, k6, core, gemm, f32, wide and
+gemm_f32 (default: all).
 
 Builds both checkouts' kernel libraries (each from its own
 ``btia_tpu_torch/csrc``), then runs each kernel's C entry at the shapes of
@@ -18,8 +22,15 @@ one shared query table) and the train site shapes (BTIA img <- txt also at
 D 128, 192 and 256); where the other checkout's K4 / K6 / core entry has an
 earlier C signature (no strides or plan; the core's: the wmma kernel's
 row strides and an f32 key mask, given the same mask as 0 / 1), it is
-called that way. Inputs are random from a seed; the card's name
-and power limit are printed first. Needs one CUDA card and ``nvcc``.
+called that way. The f32 attention (``btia_attn_simt``) runs at
+``chip_smoke.py``'s phase 2c f32 shapes through each entry's operand layout
+(K1/K2's core on the GEMM outputs, K3/K4 packed, K5 on transposed views,
+K6's two directions), the wide-head attention (``btia_attn_wide``) at its
+bf16 shapes against the other checkout's ``btia_attn_simt`` in its bf16
+instance (``elem`` 1) where that checkout has no wide entry, and the f32
+GEMM (``btia_gemm_f32``) at phase 2c's six sites, each entry called with
+its own checkout's C signature. Inputs are random from a seed; the card's
+name and power limit are printed first. Needs one CUDA card and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -69,9 +80,14 @@ def load_native(root: Path, name: str):
     return mod
 
 
+GROUPS = ("k3", "k5", "k4", "k6", "core", "gemm", "f32", "wide", "gemm_f32")
+
+
 def main() -> int:
-    if len(sys.argv) != 2 or not (Path(sys.argv[1]) / "btia_tpu_torch" / "csrc").is_dir():
-        print(f"usage: {sys.argv[0]} <checkout holding btia_tpu_torch/csrc>", file=sys.stderr)
+    groups = set(sys.argv[2].split(",")) if len(sys.argv) == 3 else set(GROUPS)
+    if len(sys.argv) not in (2, 3) or not (Path(sys.argv[1]) / "btia_tpu_torch" / "csrc").is_dir() \
+            or not groups <= set(GROUPS):
+        print(f"usage: {sys.argv[0]} <checkout holding btia_tpu_torch/csrc> [{','.join(GROUPS)}]", file=sys.stderr)
         return 2
     import torch
 
@@ -119,7 +135,7 @@ def main() -> int:
     def strides(*ts):
         return (ctypes.c_longlong * 12)(*(x.stride(i) for x in ts for i in range(3)))
 
-    for B, Sq, Sk, H, D, masked in K3_SHAPES:
+    for B, Sq, Sk, H, D, masked in K3_SHAPES if "k3" in groups else ():
         q, k, v = (torch.randn(B, S, H * D, generator=g, device=dev).to(bf) for S in (Sq, Sk, Sk))
         m = (torch.rand(B, Sk, generator=g, device=dev) > 0.2).float() if masked else None
         mp = None if m is None else m.data_ptr()
@@ -141,7 +157,7 @@ def main() -> int:
               f"{[round(time_ms(four_d), 4) for _ in range(2)]} ms", flush=True)
         del q, k, v, o4
 
-    for B, Sq, Sk, H, D, views in K5_SHAPES:
+    for B, Sq, Sk, H, D, views in K5_SHAPES if "k5" in groups else ():
         if views:
             q, k, v = (torch.randn(B, S, H, D, generator=g, device=dev).to(bf).transpose(1, 2) for S in (Sq, Sk, Sk))
         else:
@@ -162,7 +178,7 @@ def main() -> int:
     from btia_tpu_torch.ops.attention import fanout_strides, short_plan
 
     earlier = lambda lib, name, n: len(getattr(lib, name).argtypes) == n  # the earlier C signature
-    for B, Sq, Sk, H, masked in K4_SHAPES:
+    for B, Sq, Sk, H, masked in K4_SHAPES if "k4" in groups else ():
         D = 768 // H
         q, k, v = (torch.randn(B, S, 768, generator=g, device=dev).to(bf) for S in (Sq, Sk, Sk))
         cm = (torch.rand(B, Sk, generator=g, device=dev) > 0.2).float() if masked else torch.ones(B, Sk, device=dev)
@@ -180,7 +196,7 @@ def main() -> int:
         turns(f"K4 {B} x {Sq} <- {Sk}, {H} heads of {D}", k4)
         del q, k, v
 
-    for B, H, Ni, Nt, D, views in K6_SHAPES:
+    for B, H, Ni, Nt, D, views in K6_SHAPES if "k6" in groups else ():
         def operand(S):
             if views:
                 return torch.randn(B, S, H, D, generator=g, device=dev).to(bf).transpose(1, 2)
@@ -207,7 +223,7 @@ def main() -> int:
 
     from btia_tpu_torch.ops.fused_attn import core_operands
 
-    for B, Sq, Sk, H, masked, shared in CORE_SHAPES:
+    for B, Sq, Sk, H, masked, shared in CORE_SHAPES if "core" in groups else ():
         HD, D = 768, 768 // H
         q = (torch.randn(Sq if shared else B * Sq, HD, generator=g, device=dev) * D**-0.25).to(bf)
         kv = (torch.randn(B * Sk, 2 * HD, generator=g, device=dev) * D**-0.25).to(bf)
@@ -231,7 +247,9 @@ def main() -> int:
         turns(f"K1/K2 core {B} x {Sq} <- {Sk}, {H} heads of {D}{', one query table' if shared else ''}", core)
         del q, kv, m, mf
 
-    for name, M, K, N, rr in GEMM_SHAPES:
+    compare_f32_and_wide(torch, libs, turns, dev, g, stream, groups)
+
+    for name, M, K, N, rr in GEMM_SHAPES if "gemm" in groups else ():
         a = torch.randn(M, K, generator=g, device=dev).to(bf)
         w = (torch.randn(K, N, generator=g, device=dev) * K**-0.5).to(bf)
         b = torch.randn(N, generator=g, device=dev) * 0.02
@@ -246,6 +264,104 @@ def main() -> int:
         turns(f"GEMM {name} {M} x {K} -> {N}", gemm)
         del a, w, b, r
     return 0
+
+
+def attention_problems(torch, entry, dims, dt, dev, g):
+    """One attention call of phase 2c as the entry lays it out: (inputs, a
+    function that makes fresh outputs and returns (problems, outputs), D,
+    mult_mask). Problems are (q, k, v, o, mask, qscale) (B, H, S, D) views,
+    as ``ops/attention.py::_problem_args`` takes them."""
+    from btia_tpu_torch.ops.attention import _log2_scale
+    from btia_tpu_torch.ops.fused_attn import core_operands
+
+    B, Sq, Sk, H, D = (dims[k] for k in ("B", "Sq", "Sk", "H", "D"))
+    HD, c = H * D, _log2_scale(D)
+    r = lambda *shape: torch.randn(*shape, generator=g, device=dev).to(dt)
+    mask = torch.rand(B, Sk, generator=g, device=dev) > 0.2 if dims.get("masked") else None
+    heads = lambda x: x.unflatten(2, (H, D)).transpose(1, 2)
+    if entry == "core":
+        shared = dims.get("shared", False)
+        q, kv = (r(Sq if shared else B * Sq, HD) * c), r(B * Sk, 2 * HD)
+        ops = core_operands(Sq, Sk, HD, H)
+        if shared:
+            ops["q"] = (0, [0, *ops["q"][1][1:]])
+        view = lambda t, n, S: t.as_strided((B, H, S, D), (*ops[n][1], 1), t.storage_offset() + ops[n][0])
+
+        def make():
+            o = torch.empty(B * Sq, HD, dtype=dt, device=dev)
+            return [(view(q, "q", Sq), view(kv, "k", Sk), view(kv, "v", Sk), view(o, "o", Sq), mask, 1.0)], (o,)
+        return (q, kv, mask), make, D, True
+    if entry in ("k3", "k4"):
+        q, k, v = r(B, Sq, HD), r(B, Sk, HD), r(B, Sk, HD)
+        m = mask if entry == "k3" or mask is None else mask.float()
+
+        def make():
+            o = torch.empty_like(q)
+            return [(heads(q), heads(k), heads(v), heads(o), m, c)], (o,)
+        return (q, k, v, m), make, D, entry == "k4"
+    if entry == "k5":
+        q, k, v = (r(B, S, H, D).transpose(1, 2) for S in (Sq, Sk, Sk))
+
+        def make():
+            o = torch.empty_like(q)
+            return [(q, k, v, o, mask, c)], (o,)
+        return (q, k, v, mask), make, D, False
+    xs = [r(B, H, S, D) for S in (Sq, Sq, Sq, Sk, Sk, Sk)]  # k6: qi, ki, vi, qt, kt, vt
+
+    def make():
+        oi, ot = torch.empty_like(xs[0]), torch.empty_like(xs[3])
+        return [(xs[0], xs[4], xs[5], oi, mask, c), (xs[3], xs[1], xs[2], ot, None, c)], (oi, ot)
+    return (xs, mask), make, D, False
+
+
+def compare_f32_and_wide(torch, libs, turns, dev, g, stream, groups):
+    """The f32 attention, the wide-head attention and the f32 GEMM, this
+    tree against the other checkout, each through its own C signature."""
+    import chip_smoke as cs
+    from btia_tpu_torch.ops.attention import _problem_args, simt_plan, wide_plan
+    from btia_tpu_torch.ops.fused_attn import GEMM_F32_TILES, gemm_f32_tile
+
+    cases = [(n, e, d, torch.float32) for n, e, d in cs.SIMT_F32_CASES] if "f32" in groups else []
+    cases += [(n, e, d, torch.bfloat16) for n, e, d in cs.wide_cases() if d["D"] % 8 == 0] if "wide" in groups else []
+    for name, entry, dims, dt in cases:
+        keep, make, D, mult = attention_problems(torch, entry, dims, dt, dev, g)
+
+        def attn(lib, make=make, D=D, mult=mult, dt=dt, keep=keep):
+            problems, outs = make()
+            ptrs, strides, dims_c, scales, mask_bytes, masks = _problem_args(problems)
+            n = len(problems)
+            simt = lib.btia_attn_simt
+            if simt.argtypes[8] is ctypes.c_int:  # the earlier signature: one kernel, elem 0 f32 / 1 bf16
+                elem = int(dt == torch.bfloat16)
+                return (lambda: simt(ptrs, strides, dims_c, scales, n, D, mask_bytes, int(mult), elem, stream)), outs
+            if dt == torch.float32:
+                plan = (ctypes.c_int * 3)(*simt_plan(problems, D))
+                return (lambda: simt(ptrs, strides, dims_c, scales, n, D, mask_bytes, int(mult), plan, stream)), outs
+            plan = (ctypes.c_int * 2)(*wide_plan(D))
+            return (lambda: lib.btia_attn_wide(ptrs, strides, dims_c, scales, n, D, mask_bytes, int(mult), plan,
+                                               stream)), outs
+
+        b_, sq, sk, h = (dims[k] for k in ("B", "Sq", "Sk", "H"))
+        turns(f"{'f32' if dt == torch.float32 else 'wide bf16'} {name}: {b_} x {h} heads of {D}, {sq} <- {sk}", attn)
+        del keep, make
+        torch.cuda.empty_cache()
+
+    for name, M, K, N, rr in cs.GEMM_F32_SITES if "gemm_f32" in groups else ():
+        a = torch.randn(M, K, generator=g, device=dev)
+        w = torch.randn(K, N, generator=g, device=dev) / K**0.5
+        b = torch.randn(N, generator=g, device=dev)
+        res = torch.randn(rr, N, generator=g, device=dev) if rr else None
+
+        def gemm(lib, a=a, w=w, b=b, res=res, M=M, K=K, N=N, rr=rr):
+            o = torch.empty(M, N, device=dev)
+            args = (a.data_ptr(), w.data_ptr(), b.data_ptr(), None if res is None else res.data_ptr(), max(rr, 1),
+                    o.data_ptr(), M, N, K)
+            if len(lib.btia_gemm_f32.argtypes) == 10:  # the earlier signature: one 64 x 64 tile
+                return (lambda: lib.btia_gemm_f32(*args, stream)), o
+            return (lambda: lib.btia_gemm_f32(*args, gemm_f32_tile(M, N), 1, stream)), o
+
+        turns(f"f32 GEMM {name} {M} x {K} -> {N} (block tile {GEMM_F32_TILES[gemm_f32_tile(M, N)]})", gemm)
+        del a, w, b, res
 
 
 if __name__ == "__main__":

@@ -340,7 +340,7 @@ def test_cuda_wrappers_raise_through_the_predicates(Dh, monkeypatch):
     """The CUDA halves of K1/K2's core, K3 and K4 refuse a bf16 head width
     their tensor-core predicate refuses at or below 256 (D = 32, 96), before
     any kernel is built or launched; above 256 (D = 320, 384) they take the
-    wide route, the CUDA-core kernel, which refuses these CPU tensors before
+    wide route, the wide-head kernel, which refuses these CPU tensors before
     anything is built."""
     H = 2
     x = torch.zeros(1, 4, H * Dh, dtype=torch.bfloat16)
@@ -357,4 +357,4 @@ def test_cuda_wrappers_raise_through_the_predicates(Dh, monkeypatch):
         FA._core_cuda(x.view(4, H * Dh), torch.zeros(4, 2 * H * Dh, dtype=torch.bfloat16), None, 1, 4, 4, H)
     assert not (A.k3_takes(Dh) or A.k4_takes(Dh) or FA.core_takes(Dh))
     for takes in (A.k3_takes, A.k4_takes, FA.core_takes):
-        assert A.attention_route(torch.bfloat16, Dh, takes) == ("simt" if wide else None)
+        assert A.attention_route(torch.bfloat16, Dh, takes) == ("wide" if wide else None)
