@@ -21,7 +21,7 @@ import torch
 from torch import nn
 
 from btia_tpu_torch.core.dtypes import DTypePolicy
-from btia_tpu_torch.models.layers import Dense, Dropout, LayerNorm, LayerNormParams, Mlp, maybe_drop
+from btia_tpu_torch.models.layers import Dense, Dropout, LayerNorm, LayerNormParams, Mlp, maybe_drop, remat
 from btia_tpu_torch.ops.fused_attn import fused_dense_attention
 
 _PROJS = ("i2t_q_proj", "i2t_k_proj", "i2t_v_proj", "t2i_q_proj",
@@ -69,15 +69,23 @@ class BTIALayer(nn.Module):
 
 
 class BTIA(nn.Module):
+    """A stack of BTIALayers; with ``remat`` each layer is rematerialised in
+    the backward pass (``btia.py:146``)."""
+
     def __init__(self, dim: int, num_heads: int, num_layers: int, mlp_ratio: float,
-                 policy: DTypePolicy, device=None):
+                 policy: DTypePolicy, device=None, remat: bool = False):
         super().__init__()
         self.num_layers = num_layers
+        self.remat = remat
         for i in range(num_layers):
             self.add_module(f"layer{i}", BTIALayer(dim, num_heads, mlp_ratio, policy, device))
 
     def forward(self, img, txt, txt_mask: Optional[torch.Tensor], drop: Optional[Dropout] = None,
                 train: bool = False):
         for i in range(self.num_layers):
-            img, txt = getattr(self, f"layer{i}")(img, txt, txt_mask, drop, train)
+            layer = getattr(self, f"layer{i}")
+            if self.remat:
+                img, txt = remat(layer, img, txt, txt_mask, drop=drop, train=train)
+            else:
+                img, txt = layer(img, txt, txt_mask, drop, train)
         return img, txt

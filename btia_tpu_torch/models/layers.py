@@ -8,11 +8,13 @@ weight bridge (``convert/from_jax.py``) is a rename of dotted paths.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from btia_tpu_torch.core.dtypes import DTypePolicy
 from btia_tpu_torch.ops.fused_attn import fused_dense_attention
@@ -38,6 +40,46 @@ class Dropout:
 
 def maybe_drop(x: torch.Tensor, drop: Optional[Dropout]) -> torch.Tensor:
     return x if drop is None else drop(x)
+
+
+@contextlib.contextmanager
+def _replayed(generator: torch.Generator, state: torch.Tensor):
+    """Run the body from the generator state `state`, then put the generator
+    back where it was."""
+    now = generator.get_state()
+    generator.set_state(state)
+    try:
+        yield
+    finally:
+        generator.set_state(now)
+
+
+def remat(block: nn.Module, *tensors, drop: Optional[Dropout], train: bool):
+    """``block(*tensors, drop, train)`` rematerialised, as flax's
+    ``nn.remat``: the backward pass recomputes the block's forward instead
+    of keeping its activations (``torch.utils.checkpoint``, non-reentrant).
+
+    ``checkpoint``'s ``preserve_rng_state`` restores only the default
+    generators, and the masks come from ``drop.generator``: the recompute
+    would draw other masks and give wrong gradients without an error. So
+    the recompute runs from that generator's state before the block, and
+    leaves the generator where it found it, which is where the forward
+    left it. Without autograd there is nothing to recompute."""
+    run = lambda *t: block(*t, drop, train)
+    if not torch.is_grad_enabled():
+        return run(*tensors)
+    if drop is None:
+        return checkpoint(run, *tensors, use_reentrant=False)
+    gen, before, calls = drop.generator, drop.generator.get_state(), [0]
+
+    def replaying(*t):
+        calls[0] += 1
+        if calls[0] == 1:  # the forward
+            return run(*t)
+        with _replayed(gen, before):
+            return run(*t)
+
+    return checkpoint(replaying, *tensors, use_reentrant=False)
 
 
 def masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor], dim: int = 1) -> torch.Tensor:

@@ -13,7 +13,9 @@ training and evaluation; under the fp32 policy (``tiny_test``'s, or
 ``model.mixed_precision=False``) the fused sites run on the f32 kernels. With ``int8_ffn`` under the
 bf16 policy, every Mlp of a deterministic forward runs its two products
 through K8 (``ops/quant.py``); a train forward stays on the fp path, as in
-the reference (``model.py:36-43``). Only ``model.remat`` is refused.
+the reference (``model.py:36-43``). ``model.remat`` rematerialises each ViT
+block and each BTIA layer in the backward pass, where the reference's
+``nn.remat`` does; the ResNet and BERT are not.
 
 ``encode_image`` / ``answer_questions`` split the forward so that the image
 encoder runs once per image and only the question tower, fusion and head fan
@@ -45,26 +47,17 @@ from btia_tpu_torch.models.vit import VIT_SPECS, ViT
 from btia_tpu_torch.ops.ingest import preprocess_images, resize_matrix
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    cfg.validate()
-    if cfg.remat:
-        raise NotImplementedError(
-            "model.remat (rematerialised blocks in the backward pass) is not "
-            "ported yet (ROADMAP Queue 1, 'Training: remat')"
-        )
-
-
 class BTIAADNet(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        _check_supported(cfg)
+        cfg.validate()
         self.cfg = cfg
         policy = default_policy(cfg.mixed_precision)
         if cfg.int8_ffn and cfg.mixed_precision:  # serving-only int8 FFNs (K8)
             policy = dataclasses.replace(policy, int8=True)
         self.policy: DTypePolicy = policy
         if cfg.image_encoder in VIT_SPECS:
-            self.image_encoder = ViT(VIT_SPECS[cfg.image_encoder], policy, device)
+            self.image_encoder = ViT(VIT_SPECS[cfg.image_encoder], policy, device, cfg.remat)
         else:
             self.image_encoder = build_resnet(cfg.image_encoder, policy, device)
         if cfg.question_encoder == "lstm":
@@ -90,7 +83,8 @@ class BTIAADNet(nn.Module):
         self.txt_proj = Dense(txt_dim, cfg.hidden_dim, policy, device)
         self.img_ln = LayerNorm(cfg.hidden_dim, policy, device=device)
         self.txt_ln = LayerNorm(cfg.hidden_dim, policy, device=device)
-        self.btia = BTIA(cfg.hidden_dim, cfg.num_heads, cfg.btia_layers, cfg.mlp_ratio, policy, device)
+        self.btia = BTIA(cfg.hidden_dim, cfg.num_heads, cfg.btia_layers, cfg.mlp_ratio, policy, device,
+                         cfg.remat)
         if cfg.head == "ad":
             self.head = ADHead(
                 cfg.hidden_dim, cfg.num_heads, cfg.answer_vocab_size,

@@ -16,7 +16,7 @@ import torch
 from torch import nn
 
 from btia_tpu_torch.core.dtypes import DTypePolicy
-from btia_tpu_torch.models.layers import Dense, Dropout, LayerNorm, Mlp, MultiHeadAttention, _param
+from btia_tpu_torch.models.layers import Dense, Dropout, LayerNorm, Mlp, MultiHeadAttention, _param, remat
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,12 +59,14 @@ class ViTBlock(nn.Module):
 
 
 class ViT(nn.Module):
-    """Returns all tokens (CLS + patches): (B, N+1, D)."""
+    """Returns all tokens (CLS + patches): (B, N+1, D). With ``remat`` each
+    block is rematerialised in the backward pass (``vit.py:117``)."""
 
-    def __init__(self, spec: ViTSpec, policy: DTypePolicy, device=None):
+    def __init__(self, spec: ViTSpec, policy: DTypePolicy, device=None, remat: bool = False):
         super().__init__()
         self.spec = spec
         self.policy = policy
+        self.remat = remat
         s = spec
         self.patch_embed = Dense(s.patch_size * s.patch_size * 3, s.dim, policy, device)
         self.cls_token = _param(1, 1, s.dim, device=device)
@@ -86,5 +88,6 @@ class ViT(nn.Module):
         cls = self.cls_token.to(x.dtype).expand(B, 1, s.dim)
         x = torch.cat([cls, x], dim=1) + self.pos_embed.to(x.dtype)
         for i in range(s.depth):
-            x = getattr(self, f"block{i}")(x, drop, train)
+            block = getattr(self, f"block{i}")
+            x = remat(block, x, drop=drop, train=train) if self.remat else block(x, drop, train)
         return self.ln_final(x)

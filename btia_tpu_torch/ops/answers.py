@@ -8,6 +8,7 @@ only the first ``len(answer_vocab)`` slots are real answers, and slot 0 is
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -26,3 +27,8 @@ def topk_real(logits: torch.Tensor, k: int, limit: int):
     idx = torch.arange(logits.shape[-1], device=logits.device)
     masked = torch.where((idx == 0) | (idx >= limit), -1e30, logits)
     return torch.topk(masked, k)
+
+
+def topn_real_np(logits: np.ndarray, n: int, limit: int) -> np.ndarray:
+    """Ids of the n best real answers, host-side (ranked, descending)."""
+    return 1 + np.argsort(-logits[..., 1:limit], axis=-1)[..., :n]

@@ -144,7 +144,32 @@ Phases, each fatal on failure:
    attention), ``streaming_vitl``'s serve step of 2 images x 32 questions
    (K1 20, K2 1, K3 24; CUDA-core attention 45, f32 GEMM 62), and
    ``tiny_test`` (no kernel), one train step (loss and gradient norm within
-   1e-4) and a ``Predictor`` answer.
+   1e-4) and a ``Predictor`` answer;
+7. the user's entry points, each with every counter set to 0 just before
+   and read just after: (7a) ``btia_tpu_torch.cli.main`` in this process,
+   ``train`` (one epoch of full-width ``vqa_rad_lstm`` at batch 64 on a
+   synthetic VQA-RAD corpus of 160 images: K1 4 a train step and a val
+   batch, K4 4 a train step), ``eval`` (K1 4 a batch), ``predict`` on the
+   corpus's DICOM (no kernel) and ``serve`` over the image directory with
+   top-3, question dedup and batches of 8 images x 16 questions (K1 4 a
+   batch, warmup included; every image answered once); (7b) a
+   reference-layout state_dict of a seeded ``vqa_rad_lstm`` (the converter's
+   key rule run backwards) through ``cli convert``, then
+   ``Predictor.from_checkpoint`` of the workdir against the seeded model on
+   64 questions (K1 4), logits bitwise equal; (7c) ``python -m
+   btia_tpu_torch.cli bench`` as a subprocess at its defaults
+   (``streaming_vitl``, 16 x 128, 20 steps x 3 windows), its JSON line, then
+   the bench's ``run`` in this process on ``streaming_vitl`` (K1 20, K2 1,
+   K3 24 a step) and ``vqa_rad_lstm`` (K1 4 a step), each ``step_ms`` beside
+   phases 4's and 6's; (7d) one ``vqa_med_full`` train step at batch 64 and
+   dropout 0.1 without and with ``model.remat`` (same weights, batch and
+   step generator): equal losses, gradients within 1e-6 of the largest (or
+   the plain step's own rerun spread), the peak memory of each, and the
+   remat step's launches (K1 28, K3 25, K4 20: the backward recomputes the
+   8 BTIA sites and the 12 ViT-B blocks); (7e) the profiling hooks around
+   the bench's serve step of ``vqa_rad_lstm`` (K1 4 a step): ``Timer.span``
+   on CUDA events against the host clock, ``fetch``, ``memory_stats`` and a
+   ``trace`` that holds the card's kernels.
 
 With ``--profile`` it also runs one serve step, one int8 serve step, one
 train step and one ``vqa_rad_lstm`` serve step under ``torch.profiler``
@@ -155,10 +180,11 @@ entries, the two CUDA-core kernels and the wide-head kernel (``launches``
 is a kernel's count summed over the main-path runs: the serve step, the
 int8 serve step, the train step, the ops API run of phase 2b, phase 5d's
 train step and eval forward, the serve steps and train runs of phases 6
-and 6b and the fp32 forwards of phase 6c; ``launches_by_path`` splits it),
-the
-card's name and power limit, and as its
-last line ``{"ok": true, "device": {...}}``. It exits non-zero, and prints no
+and 6b, the fp32 forwards of phase 6c and the CLI commands, the converted
+checkpoint's forward, the bench runs, the remat train step and the
+profiled serve steps of phase 7;
+``launches_by_path`` splits it), the total run time, the card's name and
+power limit, and as its last line ``{"ok": true, "device": {...}}``. It exits non-zero, and prints no
 result, when no CUDA device is present or the package is missing.
 """
 
@@ -369,6 +395,24 @@ F32_TINY_COUNTS = [0] * 11
 # backward run on the wide-head kernel (17); an eval forward 8 + 1.
 WIDE_KERNEL_HEADS = 2
 WIDE_KERNEL_COUNTS = ([20, 0, 13, 20, 0, 0, 0, 0, 0, 0, 17], [20, 0, 13, 0, 0, 0, 0, 0, 0, 0, 9])
+# Phase 7, the user's entry points on the card. The CLI on vqa_rad_lstm
+# (bf16, 2 BTIA layers): K1 at its 4 BTIA sites a forward of 64 rows or
+# more, K4 in the backward of each in a train step. `serve` runs batches of
+# CLI_SERVE_BATCH images x the 16 CLI_QUESTIONS (128 rows: the fused sites'
+# batch floor of 64 admits K1), one warmup batch first.
+CLI_SERVE_BATCH = 8
+CLI_QUESTIONS = ("is the lung normal", "is there a fracture", "is the heart enlarged", "is this an mri",
+                 "does the chest show pleural effusion", "is the lesion on the left", "is there a mass",
+                 "is the liver normal", "is the kidney normal", "is there free air", "is this a ct",
+                 "is the trachea midline", "is there cardiomegaly", "is the bowel dilated",
+                 "is there a pneumothorax", "is the spleen enlarged")
+# The bench (python -m btia_tpu_torch.bench) at its defaults, a step:
+# streaming_vitl as phase 4's serve step, vqa_rad_lstm as phase 6's.
+BENCH_STEP_COUNTS = {"streaming_vitl": SERVE_COUNTS + [0, 0, 0], "vqa_rad_lstm": LSTM_SERVE_COUNTS}
+# A vqa_med_full train step with model.remat: the plain step's launches
+# (TRAIN_COUNTS) and the recompute's, in the backward pass, of the 8 BTIA K1
+# sites and the 12 ViT-B blocks' K3 calls; the AD head is not recomputed.
+REMAT_COUNTS = [28, 0, 25, 20, 0, 0, 0, 0, 0, 0, 0]
 
 
 T0 = time.perf_counter()
@@ -2549,6 +2593,345 @@ def fp32_phase(torch, dev, smi, counters):
     return out
 
 
+def _cli(argv):
+    """``btia_tpu_torch.cli.main(argv)`` in this process (so that the launch
+    counters can be read), its stdout and stderr captured and returned; a
+    non-zero exit fails the phase. SIGTERM and SIGINT handlers that `train`
+    installs are put back."""
+    import io
+    import signal
+
+    from btia_tpu_torch.cli import main as cli_main
+
+    out, err = io.StringIO(), io.StringIO()
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            cli_main([str(a) for a in argv])
+    except SystemExit as e:
+        if e.code not in (None, 0):
+            raise AssertionError(f"cli {argv[0]} exited with {e.code}: {err.getvalue()[-2000:]}") from e
+    finally:
+        for s, h in handlers.items():
+            signal.signal(s, h)
+    return out.getvalue(), err.getvalue()
+
+
+def cli_phase(torch, dev, smi, counters, overrides=()):
+    """Phase 7a: ``python -m btia_tpu_torch.cli`` train -> eval -> predict ->
+    serve on full-width vqa_rad_lstm over a synthetic VQA-RAD corpus, in
+    this process, every counter set to 0 just before each command and read
+    just after: train K1 4 a train step and an eval batch, K4 4 a train
+    step; eval K1 4 a batch; predict (one question: under the batch floor)
+    none; serve K1 4 a batch (warmup included), K4 0."""
+    import math
+
+    import numpy as np
+
+    from btia_tpu_torch.cli import _parse_overrides
+    from btia_tpu_torch.configs import get_config
+    from btia_tpu_torch.data.builder import build_data
+    from btia_tpu_torch.data.synthetic import generate_synthetic_dataset
+
+    out = {}
+    dv = ["--device", dev.type]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        root, work = Path(tmp) / "vqa_rad", Path(tmp) / "run"
+        generate_synthetic_dataset(root, num_images=160)
+        sets = [f"data.data_dir={root}", "train.epochs=1", *overrides]
+        data = build_data(get_config("vqa_rad_lstm", **_parse_overrides(sets)))
+        steps, val_b, test_b = data.steps("train"), data.steps("val"), data.steps("test")
+        if steps < 2:
+            raise AssertionError(f"the CLI corpus fills {steps} train step(s) of vqa_rad_lstm, not 2")
+        expect = {
+            "train": [4 * (steps + val_b), 0, 0, 4 * steps] + [0] * 7,
+            "eval": [4 * test_b] + [0] * 10, "predict": [0] * 11,
+        }
+        cmds = {
+            "train": ["train", "--config", "vqa_rad_lstm", "--workdir", work,
+                      *[a for s in sets for a in ("--set", s)]],
+            "eval": ["eval", "--workdir", work, "--split", "test"],
+            "predict": ["predict", "--workdir", work, "--image", root / "images" / "synpic0.dcm",
+                        "--question", "is the lung normal", "--question", "is there a fracture"],
+        }
+        for name, argv in cmds.items():
+            torch.cuda.synchronize()
+            _zero(counters)
+            t0 = time.perf_counter()
+            stdout, _ = _cli([*argv, *dv])
+            torch.cuda.synchronize()
+            counts = _counts(counters)
+            out[name] = {"seconds": time.perf_counter() - t0, "launches": dict(zip(KERNELS + NEW_KERNELS, counts))}
+            log(f"phase 7a: cli {name} on vqa_rad_lstm in {out[name]['seconds']:.1f} s launched {counts}; "
+                f"stdout {' '.join(stdout.split())[:400]}")
+            if counts != expect[name]:
+                raise AssertionError(f"cli {name} launch counts {counts} != {expect[name]}")
+            if name == "train":
+                row = json.loads(stdout)
+                if not (np.isfinite(row["train_loss"]) and 0.0 <= row["val_accuracy"] <= 1.0):
+                    raise AssertionError(f"cli train: bad epoch row {row}")
+                out[name].update(steps=steps, row=row)
+            elif name == "eval":
+                metrics = json.loads(stdout)
+                if not 0.0 <= metrics["accuracy"] <= 1.0:
+                    raise AssertionError(f"cli eval: bad metrics {metrics}")
+                out[name]["metrics"] = metrics
+            else:
+                rows = [json.loads(ln) for ln in stdout.strip().splitlines()]
+                top = min(3, len(data.answer_vocab) - 1)  # real answers: the vocabulary less <unk>
+                if len(rows) != 2 or not all(len(r["top"]) == top and all(np.isfinite(a["logit"]) for a in r["top"])
+                                             for r in rows):
+                    raise AssertionError(f"cli predict: bad rows {rows}")
+                out[name]["rows"] = rows
+        images = [p for p in (root / "images").iterdir() if p.suffix.lower() in (".jpg", ".dcm", ".png")]
+        batches = 1 + math.ceil(len(images) / CLI_SERVE_BATCH)
+        expect = [4 * batches] + [0] * 10
+        torch.cuda.synchronize()
+        _zero(counters)
+        t0 = time.perf_counter()
+        stdout, stderr = _cli(["serve", "--workdir", work, "--image-dir", root / "images", "--batch", CLI_SERVE_BATCH,
+                               "--topk", 3, "--dedup", *[a for q in CLI_QUESTIONS for a in ("--question", q)], *dv])
+        torch.cuda.synchronize()
+        counts = _counts(counters)
+        rows = [json.loads(ln) for ln in stdout.strip().splitlines()]
+        summary = json.loads(stderr.strip().splitlines()[-1])
+        out["serve"] = {"seconds": time.perf_counter() - t0, "images": len(images), "batches": batches,
+                        "launches": dict(zip(KERNELS + NEW_KERNELS, counts)), "summary": summary}
+        log(f"phase 7a: cli serve of {len(images)} images x {len(CLI_QUESTIONS)} questions (top-3, dedup, batch "
+            f"{CLI_SERVE_BATCH}) launched {counts}; {summary}")
+        if counts != expect:
+            raise AssertionError(f"cli serve launch counts {counts} != {expect}")
+        if (sorted(r["image"] for r in rows) != sorted(p.name for p in images)
+                or not all(len(r["answers"]) == len(CLI_QUESTIONS) for r in rows)
+                or summary["pairs"] != len(images) * len(CLI_QUESTIONS)):
+            raise AssertionError(f"cli serve: {len(rows)} rows for {len(images)} images, summary {summary}")
+    log(json.dumps({"cli": {**out, "card": smi}}))
+    return out
+
+
+def _reference_state_dict(torch, model):
+    """A reference-PyTorch state_dict of `model`: the converter's key rule
+    (``convert/convert.py::_torch_key``) run backwards, Dense kernels
+    transposed to torch's (out, in), BatchNorm's ``num_batches_tracked``
+    added as torch writes it."""
+    from btia_tpu_torch.convert.convert import _torch_key
+
+    sd = {}
+    for name, t in [*model.named_parameters(), *model.named_buffers()]:
+        key, kind = _torch_key(tuple(name.split(".")))
+        sd[key] = (t.T if kind == "kernel" and t.ndim == 2 else t).detach().cpu().contiguous().clone()
+        if name.endswith(".mean"):
+            sd[key.replace("running_mean", "num_batches_tracked")] = torch.tensor(0)
+    return sd
+
+
+def convert_phase(torch, dev, smi, counters, overrides=()):
+    """Phase 7b: a reference-layout checkpoint of a seeded vqa_rad_lstm
+    through ``cli convert`` on the card; ``Predictor.from_checkpoint`` of the
+    workdir against the seeded model, 64 questions on one image (K1 fused),
+    logits bitwise equal."""
+    import numpy as np
+
+    from btia_tpu_torch.cli import _parse_overrides
+    from btia_tpu_torch.configs import get_config
+    from btia_tpu_torch.data.vocab import AnswerVocab, WordVocab
+    from btia_tpu_torch.infer.predict import Predictor
+    from btia_tpu_torch.models.model import build_model
+
+    cfg = get_config("vqa_rad_lstm", **_parse_overrides(overrides))
+    model = build_model(cfg.model, device=dev, seed=21)
+    questions = [f"{q} {i}" for i in range(4) for q in CLI_QUESTIONS]  # 64
+    vocab, answers = WordVocab.build(questions), AnswerVocab(["yes", "no"])
+    img = np.random.RandomState(13).randint(0, 256, (300, 260, 3)).astype(np.uint8)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_convert_") as tmp:
+        ckpt, work = Path(tmp) / "ref.pt", Path(tmp) / "converted"
+        torch.save({"state_dict": _reference_state_dict(torch, model)}, ckpt)
+        t0 = time.perf_counter()
+        stdout, _ = _cli(["convert", "--config", "vqa_rad_lstm", "--torch-ckpt", ckpt, "--workdir", work,
+                          *[a for s in overrides for a in ("--set", s)], "--device", dev.type])
+        convert_s = time.perf_counter() - t0
+        (work / "vocabs").mkdir()
+        vocab.save(work / "vocabs" / "question_vocab.json")
+        answers.save(work / "vocabs" / "answer_vocab.json")
+        loaded = Predictor.from_checkpoint(work, device=dev)
+        _zero(counters)
+        got = loaded.predict_batch(img, questions)
+        counts = _counts(counters)
+        want = Predictor(model, None, vocab, answers, cfg, device=dev).predict_batch(img, questions)
+    err = float(np.abs(got - want).max())
+    res = {"convert_s": convert_s, "max_abs_diff": err, "bitwise": bool(np.array_equal(got, want)),
+           "max_logit": float(np.abs(want).max()), "launches": dict(zip(KERNELS + NEW_KERNELS, counts))}
+    log(f"phase 7b: {stdout.strip()}; from_checkpoint vs the seeded model: {json.dumps(res)}")
+    if not res["bitwise"] or counts[0] != 4:
+        raise AssertionError(f"converted checkpoint: logits differ by {err} (bitwise expected), counts {counts}")
+    del model, loaded
+    torch.cuda.empty_cache()
+    return res
+
+
+def bench_phase(torch, dev, smi, counters, serve_ms, lstm_serve_ms):
+    """Phase 7c: ``python -m btia_tpu_torch.cli bench`` as a user runs it (a
+    subprocess, full defaults, streaming_vitl): its JSON line; then the
+    bench's ``run`` in this process at the same shape on streaming_vitl and
+    vqa_rad_lstm, every counter set to 0 just before and read just after:
+    per step phase 4's and phase 6's counts."""
+    from btia_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "btia_tpu_torch.cli", "bench"], cwd=REPO,
+                         capture_output=True, text=True, timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f"cli bench exited with {res.returncode}: {res.stderr[-3000:]}")
+    line = json.loads(res.stdout.strip().splitlines()[-1])
+    detail = json.loads([ln for ln in res.stderr.strip().splitlines() if ln.startswith("{")][-1])
+    if (line["metric"] != "image_question_pairs_per_sec_per_chip" or line["unit"] != "pairs/s/chip"
+            or not line["value"] > 0 or line["vs_baseline"] != round(line["value"] / 5000.0, 3)):
+        raise AssertionError(f"cli bench printed {line}")
+    out = {"cli_bench": {"stdout": line, "detail": detail, "seconds": time.perf_counter() - t0}}
+    log(f"phase 7c: python -m btia_tpu_torch.cli bench: {json.dumps(line)}; {json.dumps(detail)}")
+    for config, phase_ms in (("streaming_vitl", serve_ms), ("vqa_rad_lstm", lstm_serve_ms)):
+        torch.cuda.synchronize()
+        _zero(counters)
+        r = bench.run(config, device=dev)
+        torch.cuda.synchronize()
+        counts = _counts(counters)
+        n = r["detail"]["steps_run"]
+        expect = [c * n for c in BENCH_STEP_COUNTS[config]]
+        out[config] = {**r, "launches": dict(zip(KERNELS + NEW_KERNELS, counts)), "phase_serve_ms": phase_ms}
+        log(f"  bench.run({config!r}) in process: {json.dumps(r['result'])}; step_ms {r['detail']['step_ms']} "
+            f"(the serve step of phase {'4' if config == 'streaming_vitl' else '6'}: {phase_ms:.2f} ms); "
+            f"{n} steps launched {counts}")
+        if counts != expect:
+            raise AssertionError(f"bench {config} launch counts {counts} != {expect} ({n} steps)")
+        torch.cuda.empty_cache()
+    log(json.dumps({"bench": {**out, "card": smi}}))
+    return out
+
+
+def remat_phase(torch, dev, smi, counters):
+    """Phase 7d: one vqa_med_full train step (forward and backward) at batch
+    64 with dropout 0.1, without and with ``model.remat``, same weights, same
+    batch and the same step generator: the losses equal, the gradients
+    within 1e-6 of the largest or within the spread of the plain step run
+    twice (atomics in a backward sum in any order); the peak memory of each
+    (reported), the launches of each (the recompute's K1 and K3 in the
+    backward pass: REMAT_COUNTS), and the step times, taken in turns."""
+    import numpy as np
+
+    from btia_tpu_torch.configs import get_config
+    from btia_tpu_torch.models.model import build_model
+    from btia_tpu_torch.train.steps import cross_entropy, dropout_generator
+
+    cfg = get_config("vqa_med_full")
+    rng = np.random.RandomState(4)
+    images = torch.from_numpy(rng.randint(0, 256, (B_TRAIN, 256, 256, 3)).astype(np.uint8)).to(dev)
+    qids = np.zeros((B_TRAIN, cfg.model.max_question_len), np.int64)
+    for i in range(B_TRAIN):
+        n = rng.randint(3, 16)
+        qids[i, :n] = rng.randint(1, cfg.model.bert_vocab_size, n)
+    qids = torch.from_numpy(qids).to(dev)
+    labels = torch.from_numpy(rng.randint(1, cfg.model.answer_vocab_size, B_TRAIN)).to(dev)
+    plain = build_model(cfg.model, device=dev, seed=1)
+    remat = build_model(get_config("vqa_med_full", **{"model.remat": True}).model, device=dev, seed=1)
+    remat.load_state_dict(plain.state_dict())
+
+    def step(m):
+        m.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero(counters)
+        t0 = time.perf_counter()
+        logits = m(images, qids, train=True, generator=dropout_generator(0, 7, dev))
+        loss = cross_entropy(logits, labels)
+        loss.backward()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        grads = torch.cat([p.grad.float().flatten() for p in m.parameters()])
+        return {"loss": loss.item(), "grads": grads, "ms": ms, "counts": _counts(counters),
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+    step(plain)  # warm: the allocator's first blocks
+    step(remat)
+    a, b, r = step(plain), step(plain), step(remat)
+    big = float(a["grads"].abs().max())
+    diff = float((r["grads"] - a["grads"]).abs().max())
+    noise = float((b["grads"] - a["grads"]).abs().max())
+    # Step times in turns (plain, remat, remat, plain, twice): medians.
+    ms = {plain: [], remat: []}
+    for m in (plain, remat, remat, plain) * 2:
+        ms[m].append(step(m)["ms"])
+    res = {"loss": a["loss"], "loss_remat": r["loss"], "max_grad": big, "grad_max_abs_diff": diff,
+           "plain_rerun_max_abs_diff": noise, "ms": float(np.median(ms[plain])),
+           "ms_remat": float(np.median(ms[remat])), "ms_each": [ms[plain], ms[remat]],
+           "peak_gib": a["peak_gib"], "peak_gib_remat": r["peak_gib"],
+           "launches": dict(zip(KERNELS + NEW_KERNELS, a["counts"])),
+           "launches_remat": dict(zip(KERNELS + NEW_KERNELS, r["counts"]))}
+    log(f"phase 7d: vqa_med_full train step at batch {B_TRAIN}, dropout 0.1, without / with model.remat: "
+        f"{json.dumps(res)}")
+    del plain, remat, a, b, r
+    torch.cuda.empty_cache()
+    if res["loss"] != res["loss_remat"] or diff > max(1e-6 * big, noise):
+        raise AssertionError(f"remat step differs from the plain step: {res}")
+    if res["launches"] != dict(zip(KERNELS + NEW_KERNELS, TRAIN_COUNTS + [0, 0, 0])) or \
+            list(res["launches_remat"].values()) != REMAT_COUNTS:
+        raise AssertionError(f"remat step launch counts: {res}")
+    return res
+
+
+def profiling_phase(torch, dev, smi, counters):
+    """Phase 7e: the profiling hooks on the card, around the bench's serve
+    step of full-width vqa_rad_lstm (16 x 128, K1 4 a step): ``Timer.span``
+    on CUDA events, each span's result a list the block fills, against the
+    host clock around the same steps; ``fetch``'s host copies; the card's
+    ``memory_stats``; ``trace``'s Chrome trace, which must hold the card's
+    kernels (device time in ``key_averages``)."""
+    import numpy as np
+
+    from btia_tpu_torch import bench
+    from btia_tpu_torch.configs import get_config
+    from btia_tpu_torch.models.model import build_model
+    from btia_tpu_torch.utils.profiling import Timer, fetch, memory_stats, trace
+
+    cfg = get_config("vqa_rad_lstm")
+    model = build_model(cfg.model, device=dev, seed=0)
+    rng = np.random.RandomState(17)
+    images = torch.from_numpy(rng.randint(0, 256, (B_IMG, 256, 256, 3)).astype(np.uint8)).to(dev)
+    qids = torch.from_numpy(_lstm_qids(rng, (B_IMG, N_Q), cfg.model.question_vocab_size)).to(dev)
+    step = lambda: bench.serve_step(model, images, qids, 5)
+    fetch(step())
+    timer = Timer()
+    torch.cuda.synchronize()
+    _zero(counters)
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        out = []
+        with timer.span(result=out):
+            out.extend(step())
+    host_ms = 1e3 * (time.perf_counter() - t0) / TIMED_STEPS
+    counts = _counts(counters)
+    host = fetch({"topk": step()})
+    stats = memory_stats(dev)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as tmp:
+        with trace(Path(tmp) / "trace") as prof:
+            fetch(step())
+        files = list((Path(tmp) / "trace").glob("*.json"))
+        trace_mb = sum(f.stat().st_size for f in files) / 1e6
+    device_us = sum(getattr(e, "self_device_time_total", 0) for e in prof.key_averages())
+    res = {"timer_mean_ms": timer.mean_ms, "spans": timer.count, "host_ms": host_ms,
+           "fetched": [list(t.shape) for t in host["topk"]], "fetched_device": str(host["topk"][0].device),
+           "allocated_gib": stats.get("allocated_bytes.all.current", 0) / 2**30, "trace_files": len(files),
+           "trace_mb": trace_mb, "trace_device_ms": device_us / 1e3,
+           "launches": dict(zip(KERNELS + NEW_KERNELS, counts))}
+    log(f"phase 7e: profiling hooks around the vqa_rad_lstm serve step: {json.dumps(res)}")
+    del model
+    torch.cuda.empty_cache()
+    if (timer.count != TIMED_STEPS or not 0 < timer.mean_ms <= 1.5 * host_ms or counts[0] != 4 * TIMED_STEPS
+            or res["fetched"] != [[B_IMG, N_Q, 5]] * 2 or res["fetched_device"] != "cpu"
+            or not res["allocated_gib"] > 0 or len(files) != 1 or not device_us > 0):
+        raise AssertionError(f"profiling hooks on the card: {res}")
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -2733,6 +3116,15 @@ def main() -> int:
     log(f"  (phase 6b done at {time.perf_counter() - T0:.0f} s)")
     fp32 = fp32_phase(torch, dev, smi, all_counters)
     log(f"  (phase 6c done at {time.perf_counter() - T0:.0f} s)")
+
+    # Phase 7: the user's entry points: the CLI, checkpoint conversion, the
+    # bench and model.remat.
+    cli = cli_phase(torch, dev, smi, all_counters)
+    conv = convert_phase(torch, dev, smi, all_counters)
+    benches = bench_phase(torch, dev, smi, all_counters, step_ms, lstm["serve_step"]["ms_per_step"])
+    rematr = remat_phase(torch, dev, smi, all_counters)
+    prof = profiling_phase(torch, dev, smi, all_counters)
+    log(f"  (phase 7 done at {time.perf_counter() - T0:.0f} s)")
     new_paths = {
         "vqa_rad_lstm_serve_step": lstm["serve_step"]["launches"],
         "vqa_rad_lstm_train_call": lstm["train_call"]["launches"],
@@ -2742,6 +3134,12 @@ def main() -> int:
                           for k in KERNELS + NEW_KERNELS},
         "d384_train_step": wide_kernel[768 // WIDE_KERNEL_HEADS]["train_launches"],
         "d384_eval": wide_kernel[768 // WIDE_KERNEL_HEADS]["eval_launches"],
+        **{f"cli_{c}": cli[c]["launches"] for c in ("train", "eval", "predict", "serve")},
+        "convert_predict": conv["launches"],
+        "bench_streaming_vitl": benches["streaming_vitl"]["launches"],
+        "bench_vqa_rad_lstm": benches["vqa_rad_lstm"]["launches"],
+        "remat_train_step": rematr["launches_remat"],
+        "profiled_serve_steps": prof["launches"],
     }
     by_path = [{"serve_step": a, "int8_serve_step": c, "train_step": b, "ops_api": d,
                 **{p: v[k] for p, v in new_paths.items()}}
@@ -2858,7 +3256,16 @@ def main() -> int:
                              ln_census["plain_ms_per_step"]],
         "stream_pairs_per_s": {m: v["pairs_per_s"] for m, v in stream.items()},
         "stream_p50_p99_ms": {m: [v["latency"]["p50_ms"], v["latency"]["p99_ms"]] for m, v in stream.items()},
+        "cli_bench": benches["cli_bench"]["stdout"],
+        "bench_step_ms": {c: [benches[c]["detail"]["step_ms"], benches[c]["phase_serve_ms"]]
+                          for c in ("streaming_vitl", "vqa_rad_lstm")},
+        "bench_pairs_per_s": {c: benches[c]["result"]["value"] for c in ("streaming_vitl", "vqa_rad_lstm")},
+        "convert_max_abs_diff": conv["max_abs_diff"],
+        "timer_vs_host_ms": [prof["timer_mean_ms"], prof["host_ms"]],
+        "remat": {k: rematr[k] for k in ("loss", "loss_remat", "grad_max_abs_diff", "max_grad", "ms", "ms_remat",
+                                         "peak_gib", "peak_gib_remat")},
     }}))
+    log(f"total run time {time.perf_counter() - T0:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -85,12 +85,15 @@ def test_training_entry_points_raise_without_a_gpu(tmp_path):
 
 _SERVING_MODULES = (
     "btia_tpu_torch.ops.quant", "btia_tpu_torch.infer.predict", "btia_tpu_torch.infer.streaming",
+    "btia_tpu_torch.cli", "btia_tpu_torch.bench", "btia_tpu_torch.convert.convert",
+    "btia_tpu_torch.convert.hf", "btia_tpu_torch.utils.profiling",
 )
 
 
 def test_serving_modules_import_alone():
-    """K8's module and the serving modules, imported by themselves, pull in
-    no JAX and no module of the reference package."""
+    """K8's module, the serving modules and the user's entry points (the
+    CLI, the bench, checkpoint conversion, profiling), imported by
+    themselves, pull in no JAX and no module of the reference package."""
     probe = (
         "import importlib, sys\n"
         f"for m in {_SERVING_MODULES!r}: importlib.import_module(m)\n"
@@ -99,6 +102,33 @@ def test_serving_modules_import_alone():
     res = subprocess.run([sys.executable, "-c", probe], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "[]"
+
+
+@pytest.mark.parametrize("argv", [
+    ["train", "--config", "tiny_test", "--set", "data.data_dir=no_such_dir"],
+    ["convert", "--config", "tiny_test", "--torch-ckpt", "no_such.pt"],
+])
+def test_cli_raises_without_a_gpu(argv, tmp_path):
+    """The CLI without ``--device cpu`` on a host with no GPU ends on the
+    device error and writes nothing: it does not carry on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU; the check is for hosts without one")
+    from btia_tpu_torch.cli import main
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main([*argv, "--workdir", str(tmp_path / "run")])
+    assert not (tmp_path / "run").exists()
+
+
+def test_bench_raises_without_a_gpu():
+    """``python -m btia_tpu_torch.bench`` without ``--device cpu`` on a host
+    with no GPU fails before it builds a model; it never times the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU; the check is for hosts without one")
+    from btia_tpu_torch import bench
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench.main(["--config", "tiny_test", "--steps", "1"])
 
 
 _OPS_MODULES = (

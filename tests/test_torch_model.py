@@ -250,9 +250,11 @@ def test_config_json_round_trips_between_packages():
 @pytest.mark.parametrize("name", ["vqa_rad_lstm", "slake_bert", "tiny_test", "streaming_vitl",
                                   "pathvqa_vit", "vqa_med_full"])
 def test_unported_configs_raise(name):
-    """Every registered config builds (on ``meta``: shapes only); the one
-    option still refused is ``model.remat``."""
+    """Every registered config builds (on ``meta``: shapes only), with
+    ``model.remat`` too, which no option refuses any more: its ViT blocks
+    and BTIA layers rematerialised, a ResNet not."""
     model = BTIAADNet(get_config(name).model, device="meta")
     assert type(model.head).__name__ == ("ADHead" if get_config(name).model.head == "ad" else "SimpleClassifier")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BTIAADNet(get_config(name, **{"model.remat": True}).model, device="meta")
+    remat = BTIAADNet(get_config(name, **{"model.remat": True}).model, device="meta")
+    assert remat.btia.remat and getattr(remat.image_encoder, "remat", True)
+    assert not model.btia.remat

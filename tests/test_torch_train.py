@@ -236,9 +236,12 @@ def test_dropout_masks_follow_seed_and_step():
 
 
 def test_remat_is_not_ported():
+    """``model.remat`` is no longer refused: the model builds with its ViT
+    blocks and BTIA layers rematerialised (held to the reference in
+    ``tests/test_torch_remat.py``)."""
     cfg = get_config("vqa_med_full", **{"model.remat": True})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        BTIAADNet(cfg.model, device="meta")
+    model = BTIAADNet(cfg.model, device="meta")
+    assert model.image_encoder.remat and model.btia.remat
 
 
 # ---------------------------------------------------------------------------
