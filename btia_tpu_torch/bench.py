@@ -3,7 +3,7 @@ card, streaming inference (the port of the root ``bench.py``).
 
     python -m btia_tpu_torch.bench [--config streaming_vitl] [--batch 16]
         [--questions 128] [--steps 20] [--warmup 3] [--reps 3] [--topk 5]
-        [--json-only] [--device cuda]
+        [--json-only] [--device cuda] [--mesh [DATA,MODEL]]
 
 Measures the serving step of a registered config, ``serve_step``: on-device
 resize / normalize -> image encoder (once per image) -> question tower ->
@@ -19,6 +19,16 @@ ends with that fetch. The median of ``--reps`` windows is the headline.
 Prints one JSON line on stdout, ``metric``, ``value``, ``unit`` and
 ``vs_baseline`` = value / 5000 (the reference publishes no numbers; 5,000
 pairs/s/chip is its build target), and the detail on stderr.
+
+``--mesh`` serves the same step over the ranks that ``torchrun`` started
+(``parallel.distributed.maybe_initialize``: NCCL, one card a rank), under
+the config's registered mesh or the DATA,MODEL given
+(``infer/sharded.py``): each data rank serves its images, the model ranks
+split the weights. The value is then the global pairs/s over the number of
+cards, and only the primary prints:
+
+    torchrun --nproc-per-node 2 -m btia_tpu_torch.bench --mesh          # streaming_vitl: data 1, model 2
+    torchrun --nproc-per-node 4 -m btia_tpu_torch.bench --mesh 2,2
 """
 
 from __future__ import annotations
@@ -50,13 +60,39 @@ def serve_step(model: BTIAADNet, images: torch.Tensor, question_ids: torch.Tenso
     return torch.topk(logits, topk)
 
 
-def run(config: str = "streaming_vitl", batch: int = 16, questions: int = 128, steps: int = 20,
-        warmup: int = 3, reps: int = 3, topk: int = 5, device="cuda", seed: int = 0) -> dict:
-    """One benchmark run -> {"result": the stdout line, "detail": ...}."""
+def _mesh_setup(cfg, shape, device):
+    """(device, mesh) of this rank of a torchrun-started mesh."""
+    from btia_tpu_torch.parallel.distributed import local_rank, maybe_initialize
+    from btia_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
     dev = resolve_device(device)
+    if not maybe_initialize():
+        raise RuntimeError("--mesh serves over the ranks torchrun starts (MASTER_ADDR, WORLD_SIZE, RANK unset)")
+    local_rank()
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    data, model = (cfg.mesh.data, cfg.mesh.model) if shape is None else shape
+    return dev, make_mesh(MeshConfig(data, model))
+
+
+def run(config: str = "streaming_vitl", batch: int = 16, questions: int = 128, steps: int = 20,
+        warmup: int = 3, reps: int = 3, topk: int = 5, device="cuda", seed: int = 0,
+        mesh=None) -> dict:
+    """One benchmark run -> {"result": the stdout line, "detail": ...}.
+    `mesh`: None (one card), "config" (the config's mesh over the torchrun
+    ranks) or a (data, model) pair."""
     cfg = get_config(config)
+    if mesh is None:
+        dev, grid = resolve_device(device), None
+    else:
+        dev, grid = _mesh_setup(cfg, None if mesh == "config" else mesh, device)
     t0 = time.perf_counter()
     model = build_model(cfg.model, device=dev, seed=seed)
+    if grid is not None:
+        from btia_tpu_torch.infer.sharded import make_sharded_serve_fn, shard_serving_params
+
+        shard_serving_params(model, grid)
+        sharded = make_sharded_serve_fn(model, grid, topk, cfg.model.answer_vocab_size)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     init_s = time.perf_counter() - t0
@@ -72,11 +108,13 @@ def run(config: str = "streaming_vitl", batch: int = 16, questions: int = 128, s
     def step(i):
         images = torch.from_numpy(image_bufs[i % N_BUFS]).to(dev)
         qids = torch.from_numpy(qid_bufs[i % N_BUFS]).to(dev)
+        if grid is not None:
+            return sharded(images, qids)
         return serve_step(model, images, qids, topk)
 
     # The first call builds the CUDA kernels (nvcc) unless a build is cached.
     t0 = time.perf_counter()
-    fetch(step(0))
+    first = fetch(step(0))
     compile_s = time.perf_counter() - t0
     for i in range(warmup):
         fetch(step(i))
@@ -89,7 +127,8 @@ def run(config: str = "streaming_vitl", batch: int = 16, questions: int = 128, s
         with timer.span(result=outs):
             outs.extend(step(i) for i in range(steps))
         rates.append(pairs / (timer.total - before))
-    rates.sort()
+    cards = 1 if grid is None else grid.size
+    rates = sorted(r / cards for r in rates)
     pairs_per_sec = rates[len(rates) // 2]  # the median window
     result = {
         "metric": "image_question_pairs_per_sec_per_chip",
@@ -108,7 +147,13 @@ def run(config: str = "streaming_vitl", batch: int = 16, questions: int = 128, s
         "step_ms": round(1000 * pairs / pairs_per_sec / steps, 2),
         "init_s": round(init_s, 1),
         "compile_s": round(compile_s, 1),
+        # the first step's mean best logit: the same weights and inputs give
+        # the same value on one card and over a mesh, up to rounding
+        "top1_mean": round(float(first[0][..., 0].float().mean()), 5),
     }
+    if grid is not None:
+        detail["mesh"] = dict(grid.shape)
+        detail["global_pairs_per_sec"] = round(pairs_per_sec * cards, 1)
     return {"result": result, "detail": detail}
 
 
@@ -124,12 +169,22 @@ def main(argv=None) -> None:
     ap.add_argument("--topk", type=int, default=5, help="answers fetched/question")
     ap.add_argument("--json-only", action="store_true")
     ap.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    ap.add_argument("--mesh", nargs="?", const="config", default=None, metavar="DATA,MODEL",
+                    help="serve over the torchrun ranks, under the config's mesh or DATA,MODEL")
     args = ap.parse_args(argv)
+    mesh = args.mesh
+    if mesh not in (None, "config"):
+        mesh = tuple(int(x) for x in mesh.split(","))
     out = run(args.config, args.batch, args.questions, args.steps, args.warmup, args.reps,
-              args.topk, args.device)
-    if not args.json_only:
-        print(json.dumps(out["detail"]), file=sys.stderr)
-    print(json.dumps(out["result"]), flush=True)
+              args.topk, args.device, mesh=mesh)
+    from btia_tpu_torch.parallel.distributed import is_primary
+
+    if is_primary():
+        if not args.json_only:
+            print(json.dumps(out["detail"]), file=sys.stderr)
+        print(json.dumps(out["result"]), flush=True)
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

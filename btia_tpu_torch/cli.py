@@ -16,6 +16,13 @@ Every subcommand runs on the card; ``--device cpu`` runs it on the CPU (the
 kernels' plain PyTorch versions), as ``JAX_PLATFORMS=cpu`` does for the
 reference. Without a GPU and without ``--device cpu`` a subcommand fails; it
 never falls back to the CPU.
+
+Under ``torchrun`` ``train`` joins the ranks into one process group and
+trains under the config's mesh (``cfg.mesh``, e.g. ``--set mesh.data=-1``),
+one card a rank:
+
+    torchrun --nproc-per-node 2 -m btia_tpu_torch.cli train --config vqa_rad_lstm \
+        --workdir runs/rad --set data.data_dir=/data/vqa_rad
 """
 
 from __future__ import annotations
@@ -43,8 +50,11 @@ def _parse_overrides(pairs):
 
 def cmd_train(args) -> None:
     from btia_tpu_torch.configs import get_config
+    from btia_tpu_torch.parallel.distributed import is_primary, local_rank, maybe_initialize
     from btia_tpu_torch.train.trainer import Trainer
 
+    if maybe_initialize(backend="gloo" if args.device == "cpu" else None):
+        local_rank()
     cfg = get_config(args.config, **_parse_overrides(args.set))
     trainer = Trainer(cfg, args.workdir, device=args.device)
     # SIGTERM / SIGINT -> finish the step in flight, checkpoint, return;
@@ -54,7 +64,8 @@ def cmd_train(args) -> None:
         resumed = trainer.resume_if_available()
         print(f"resume: {'ok' if resumed else 'no checkpoint found'}")
     history = trainer.fit()
-    print(json.dumps(history[-1] if history else {}, indent=2))
+    if is_primary():
+        print(json.dumps(history[-1] if history else {}, indent=2))
 
 
 def cmd_eval(args) -> None:

@@ -13,6 +13,13 @@ its dedup and packed-pair forms) return callables that launch the work on
 the model's device and return device tensors without waiting for it, so a
 server can launch one batch while the card runs the one before. PyTorch runs
 eagerly: there is no compiled-program cache.
+
+With ``mesh`` (a ``parallel.Mesh``; every rank of it builds the same
+Predictor and drives the same calls) the weights take the TP layout of
+``parallel/sharding.py`` and every forward runs inside ``fused_mesh``: a
+batch-shaped input whose leading dim divides the data axis is split over
+it, any other stays whole on every rank (so a 1-image ``predict`` works on
+any mesh), and every rank gets the whole result (``infer/sharded.py``).
 """
 
 from __future__ import annotations
@@ -50,13 +57,20 @@ class Predictor:
         answer_vocab: AnswerVocab,
         cfg: Config,
         device="cuda",
+        mesh=None,
     ):
-        """`state`: a state dict for `model` (loaded strictly), or None to
-        serve the weights the model already holds."""
+        """`state`: a full state dict for `model` (loaded strictly), or None
+        to serve the weights the model already holds. `mesh`: serve through
+        a DP x TP mesh (see the module docstring)."""
         self.device = resolve_device(device)
         if state is not None:
             model.load_state_dict(state, strict=True)
         self.model = model.to(self.device).eval()
+        self.mesh = mesh
+        if mesh is not None:
+            from btia_tpu_torch.infer.sharded import shard_serving_params
+
+            shard_serving_params(self.model, mesh)
         self.text_encoder = text_encoder
         self.answer_vocab = answer_vocab
         self.cfg = cfg
@@ -65,8 +79,11 @@ class Predictor:
     # -- plumbing ---------------------------------------------------------
 
     @classmethod
-    def from_checkpoint(cls, workdir: str | Path, best: bool = True, device="cuda") -> "Predictor":
-        """Load config + vocabs + best/latest weights from a Trainer workdir."""
+    def from_checkpoint(cls, workdir: str | Path, best: bool = True, device="cuda",
+                        mesh=None) -> "Predictor":
+        """Load config + vocabs + best/latest weights from a Trainer workdir
+        (a checkpoint holds the whole state, whatever mesh wrote it), served
+        through `mesh` if given."""
         from btia_tpu_torch.train.checkpoint import Checkpointer
         from btia_tpu_torch.train.steps import create_state
 
@@ -82,7 +99,7 @@ class Predictor:
             text_encoder = WordVocab.load(vocab_dir / "question_vocab.json")
         else:
             text_encoder = WordPieceTokenizer.from_vocab_file(vocab_dir / "wordpiece_vocab.txt")
-        return cls(model, None, text_encoder, answer_vocab, cfg, device=device)
+        return cls(model, None, text_encoder, answer_vocab, cfg, device=device, mesh=mesh)
 
     def _prep_image(self, image: ImageLike) -> np.ndarray:
         """Host side only (decode threads call it): uint8 (S, S, 3) at the
@@ -114,6 +131,11 @@ class Predictor:
 
         @torch.inference_mode()
         def fwd(images: np.ndarray, *data: np.ndarray) -> torch.Tensor:
+            if self.mesh is not None:
+                from btia_tpu_torch.infer.sharded import mesh_forward
+
+                return mesh_forward(self.model, self.mesh, method, self._to_device(images),
+                                    [self._to_device(d) for d in data])
             img_tokens = self.model.encode_image(self._to_device(images))
             return answer(img_tokens, *(self._to_device(d) for d in data))
 

@@ -20,6 +20,8 @@ from btia_tpu_torch.core.dtypes import DTypePolicy
 from btia_tpu_torch.ops.fused_attn import fused_dense_attention
 from btia_tpu_torch.ops.norms import layernorm
 from btia_tpu_torch.ops.quant import apply_act, int8_matmul_fused, quantize_weight
+from btia_tpu_torch.parallel.collectives import copy_to_model, reduce_from_model
+from btia_tpu_torch.parallel.mesh import MODEL_AXIS, axis_size
 
 
 class Dropout:
@@ -100,7 +102,9 @@ class Dense(nn.Module):
     the operands and the bias add in the compute dtype. With ``int8`` the
     product goes through K8 (``int8_matmul_fused``) with ``act`` (None or
     ``"gelu_tanh"``) in its epilogue; the fp32 kernel is quantized on every
-    call, as the reference does (``layers.py:172-177``)."""
+    call, as the reference does (``layers.py:172-177``). ``reduce``, for a
+    row-parallel product under a model axis, sums the product over the model
+    group before the bias."""
 
     def __init__(self, in_dim: int, features: int, policy: DTypePolicy, device=None):
         super().__init__()
@@ -108,14 +112,16 @@ class Dense(nn.Module):
         self.kernel = _param(in_dim, features, device=device)
         self.bias = _param(features, device=device)
 
-    def forward(self, x: torch.Tensor, int8: bool = False, act: Optional[str] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, int8: bool = False, act: Optional[str] = None,
+                reduce=None) -> torch.Tensor:
         cd = self.policy.compute_dtype
         x2 = x.reshape(-1, x.shape[-1]).to(cd)
         if int8:
             w_i8, w_scale = quantize_weight(self.kernel)
             y = int8_matmul_fused(x2, w_i8, w_scale, self.bias.float(), act=act, out_dtype=cd)
         else:
-            y = apply_act(torch.matmul(x2, self.kernel.to(cd)) + self.bias.to(cd), act)
+            y = torch.matmul(x2, self.kernel.to(cd))
+            y = apply_act((y if reduce is None else reduce(y)) + self.bias.to(cd), act)
         return y.reshape(*x.shape[:-1], self.kernel.shape[1])
 
 
@@ -195,7 +201,14 @@ class Mlp(nn.Module):
     Under ``policy.int8`` a deterministic forward (``train`` False) runs both
     products through K8 with the tanh-GELU in fc1's epilogue
     (``layers.py:228-233``). The branch keys on ``train``, not on ``drop``:
-    a train forward at dropout 0 has no Dropout and stays on the fp path."""
+    a train forward at dropout 0 has no Dropout and stays on the fp path.
+
+    Under a model axis tp > 1 (``ops.fused_mesh``) fc1 holds this rank's
+    hidden columns and fc2 its hidden rows (Megatron's column -> row pair):
+    the input's gradient sums over the model group, and fc2's product is
+    summed over it before the whole bias. int8 FFNs under tp > 1 are not
+    ported: K8 quantizes each row of its operand, and a shard's rows are
+    not the reference's gathered product (ROADMAP.md)."""
 
     def __init__(self, dim: int, hidden_dim: int, policy: DTypePolicy, device=None,
                  inner_dropout: bool = False):
@@ -208,7 +221,11 @@ class Mlp(nn.Module):
     def forward(self, x: torch.Tensor, drop: Optional[Dropout] = None,
                 train: bool = False) -> torch.Tensor:
         if self.policy.int8 and not train:
+            if axis_size(MODEL_AXIS) > 1:
+                raise NotImplementedError(
+                    "int8 FFNs under a model axis > 1 are not ported (ROADMAP.md): K8's row "
+                    "quantization over a shard's hidden rows differs from the reference's")
             return self.fc2(self.fc1(x, int8=True, act="gelu_tanh"), int8=True)
         exact = self.policy.compute_dtype == torch.float32
-        h = F.gelu(self.fc1(x), approximate="none" if exact else "tanh")
-        return self.fc2(maybe_drop(h, drop if self.inner_dropout else None))
+        h = F.gelu(self.fc1(copy_to_model(x)), approximate="none" if exact else "tanh")
+        return self.fc2(maybe_drop(h, drop if self.inner_dropout else None), reduce=reduce_from_model)

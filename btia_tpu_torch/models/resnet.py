@@ -34,6 +34,8 @@ from torch import nn
 
 from btia_tpu_torch.core.dtypes import DTypePolicy
 from btia_tpu_torch.models.layers import _param
+from btia_tpu_torch.parallel.collectives import all_reduce_sum
+from btia_tpu_torch.parallel.mesh import DATA_AXIS, axis_size
 
 STAGE_SIZES = {  # torchvision layer multiplicities
     "resnet50": (3, 4, 6, 3),
@@ -97,7 +99,13 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm`` over the channels of an NHWC tensor, in f32."""
+    """flax ``nn.BatchNorm`` over the channels of an NHWC tensor, in f32.
+
+    Under a data axis (``ops.fused_mesh``) the batch statistics are the
+    global batch's, as the reference's are under pjit: the per-channel sums
+    and sums of squares are summed over the data group (forward and
+    backward) before the variance, and the running averages move by the
+    global statistics, the same on every rank."""
 
     def __init__(self, channels: int, device=None):
         super().__init__()
@@ -110,8 +118,14 @@ class BatchNorm(nn.Module):
         x = x.float()
         if train:
             dims = tuple(range(x.ndim - 1))
-            mean = x.mean(dims)
-            var = torch.clamp_min((x * x).mean(dims) - mean * mean, 0.0)
+            dp = axis_size(DATA_AXIS)
+            if dp > 1:
+                n = dp * x[..., 0].numel()
+                sums = all_reduce_sum(torch.stack([x.sum(dims), (x * x).sum(dims)]), DATA_AXIS)
+                mean, sq = sums[0] / n, sums[1] / n
+            else:
+                mean, sq = x.mean(dims), (x * x).mean(dims)
+            var = torch.clamp_min(sq - mean * mean, 0.0)
             with torch.no_grad():  # flax's running update, the biased variance
                 self.mean.copy_(BN_MOMENTUM * self.mean + (1 - BN_MOMENTUM) * mean)
                 self.var.copy_(BN_MOMENTUM * self.var + (1 - BN_MOMENTUM) * var)

@@ -1,5 +1,4 @@
-"""The port's ops API: the names of ``btia_tpu/ops/__init__.py`` except
-``fused_mesh`` (the parallelism slice)."""
+"""The port's ops API: the names of ``btia_tpu/ops/__init__.py``."""
 
 from btia_tpu_torch.ops.attention import (  # noqa: F401
     get_attention_impl,
@@ -16,6 +15,7 @@ from btia_tpu_torch.ops.bicross import (  # noqa: F401
 from btia_tpu_torch.ops.fused_attn import (  # noqa: F401
     disable_fused,
     fused_dense_attention,
+    fused_mesh,
     fused_static_q_attention,
 )
 from btia_tpu_torch.ops.ingest import normalize_images, preprocess_images  # noqa: F401

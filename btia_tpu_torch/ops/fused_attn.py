@@ -46,6 +46,25 @@ reference's ``custom_vjp`` (``_fused_bwd``, ``_fused_site_bwd``,
 ``_staticq_bwd``, ``_staticq_site_bwd``): it recomputes the unfused road
 under autograd, so at a batch of 64 or more on the card the recomputed
 attention goes through K4. The key mask gets no gradient.
+
+Inside ``fused_mesh(mesh)`` with a model axis tp > 1 (the reference's
+``_fused_over_mesh`` / ``_staticq_over_mesh``), the q/k/v/o weights a site
+is handed are this rank's shards (``parallel.sharding.shard_params``: its
+q/k/v columns and its o rows), ``num_heads`` is the whole model's, and the
+rank runs the single-device entry on its ``num_heads // tp`` heads: the
+site cut to its prologue (the q/kv pre-LNs stay in the chain; no residual,
+no post-LN) with the bias share ``(bo.float() / tp).to(bo.dtype)``. The
+partial outputs are summed over the model group, then the residual (the
+query table on K2's road) and the post-LN (the plain ``layernorm``, as the
+reference's) act on the sum. The gate reads the shard's shapes: the local
+batch and the (HD / tp)-wide projections. A site that fails it takes the
+unfused road split the same way (its projections on the shard's columns,
+the attention on its heads, the output product summed before its bias),
+which XLA's partitioner does for the reference. Replicated tensors that
+enter shard-local work get their gradient summed over the model group
+(``parallel.collectives``). ``fused_mesh(None)`` or a 1-rank mesh changes
+nothing; a data axis alone changes nothing here either, since each rank is
+handed its own rows.
 """
 
 from __future__ import annotations
@@ -63,6 +82,8 @@ from btia_tpu_torch.ops.attention import (
     attend, attend_log2, mha_bshd, short_plan,
 )
 from btia_tpu_torch.ops.norms import _layernorm_cuda, _ln_exact, layernorm
+from btia_tpu_torch.parallel.collectives import copy_to_model, reduce_from_model
+from btia_tpu_torch.parallel.mesh import MODEL_AXIS, axis_size, use_mesh
 
 # A folded LayerNorm: (scale, bias, eps), or None for a disabled stage. The
 # reference's SiteCfg carried the eps values as static Pallas arguments;
@@ -84,6 +105,36 @@ def disable_fused():
         yield
     finally:
         _ENABLED = old
+
+
+def fused_mesh(mesh):
+    """Run the sites under a (data, model) mesh (``fused_attn.py:fused_mesh``):
+    a context inside which the model axis splits each site's heads (see the
+    module docstring), and the MLPs' and BatchNorm's collectives run over
+    the mesh's groups. ``mesh=None`` or a 1-rank mesh is a no-op."""
+    return use_mesh(mesh)
+
+
+def _shard_heads(num_heads: int) -> Tuple[int, int]:
+    """(tp, this rank's heads) under the active mesh's model axis."""
+    tp = axis_size(MODEL_AXIS)
+    if num_heads % tp:
+        raise ValueError(f"{num_heads} attention heads do not divide over model={tp}")
+    return tp, num_heads // tp
+
+
+def _bias_share(bo: torch.Tensor, tp: int) -> torch.Tensor:
+    """A rank's share of a row-parallel bias, rounded to bo's dtype as the
+    reference rounds it; the model group's sum of the partials restores bo.
+    Its gradient is summed over the group. Without autograd it is prepared
+    once per version of bo, so the weights prepared from it are too."""
+    if torch.is_grad_enabled() and bo.requires_grad:
+        return (copy_to_model(bo).float() / tp).to(bo.dtype)
+    return prepare_once((bo,), ("share", tp), lambda: ((bo.float() / tp).to(bo.dtype),))[0]
+
+
+def _copied_ln(ln: LN) -> LN:
+    return None if ln is None else (copy_to_model(ln[0]), copy_to_model(ln[1]), ln[2])
 
 
 def core_takes(head_dim: int) -> bool:
@@ -416,8 +467,9 @@ def _fused_dense_cuda(x_q, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
     return out.view(B, Sq, wo.shape[1])
 
 
-def _unfused(x_q, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
-    """Plain projections + ``mha_bshd`` (``fused_attn.py:_unfused``)."""
+def _unfused(x_q, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo, num_heads, reduce=None):
+    """Plain projections + ``mha_bshd`` (``fused_attn.py:_unfused``). With
+    `reduce` (a model axis), the output product is reduced before its bias."""
     cd = x_q.dtype
     B, Sq, _ = x_q.shape
     Sk = x_kv.shape[1]
@@ -427,7 +479,9 @@ def _unfused(x_q, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo, num_heads):
     k = dense(x_kv, wk, bk).reshape(B, Sk, num_heads, HD // num_heads)
     v = dense(x_kv, wv, bv).reshape(B, Sk, num_heads, HD // num_heads)
     out = mha_bshd(q, k, v, kv_mask).reshape(B, Sq, HD)
-    return dense(out, wo, bo)
+    if reduce is None:
+        return dense(out, wo, bo)
+    return reduce(torch.matmul(out, wo.to(cd))) + bo.to(cd)
 
 
 def _unfused_site(x_q, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
@@ -520,8 +574,13 @@ def fused_dense_attention(
     forces the fused road past the gate (not past ``disable_fused()``)."""
     if (residual or post_ln is not None) and wo.shape[1] != x_q.shape[-1]:
         raise ValueError("residual / post-LN need Dout == Din of x_q")
-    if not _fuses(x_q.shape[0], x_q.shape[1], x_kv.shape[1], num_heads, wq.shape[0], wk.shape[0],
-                  wq.shape[1], wo.shape[1], interpret):
+    tp, heads = _shard_heads(num_heads)
+    fuse = _fuses(x_q.shape[0], x_q.shape[1], x_kv.shape[1], heads, wq.shape[0], wk.shape[0],
+                  wq.shape[1], wo.shape[1], interpret)
+    if tp > 1:
+        return _dense_over_model(x_q, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
+                                 heads, tp, fuse, q_ln, kv_ln, residual, post_ln)
+    if not fuse:
         return _unfused_site(x_q, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
                              num_heads, q_ln, kv_ln, residual, post_ln)
     lns, eps = _ln_args(q_ln, kv_ln, post_ln)
@@ -530,6 +589,32 @@ def fused_dense_attention(
 
 
 fused_dense_attention.launches = 0
+
+
+def _dense_over_model(x_q, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
+                      heads, tp, fuse, q_ln, kv_ln, residual, post_ln):
+    """K1's site on this rank's shard (``_fused_over_mesh``): `heads` heads,
+    the weights' local columns / rows; the partial outputs summed over the
+    model group, then the residual and the post-LN."""
+    if fuse:
+        xq_in = copy_to_model(x_q)
+        xkv_in = xq_in if x_kv is x_q else copy_to_model(x_kv)
+        lns, eps = _ln_args(_copied_ln(q_ln), _copied_ln(kv_ln), None)
+        out = reduce_from_model(_FusedDense.apply(
+            xq_in, xkv_in, kv_mask, wq, bq, wk, bk, wv, bv, wo, _bias_share(bo, tp),
+            *lns, heads, eps, False))
+    else:
+        xq_in = layernorm(x_q, *q_ln) if q_ln else x_q
+        xkv_in = layernorm(x_kv, *kv_ln) if kv_ln else x_kv
+        xq_c = copy_to_model(xq_in)
+        xkv_c = xq_c if xkv_in is xq_in else copy_to_model(xkv_in)
+        out = _unfused(xq_c, xkv_c, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo, heads,
+                       reduce=reduce_from_model)
+    if residual:
+        out = x_q + out
+    if post_ln:
+        out = layernorm(out, *post_ln)
+    return out
 
 
 def _static_q_table(queries, wq, bq, num_heads, cd):
@@ -630,8 +715,13 @@ def fused_static_q_attention(
     road past the gate (not past ``disable_fused()``)."""
     if residual and wo.shape[1] != queries.shape[1]:
         raise ValueError("residual needs Dout == Din of the queries")
-    if not _fuses(x_kv.shape[0], queries.shape[0], x_kv.shape[1], num_heads, wq.shape[0], wk.shape[0],
-                  wq.shape[1], wo.shape[1], interpret):
+    tp, heads = _shard_heads(num_heads)
+    fuse = _fuses(x_kv.shape[0], queries.shape[0], x_kv.shape[1], heads, wq.shape[0], wk.shape[0],
+                  wq.shape[1], wo.shape[1], interpret)
+    if tp > 1:
+        return _static_q_over_model(queries, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
+                                    heads, tp, fuse, kv_ln, residual)
+    if not fuse:
         return _static_q_unfused_site(queries, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
                                       num_heads, kv_ln, residual)
     lns, eps = _ln_args(kv_ln)
@@ -640,3 +730,23 @@ def fused_static_q_attention(
 
 
 fused_static_q_attention.launches = 0
+
+
+def _static_q_over_model(queries, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
+                         heads, tp, fuse, kv_ln, residual):
+    """K2's site on this rank's shard (``_staticq_over_mesh``): the query
+    table replicated, the rest split as K1's; the query residual after the
+    model group's sum."""
+    if fuse:
+        lns, eps = _ln_args(_copied_ln(kv_ln))
+        out = reduce_from_model(_StaticQ.apply(
+            copy_to_model(queries), copy_to_model(x_kv), kv_mask, wq, bq, wk, bk, wv, bv, wo,
+            _bias_share(bo, tp), *lns, heads, eps, False))
+    else:
+        q_tokens = queries[None].to(x_kv.dtype).expand(x_kv.shape[0], *queries.shape)
+        xkv_in = layernorm(x_kv, *kv_ln) if kv_ln else x_kv
+        out = _unfused(copy_to_model(q_tokens), copy_to_model(xkv_in), kv_mask, wq, bq, wk, bk, wv, bv,
+                       wo, bo, heads, reduce=reduce_from_model)
+    if residual:
+        out = queries[None].to(out.dtype) + out
+    return out

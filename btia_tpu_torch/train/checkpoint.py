@@ -13,6 +13,9 @@
 Each checkpoint is one file ``step_<n>.pt``, written under a temporary name
 and renamed, so a crash never leaves a partial file under a step's name.
 The config is serialized beside the weights, as in the reference.
+
+Under a mesh every rank calls ``save`` (the state is gathered from the
+shards, a collective), and only the primary (``primary=True``) writes.
 """
 
 from __future__ import annotations
@@ -59,7 +62,8 @@ def _write(directory: Path, step: int, payload: dict, keep: int) -> None:
 
 
 class Checkpointer:
-    def __init__(self, directory: str | Path, max_to_keep: int = 3):
+    def __init__(self, directory: str | Path, max_to_keep: int = 3, primary: bool = True):
+        self.primary = primary
         self.directory = Path(directory).absolute()
         self.directory.mkdir(parents=True, exist_ok=True)
         self.best_directory = self.directory / "best_ckpt"
@@ -78,6 +82,8 @@ class Checkpointer:
         written in the background."""
         payload = _to_host(state.state_dict())
         step = state.step
+        if not self.primary:
+            return
         self._submit(self.directory, step, payload, self.max_to_keep)
         if metric is not None and (self._best_metric is None or metric > self._best_metric):
             self._best_metric = metric

@@ -6,6 +6,15 @@ latest checkpoint (mid-epoch too: the batch order is a function of
 (seed, epoch), so the restored step reproduces the uninterrupted sequence),
 and a SIGTERM / SIGINT handler that saves durably and returns. Runs on the
 card unless the caller passes ``device="cpu"``.
+
+The mesh comes from ``cfg.mesh`` over the ranks of the process group
+(``parallel.distributed.maybe_initialize``), as the reference's does
+(``trainer.py:61``); one process with a mesh that does not factor raises.
+Every rank builds the same pipeline and model and feeds its own rows
+(``shard_batch`` / ``shard_chunk``). Only the primary writes the
+checkpoints, the metrics log, the config and the vocabularies; a
+checkpoint holds the gathered, whole state, so it loads on one device, and
+a run under the same mesh resumes from it.
 """
 
 from __future__ import annotations
@@ -24,6 +33,9 @@ from btia_tpu_torch.core.device import resolve_device
 from btia_tpu_torch.data.builder import DataModule, build_data
 from btia_tpu_torch.data.pipeline import Batch
 from btia_tpu_torch.models.model import BTIAADNet, build_model
+from btia_tpu_torch.parallel.distributed import is_primary
+from btia_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+from btia_tpu_torch.parallel.sharding import shard_batch, shard_chunk
 from btia_tpu_torch.train.checkpoint import Checkpointer
 from btia_tpu_torch.train.metrics import EvalAccumulator
 from btia_tpu_torch.train.steps import (
@@ -45,13 +57,21 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
     return t.to(device)
 
 
-def batch_to_device(batch: Batch, device) -> dict:
-    return {k: _tensor(getattr(batch, k), device) for k in _FIELDS}
+def batch_to_device(batch: Batch, device, mesh=None) -> dict:
+    """A batch's tensors on the device; with a mesh, this rank's rows."""
+    arrays = {k: getattr(batch, k) for k in _FIELDS}
+    if mesh is not None:
+        arrays = shard_batch(arrays, mesh)
+    return {k: _tensor(a, device) for k, a in arrays.items()}
 
 
-def chunk_to_device(batches: List[Batch], device) -> dict:
-    """K batches stacked to (K, B, ...) tensors for the K-step call."""
-    return {k: _tensor(np.stack([getattr(b, k) for b in batches]), device) for k in _FIELDS}
+def chunk_to_device(batches: List[Batch], device, mesh=None) -> dict:
+    """K batches stacked to (K, B, ...) tensors for the K-step call; with a
+    mesh, this rank's rows of each."""
+    arrays = {k: np.stack([getattr(b, k) for b in batches]) for k in _FIELDS}
+    if mesh is not None:
+        arrays = shard_chunk(arrays, mesh)
+    return {k: _tensor(a, device) for k, a in arrays.items()}
 
 
 class Trainer:
@@ -69,19 +89,25 @@ class Trainer:
         if cfg.train.debug_nans:
             torch.autograd.set_detect_anomaly(True)
         self.data = data or build_data(cfg)
+        self.mesh = make_mesh(MeshConfig(cfg.mesh.data, cfg.mesh.model))
+        self.primary = is_primary()
         self.model: BTIAADNet = build_model(cfg.model, device=self.device, seed=cfg.train.seed)
         self.state: TrainState = create_state(
-            self.model, cfg, steps_per_epoch=self.data.steps("train")
+            self.model, cfg, steps_per_epoch=self.data.steps("train"), mesh=self.mesh
         )
-        self.train_step = make_train_step(self.model, cfg)
+        self.train_step = make_train_step(self.model, cfg, self.mesh)
         self.train_step_scan = (
-            make_train_step_scan(self.model, cfg) if cfg.train.steps_per_call > 1 else None
+            make_train_step_scan(self.model, cfg, self.mesh) if cfg.train.steps_per_call > 1 else None
         )
-        self.eval_step = make_eval_step(self.model, cfg, vocab_size=len(self.data.answer_vocab))
-        self.ckpt = Checkpointer(self.workdir / cfg.train.checkpoint_dir, cfg.train.keep_checkpoints)
-        self.ckpt.save_config(cfg)
-        self.data.save_vocabs(self.workdir / "vocabs")
-        self.logger = MetricLogger(self.workdir / "metrics.jsonl")
+        self.eval_step = make_eval_step(self.model, cfg, vocab_size=len(self.data.answer_vocab),
+                                        mesh=self.mesh)
+        self.ckpt = Checkpointer(self.workdir / cfg.train.checkpoint_dir, cfg.train.keep_checkpoints,
+                                 primary=self.primary)
+        if self.primary:
+            self.ckpt.save_config(cfg)
+            self.data.save_vocabs(self.workdir / "vocabs")
+        self.logger = MetricLogger(self.workdir / "metrics.jsonl" if self.primary else None,
+                                   echo=self.primary)
         self._preempted = False
 
     def install_preemption_handler(self) -> None:
@@ -119,11 +145,11 @@ class Trainer:
                 if not buf:
                     break
                 if len(buf) == K and self.train_step_scan is not None:
-                    _, ms = self.train_step_scan(self.state, chunk_to_device(buf, self.device))
+                    _, ms = self.train_step_scan(self.state, chunk_to_device(buf, self.device, self.mesh))
                     m = {k: v[-1] for k, v in ms.items()}  # last step's metrics
                 else:
                     for b in buf:
-                        _, m = self.train_step(self.state, batch_to_device(b, self.device))
+                        _, m = self.train_step(self.state, batch_to_device(b, self.device, self.mesh))
                 i += len(buf)
                 n_items += sum(len(b) for b in buf)
                 if self._preempted:

@@ -169,7 +169,23 @@ Phases, each fatal on failure:
    8 BTIA sites and the 12 ViT-B blocks); (7e) the profiling hooks around
    the bench's serve step of ``vqa_rad_lstm`` (K1 4 a step): ``Timer.span``
    on CUDA events against the host clock, ``fetch``, ``memory_stats`` and a
-   ``trace`` that holds the card's kernels.
+   ``trace`` that holds the card's kernels;
+8. the (data, model) mesh (``mesh_phase``): the script re-invokes itself
+   (``--phase8-rank``) as two ranks on the one card, joined on gloo (NCCL
+   refuses two ranks on one device; gloo stages each all-reduce through the
+   host, so its times are two ranks time-sharing one card, not multi-GPU
+   figures), each rank with a timeout and fatal if it fails; (8a)
+   full-width ``streaming_vitl`` under its registered mesh (world 2 ->
+   data 1, model 2) through ``make_sharded_serve_fn`` at 4 images x 64
+   questions, the same seeded weights as a one-process step on the card:
+   logits within a tenth of the largest, K1 20 / K2 1 / K3 24 a rank (every
+   site on the rank's 6 or 8 heads), the bytes all-reduced a step equal to
+   ``p8_reckoned_bytes``, each rank's peak memory and step time beside the
+   one-process step's; (8b) ``Predictor(mesh=)`` on that model, a 1-image
+   ``predict`` and ``predict_batch`` against a one-process Predictor; (8c)
+   one data-parallel (2, 1) ``vqa_rad_lstm`` train step at 128 rows (64 a
+   rank), bf16 and fp32, against the one-process step at 128 within
+   ``P8_TRAIN_BOUNDS`` (K1 4 / K4 4 a rank in bf16).
 
 With ``--profile`` it also runs one serve step, one int8 serve step, one
 train step and one ``vqa_rad_lstm`` serve step under ``torch.profiler``
@@ -182,7 +198,8 @@ int8 serve step, the train step, the ops API run of phase 2b, phase 5d's
 train step and eval forward, the serve steps and train runs of phases 6
 and 6b, the fp32 forwards of phase 6c and the CLI commands, the converted
 checkpoint's forward, the bench runs, the remat train step and the
-profiled serve steps of phase 7;
+profiled serve steps of phase 7, and each rank's serve step, Predictor
+calls and train steps of phase 8;
 ``launches_by_path`` splits it), the total run time, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``. It exits non-zero, and prints no
 result, when no CUDA device is present or the package is missing.
@@ -2932,6 +2949,378 @@ def profiling_phase(torch, dev, smi, counters):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the mesh — two gloo ranks on the one card.
+
+P8_IMAGES, P8_QUESTIONS = 4, 64  # 256 question rows a rank: every K1/K2 site at or above the batch floor
+P8_TIMED = 3
+P8_RANK_TIMEOUT_S = 420
+P8_GLOO_TIMEOUT_S = 180
+P8_BACKEND = "gloo"
+P8_CAVEAT = ("two ranks time-share one H100 and all-reduce through the host (gloo): not a multi-GPU "
+             "figure")
+# Per rank of streaming_vitl's (1, 2) mesh at 4 x 64: BERT's 12 and BTIA's
+# 8 K1 sites, the AD head's K2 and ViT-L's 24 blocks on K3 (8 of 16 heads).
+P8_SERVE_COUNTS = [20, 1, 24, 0, 0, 0, 0, 0, 0, 0, 0]
+# Per rank of the (2, 1) vqa_rad_lstm step at 64 rows: 4 K1 sites, K4 in
+# the backward of each.
+P8_TRAIN_COUNTS = [4, 0, 0, 4, 0, 0, 0, 0, 0, 0, 0]
+P8_BATCH = 128
+# 8c's bounds, DP step against the one-process step, phase 6's for the card
+# against the CPU on batch statistics (``_step_check``): bf16 on the loss,
+# the norm and the BatchNorm statistics (its gradients, rounding-dominated
+# through a random-init ResNet, are reported); fp32 on every gradient too.
+# Every parameter within 2.5 learning rates: the first Adam step moves an
+# element by at most one, so a gradient whose sign rounding flips by two.
+P8_TRAIN_BOUNDS = {
+    "bf16": {"loss_rel": 0.01, "grad_norm_rel": 0.02, "bn_stats_rel_l2": 0.05, "param_max_abs_diff_over_lr": 2.5},
+    "fp32": {"loss_rel": 1e-4, "grad_norm_rel": 1e-3, "grad_rel_l2_rest": 1e-3, "grad_rel_l2_encoder": 0.05,
+             "bn_stats_rel_l2": 1e-4, "param_max_abs_diff_over_lr": 2.5},
+}
+
+
+def p8_reckoned_bytes(cfg, B, Q):
+    """The all-reduced bytes of one (1, 2) serve step as reckoned by hand:
+    each row-parallel product sums its rows x Dout bf16 partials once."""
+    from btia_tpu_torch.models.vit import VIT_SPECS
+
+    m = cfg.model
+    vit = VIT_SPECS[m.image_encoder]
+    txt, img, head = B * Q * m.max_question_len, B * Q * (m.image_pool_grid ** 2 + 1), B * Q * m.num_answer_queries
+    rows_x_dout = (
+        vit.depth * 2 * B * vit.num_tokens * vit.dim  # o_proj, fc2 of each ViT block
+        + m.bert_layers * 2 * txt * m.bert_hidden  # o_proj, fc2 of each BERT layer
+        + m.btia_layers * 2 * (img + txt) * m.hidden_dim  # i2t / t2i o_proj and both fc2
+        + 2 * head * m.hidden_dim  # the AD head's o_proj and fc2
+    )
+    return 2 * rows_x_dout
+
+
+def _p8_rank_serve(torch, dev, mesh, tmp):
+    """8a / 8b on one rank: full-width streaming_vitl under its registered
+    mesh through make_sharded_serve_fn, then Predictor(mesh=)."""
+    from btia_tpu_torch.configs import get_config
+    from btia_tpu_torch.data.vocab import AnswerVocab
+    from btia_tpu_torch.data.wordpiece import WordPieceTokenizer
+    from btia_tpu_torch.infer.predict import Predictor
+    from btia_tpu_torch.infer.sharded import make_sharded_serve_fn, shard_serving_params
+    from btia_tpu_torch.models.model import build_model
+    from btia_tpu_torch.parallel import collectives as C
+
+    counters = launch_counters() + new_counters()
+    inp = torch.load(tmp / "p8_serve_inputs.pt", weights_only=False)
+    cfg = get_config("streaming_vitl")
+    model = build_model(cfg.model, device=dev, seed=0)
+    shard_serving_params(model, mesh)
+    torch.cuda.empty_cache()
+    serve = make_sharded_serve_fn(model, mesh)
+    imgs, qids = torch.from_numpy(inp["images"]).to(dev), torch.from_numpy(inp["qids"]).to(dev)
+    serve(imgs, qids)  # the first step prepares K1/K2's weights
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counters)
+    C.reset_stats()
+    logits = serve(imgs, qids)
+    torch.cuda.synchronize()
+    out = {"counts": _counts(counters), "reduced": {a: dict(s) for a, s in C.stats.items()},
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "logits": logits.float().cpu()}
+    t0 = time.perf_counter()
+    for _ in range(P8_TIMED):
+        serve(imgs, qids)
+    torch.cuda.synchronize()
+    out["ms_per_step"] = 1e3 * (time.perf_counter() - t0) / P8_TIMED
+    out["param_gib"] = sum(p.numel() * p.element_size() for p in model.parameters()) / 2**30
+    # 8b: the same (sharded) model behind Predictor(mesh=).
+    corpus = inp["corpus"]
+    pred = Predictor(model, None, WordPieceTokenizer.toy_vocab(corpus), AnswerVocab(inp["answers"]), cfg,
+                     device=dev, mesh=mesh)
+    _zero(counters)
+    out["predict_batch"] = pred.predict_batch(inp["image"], corpus)
+    out["predict"] = pred.predict(inp["image"], corpus[0])
+    out["predict_answers"] = pred.predict_answers(inp["image"], corpus)
+    out["predict_counts"] = _counts(counters)
+    return out
+
+
+def _p8_train_batch(torch, cfg):
+    import numpy as np
+
+    rng = np.random.RandomState(13)
+    return {"images": torch.from_numpy(rng.randint(0, 256, (P8_BATCH, 256, 256, 3)).astype(np.uint8)),
+            "question_ids": torch.from_numpy(_lstm_qids(rng, (P8_BATCH,), cfg.model.question_vocab_size)),
+            "answer_ids": torch.from_numpy(rng.randint(1, cfg.model.answer_vocab_size, P8_BATCH)),
+            "valid": torch.ones(P8_BATCH, dtype=torch.bool)}
+
+
+def p8_train_step(torch, dev, mesh=None, mixed=True):
+    """One vqa_rad_lstm train step (bf16, or fp32 with `mixed` off; dropout
+    0, no warmup: the step moves the weights) on the global batch of
+    P8_BATCH, this rank's rows of it under a mesh. Returns the launch
+    counts, the metrics, the gradients the optimizer applied (averaged over
+    the data group), the parameters and BatchNorm statistics after the
+    step, the step's time and peak memory, and the time of a second step
+    (warm, not compared)."""
+    from btia_tpu_torch.configs import get_config
+    from btia_tpu_torch.models.model import build_model
+    from btia_tpu_torch.parallel.sharding import shard_batch
+    from btia_tpu_torch.train.steps import create_state, make_train_step
+
+    counters = launch_counters() + new_counters()
+    cfg = get_config("vqa_rad_lstm", **{"model.dropout": 0.0, "train.warmup_steps": 0,
+                                        "model.mixed_precision": mixed})
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()  # what the process held before: not the step's
+    model = build_model(cfg.model, device=dev, seed=1)
+    state = create_state(model, cfg, steps_per_epoch=10, mesh=mesh)
+    step = make_train_step(model, cfg, mesh)
+    batch = _p8_train_batch(torch, cfg)
+    if mesh is not None:
+        batch = shard_batch(batch, mesh)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    seen = {}
+    adamw_step = state.optimizer.adamw.step
+
+    def capture(*a, **k):
+        if not seen:
+            seen.update({n: p.grad.float().cpu() for n, p in zip(state.optimizer.names, state.optimizer.params)})
+        return adamw_step(*a, **k)
+
+    state.optimizer.adamw.step = capture
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counters)
+    t0 = time.perf_counter()
+    _, m = step(state, batch)
+    torch.cuda.synchronize()
+    out = {"counts": _counts(counters), "seconds": time.perf_counter() - t0,
+           "peak_gib": (torch.cuda.max_memory_allocated() - held) / 2**30,
+           "metrics": {k: float(v) for k, v in m.items()}, "grads": seen,
+           "state": {k: v.float().cpu() for k, v in model.state_dict().items()},
+           "lr": cfg.train.lr, "rows": int(batch["images"].shape[0])}
+    t0 = time.perf_counter()
+    step(state, batch)
+    torch.cuda.synchronize()
+    out["warm_seconds"] = time.perf_counter() - t0
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def p8_train_steps(torch, dev, mesh=None):
+    return {"bf16": p8_train_step(torch, dev, mesh, True), "fp32": p8_train_step(torch, dev, mesh, False)}
+
+
+def phase8_rank(argv) -> int:
+    """A rank of phase 8 (``chip_smoke.py --phase8-rank WHICH RANK WORLD
+    PORT DIR``): joins the gloo group on the card, runs its part and saves
+    what it measured to DIR/p8_<which>_rank<r>.pt."""
+    which, rank, world, port, tmp = argv[0], int(argv[1]), int(argv[2]), argv[3], Path(argv[4])
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from btia_tpu_torch.configs import get_config
+    from btia_tpu_torch.ops import _native
+    from btia_tpu_torch.parallel.distributed import local_rank, maybe_initialize
+    from btia_tpu_torch.parallel.mesh import MeshConfig, make_mesh
+
+    # The parent built the library (phase 1); a rank only loads it.
+    if not (_native.BUILD_ROOT / _native.source_hash() / _native.LIB_NAME).exists():
+        raise RuntimeError("phase 8: the kernel library is not built; phase 1 builds it before the ranks start")
+    maybe_initialize(f"127.0.0.1:{port}", world, rank, backend=P8_BACKEND, timeout_s=P8_GLOO_TIMEOUT_S)
+    local_rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    if which == "serve":  # streaming_vitl's registered mesh: data -1, model 2
+        mc = get_config("streaming_vitl").mesh
+        mesh = make_mesh(MeshConfig(mc.data, mc.model))
+        out = _p8_rank_serve(torch, dev, mesh, tmp)
+    else:
+        mesh = make_mesh(MeshConfig(data=-1, model=1))
+        out = p8_train_steps(torch, dev, mesh)
+    out["mesh"] = dict(mesh.shape)
+    torch.save(out, tmp / f"p8_{which}_rank{rank}.pt")
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _p8_spawn(torch, which, tmp, world=2):
+    """Start `world` ranks of phase 8 on the card and wait for them, each
+    with a timeout; a rank that fails or outlives it fails the phase."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    procs = []
+    for r in range(world):
+        f = open(tmp / f"p8_{which}_rank{r}.log", "w")
+        procs.append((subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--phase8-rank", which,
+                                        str(r), str(world), str(port), str(tmp)],
+                                       stdout=f, stderr=subprocess.STDOUT, cwd=REPO), f))
+    failed = []
+    deadline = time.monotonic() + P8_RANK_TIMEOUT_S
+    for r, (p, f) in enumerate(procs):
+        try:
+            rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired:
+            for q, _ in procs:
+                q.kill()
+                q.wait()
+            rc = "timeout"
+        f.close()
+        if rc != 0:
+            failed.append((r, rc))
+    if failed:
+        tails = "\n".join(f"--- rank {r} ({rc}):\n" + (tmp / f"p8_{which}_rank{r}.log").read_text()[-3000:]
+                          for r, rc in failed)
+        raise AssertionError(f"phase 8 {which}: rank(s) failed:\n{tails}")
+    return [torch.load(tmp / f"p8_{which}_rank{r}.pt", weights_only=False) for r in range(world)]
+
+
+def mesh_phase(torch, dev, smi):
+    """Phase 8: the (data, model) mesh as two gloo ranks on the one card.
+
+    8a: full-width streaming_vitl under its registered mesh (world 2 ->
+    data 1, model 2) through make_sharded_serve_fn at 4 images x 64
+    questions (256 question rows a rank), against the one-process serve step
+    on the card with the same seeded weights: logits within a tenth of the
+    largest, each rank's K1/K2/K3 launches, the bytes all-reduced a step
+    beside the reckoning of ``p8_reckoned_bytes``, each rank's peak memory
+    beside the one-process step's, the step time. 8b: Predictor(mesh=) on
+    that model, predict_batch / predict against one-process Predictor's.
+    8c: one DP (2, 1) vqa_rad_lstm train step at a global batch of 128 (64 a
+    rank) against the one-process step at 128, at dropout 0, bf16 and fp32:
+    loss, global norm, the applied gradients and BatchNorm statistics within
+    phase 6's bounds (``P8_TRAIN_BOUNDS``), every parameter within 2.5
+    learning rates of the one-process one; bf16 K1 4 / K4 4 a rank, fp32 the
+    one-process step's counts (K1 and K4 on the CUDA-core kernels)."""
+    import numpy as np
+
+    from btia_tpu_torch.configs import get_config
+    from btia_tpu_torch.data.vocab import AnswerVocab
+    from btia_tpu_torch.data.wordpiece import WordPieceTokenizer
+    from btia_tpu_torch.infer.predict import Predictor
+    from btia_tpu_torch.models.model import build_model
+
+    log(f"phase 8: the mesh, backend {P8_BACKEND!r}: {P8_CAVEAT}")
+    counters = launch_counters() + new_counters()
+    res = {"backend": P8_BACKEND, "caveat": P8_CAVEAT, "card": smi}
+    cfg = get_config("streaming_vitl")
+    rng = np.random.RandomState(80)
+    size = max(256, cfg.model.image_size)
+    corpus = ["is the lung normal", "what organ is shown", "is there a fracture", "which side is the lesion on",
+              "does the chest show pleural effusion", "is this an mri", "where is the mass"]
+    inp = {"images": rng.randint(0, 256, (P8_IMAGES, size, size, 3)).astype(np.uint8),
+           "qids": rng.randint(1, cfg.model.bert_vocab_size, (P8_IMAGES, P8_QUESTIONS, cfg.model.max_question_len)
+                               ).astype(np.int64),
+           "image": rng.randint(0, 256, (size, size, 3)).astype(np.uint8), "corpus": corpus,
+           "answers": [f"answer {i}" for i in range(300)]}
+    # The one-process references on the card, same seeded weights. Its peak
+    # is counted from what this process held before the model, as a rank's
+    # from nothing.
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    model = build_model(cfg.model, device=dev, seed=0)
+    with torch.inference_mode():
+        imgs, qids = torch.from_numpy(inp["images"]).to(dev), torch.from_numpy(inp["qids"]).to(dev)
+        model.answer_questions(model.encode_image(imgs), qids)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ref = model.answer_questions(model.encode_image(imgs), qids).float().cpu()
+        one_ms = 1e3 * (time.perf_counter() - t0)
+        one_peak = (torch.cuda.max_memory_allocated() - held) / 2**30
+    pred = Predictor(model, None, WordPieceTokenizer.toy_vocab(corpus), AnswerVocab(inp["answers"]), cfg, device=dev)
+    ref_batch = pred.predict_batch(inp["image"], corpus)
+    del pred, model, imgs, qids
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p8_") as tmp:
+        tmp = Path(tmp)
+        torch.save(inp, tmp / "p8_serve_inputs.pt")
+        t0 = time.perf_counter()
+        ranks = _p8_spawn(torch, "serve", tmp)
+        spawn_s = time.perf_counter() - t0
+        reckoned = p8_reckoned_bytes(cfg, P8_IMAGES, P8_QUESTIONS)
+        scale = ref.abs().max().item()
+        serve = {"images": P8_IMAGES, "questions_per_image": P8_QUESTIONS, "mesh": ranks[0]["mesh"],
+                 "one_process_ms": one_ms, "one_process_peak_gib": one_peak,
+                 "max_abs_logit": scale,
+                 "reckoned_bytes_per_step": reckoned, "ranks_wall_s": spawn_s, "ranks": []}
+        for r, o in enumerate(ranks):
+            err = (o["logits"] - ref).abs().max().item()
+            b_err = float(np.abs(o["predict_batch"] - ref_batch).max())
+            p_err = float(np.abs(o["predict"] - ref_batch[0]).max())
+            reduced = o["reduced"].get("model", {"calls": 0, "bytes": 0})
+            row = {"rank": r, "max_abs_err": err, "counts": dict(zip(KERNELS + NEW_KERNELS, o["counts"])),
+                   "all_reduce_calls": reduced["calls"], "all_reduced_bytes": reduced["bytes"],
+                   "peak_gib": o["peak_gib"], "param_gib": o["param_gib"], "ms_per_step": o["ms_per_step"],
+                   "pairs_per_s": P8_IMAGES * P8_QUESTIONS / (o["ms_per_step"] / 1e3),
+                   "predict_batch_max_abs_err": b_err, "predict_max_abs_err": p_err,
+                   "predict_answers": o["predict_answers"],
+                   "predict_counts": dict(zip(KERNELS + NEW_KERNELS, o["predict_counts"]))}
+            serve["ranks"].append(row)
+            log(f"  8a rank {r}: logits vs one process max abs err {err:.4g} (max |logit| {scale:.4g}); launched "
+                f"{o['counts']}; all-reduced {reduced['bytes']} B in {reduced['calls']} calls (reckoned "
+                f"{reckoned} B); peak {o['peak_gib']:.2f} GiB vs one process {one_peak:.2f} GiB; "
+                f"{o['ms_per_step']:.1f} ms a step vs one process {one_ms:.1f} ms ({P8_CAVEAT})")
+            log(f"  8b rank {r}: Predictor(mesh=) predict_batch err {b_err:.4g}, predict err {p_err:.4g}, "
+                f"answers {o['predict_answers'][:3]}")
+            if o["counts"] != P8_SERVE_COUNTS:
+                raise AssertionError(f"phase 8a rank {r}: launch counts {o['counts']} != {P8_SERVE_COUNTS}")
+            if not (np.isfinite(o["logits"].numpy()).all() and err <= 0.1 * scale):
+                raise AssertionError(f"phase 8a rank {r}: logits disagree with one process: {err} > {0.1 * scale}")
+            if reduced["bytes"] != reckoned:
+                raise AssertionError(f"phase 8a rank {r}: all-reduced {reduced['bytes']} B != reckoned {reckoned}")
+            bscale = float(np.abs(ref_batch).max())
+            if not (b_err <= 0.1 * bscale and p_err <= 0.1 * bscale and len(o["predict_answers"]) == len(corpus)):
+                raise AssertionError(f"phase 8b rank {r}: Predictor(mesh=) disagrees: {b_err}, {p_err}")
+        res["serve"] = serve
+        # 8c: the DP train step.
+        one = p8_train_steps(torch, dev)
+        t0 = time.perf_counter()
+        ranks = _p8_spawn(torch, "train", tmp)
+        spawn_s = time.perf_counter() - t0
+    train = {"batch": P8_BATCH, "ranks_wall_s": spawn_s}
+    for policy, bounds in P8_TRAIN_BOUNDS.items():
+        ref = one[policy]
+        names = [n for n in ref["grads"] if not n.endswith("k_proj.bias")]  # 0 in exact arithmetic
+        enc = [n for n in names if n.startswith("image_encoder.")]
+        rest = [n for n in names if n not in enc]
+        stats = [n for n in ref["state"] if n.endswith((".mean", ".var"))]
+        t = train[policy] = {"one_process": {k: ref[k] for k in ("counts", "seconds", "warm_seconds", "peak_gib",
+                                                                 "metrics")}, "ranks": []}
+        for r, o in enumerate(x[policy] for x in ranks):
+            m, w = o["metrics"], ref["metrics"]
+            row = {"rank": r, "rows": o["rows"], "counts": dict(zip(KERNELS + NEW_KERNELS, o["counts"])),
+                   "metrics": m, "seconds": o["seconds"], "warm_seconds": o["warm_seconds"], "peak_gib": o["peak_gib"],
+                   "loss_rel": abs(m["loss"] - w["loss"]) / abs(w["loss"]),
+                   "grad_norm_rel": abs(m["grad_norm"] - w["grad_norm"]) / w["grad_norm"],
+                   "grad_rel_l2_encoder": _rel_l2(o["grads"], ref["grads"], enc),
+                   "grad_rel_l2_rest": _rel_l2(o["grads"], ref["grads"], rest),
+                   "bn_stats_rel_l2": _rel_l2(o["state"], ref["state"], stats),
+                   "param_max_abs_diff_over_lr": max((o["state"][n] - ref["state"][n]).abs().max().item()
+                                                     for n in ref["grads"]) / ref["lr"]}
+            t["ranks"].append(row)
+            log(f"  8c {policy} rank {r} ({o['rows']} rows): "
+                f"{json.dumps({k: v for k, v in row.items() if k != 'metrics'})}")
+            bad = {k: row[k] for k, bound in bounds.items() if not row[k] <= bound}
+            if bad:
+                raise AssertionError(f"phase 8c {policy} rank {r}: the DP step disagrees with the one-process "
+                                     f"step past {bounds}: {bad}")
+            want = P8_TRAIN_COUNTS if policy == "bf16" else ref["counts"]
+            if o["counts"] != want or (policy == "bf16" and ref["counts"] != want):
+                raise AssertionError(f"phase 8c {policy}: launch counts {o['counts']} / one process "
+                                     f"{ref['counts']} != {want}")
+        log(f"  8c {policy} one process at {P8_BATCH} rows: {ref['seconds']:.3f} s (warm {ref['warm_seconds']:.3f}), "
+            f"peak {ref['peak_gib']:.2f} GiB; ranks warm {[round(r['warm_seconds'], 3) for r in t['ranks']]} s, peak "
+            f"{[round(r['peak_gib'], 2) for r in t['ranks']]} GiB ({P8_CAVEAT})")
+    res["train"] = train
+    log(json.dumps({"mesh_phase": res}))
+    return res
+
+
 def main() -> int:
     try:
         import torch
@@ -3125,6 +3514,11 @@ def main() -> int:
     rematr = remat_phase(torch, dev, smi, all_counters)
     prof = profiling_phase(torch, dev, smi, all_counters)
     log(f"  (phase 7 done at {time.perf_counter() - T0:.0f} s)")
+
+    # Phase 8: the mesh, two gloo ranks on the one card.
+    torch.cuda.empty_cache()
+    mesh = mesh_phase(torch, dev, smi)
+    log(f"  (phase 8 done at {time.perf_counter() - T0:.0f} s)")
     new_paths = {
         "vqa_rad_lstm_serve_step": lstm["serve_step"]["launches"],
         "vqa_rad_lstm_train_call": lstm["train_call"]["launches"],
@@ -3140,6 +3534,12 @@ def main() -> int:
         "bench_vqa_rad_lstm": benches["vqa_rad_lstm"]["launches"],
         "remat_train_step": rematr["launches_remat"],
         "profiled_serve_steps": prof["launches"],
+        **{f"mesh_serve_rank{r['rank']}": r["counts"] for r in mesh["serve"]["ranks"]},
+        **{f"mesh_predict_rank{r['rank']}": r["predict_counts"] for r in mesh["serve"]["ranks"]},
+        **{f"mesh_dp_train_{p}_rank{r['rank']}": r["counts"] for p in ("bf16", "fp32")
+           for r in mesh["train"][p]["ranks"]},
+        **{f"mesh_dp_train_{p}_one_process": dict(zip(KERNELS + NEW_KERNELS, mesh["train"][p]["one_process"]["counts"]))
+           for p in ("bf16", "fp32")},
     }
     by_path = [{"serve_step": a, "int8_serve_step": c, "train_step": b, "ops_api": d,
                 **{p: v[k] for p, v in new_paths.items()}}
@@ -3147,7 +3547,8 @@ def main() -> int:
     # Each new kernel runs on its own path and no other: the f32 kernels on
     # the fp32 forwards, the wide-head kernel at head width 384 (phase 5d);
     # neither on the bf16 paths at head widths up to 256.
-    own = {"simt_attention": ("fp32_forwards",), "gemm_f32": ("fp32_forwards",),
+    p8_fp32 = tuple(p for p in new_paths if p.startswith("mesh_dp_train_fp32"))
+    own = {"simt_attention": ("fp32_forwards", *p8_fp32), "gemm_f32": ("fp32_forwards", *p8_fp32),
            "wide_attention": ("d384_train_step", "d384_eval")}
     for k, paths in own.items():
         if not all(new_paths[p][k] for p in paths):
@@ -3264,6 +3665,16 @@ def main() -> int:
         "timer_vs_host_ms": [prof["timer_mean_ms"], prof["host_ms"]],
         "remat": {k: rematr[k] for k in ("loss", "loss_remat", "grad_max_abs_diff", "max_grad", "ms", "ms_remat",
                                          "peak_gib", "peak_gib_remat")},
+        "mesh_serve_ms_per_step": [[r["ms_per_step"] for r in mesh["serve"]["ranks"]],
+                                   mesh["serve"]["one_process_ms"], P8_CAVEAT],
+        "mesh_serve_peak_gib": [[r["peak_gib"] for r in mesh["serve"]["ranks"]],
+                                mesh["serve"]["one_process_peak_gib"]],
+        "mesh_all_reduced_bytes": [[r["all_reduced_bytes"] for r in mesh["serve"]["ranks"]],
+                                   mesh["serve"]["reckoned_bytes_per_step"]],
+        "mesh_dp_train": {p: [{k: r[k] for k in ("loss_rel", "grad_norm_rel", "grad_rel_l2_rest",
+                                                 "grad_rel_l2_encoder", "bn_stats_rel_l2",
+                                                 "param_max_abs_diff_over_lr")} for r in mesh["train"][p]["ranks"]]
+                          for p in ("bf16", "fp32")},
     }}))
     log(f"total run time {time.perf_counter() - T0:.1f} s")
     log(json.dumps({"kernels": kernels}))
@@ -3276,4 +3687,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase8-rank"]:
+        sys.exit(phase8_rank(sys.argv[2:]))
     sys.exit(main())

@@ -28,6 +28,7 @@ bad = sorted(
     if k in ("jax", "flax", "btia_tpu") or k.startswith(("jax.", "flax.", "btia_tpu."))
 )
 print("LOADED", len([k for k in sys.modules if k.startswith("btia_tpu_torch")]))
+print("PARALLEL", sorted(k for k in sys.modules if k.startswith("btia_tpu_torch.parallel") or k == "btia_tpu_torch.infer.sharded"))
 print("BAD", bad)
 """
 
@@ -40,6 +41,11 @@ def test_no_jax_and_no_reference_package_imported():
     lines = dict(line.split(" ", 1) for line in res.stdout.strip().splitlines())
     assert int(lines["LOADED"]) >= 30
     assert lines["BAD"] == "[]"
+    # the parallelism modules are among those walked
+    assert lines["PARALLEL"] == str([
+        "btia_tpu_torch.infer.sharded", "btia_tpu_torch.parallel", "btia_tpu_torch.parallel.collectives",
+        "btia_tpu_torch.parallel.distributed", "btia_tpu_torch.parallel.mesh", "btia_tpu_torch.parallel.sharding",
+    ])
 
 
 def test_entry_points_raise_without_a_gpu():
