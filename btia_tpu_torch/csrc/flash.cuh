@@ -13,10 +13,19 @@ struct FlashOperand {
   long long b, h, s;
 };
 
-// Attention over heads of dw columns (a multiple of 8, at most 256): q
-// (B, H, Sq, dw), k / v (B, H, Sk, dw), mask (B, Sk) f32 {0, 1} or null, o
-// (B, H, Sq, dw). Returns 0, a CUDA error code, or 1000 + the CUresult of
-// encoding a tensor map.
-int launch_flash_attention(const FlashOperand& q, const FlashOperand& k, const FlashOperand& v, const void* mask,
-                           const FlashOperand& o, int B, int H, int Sq, int Sk, int dw, float qscale,
-                           cudaStream_t stream);
+// One attention call: the key mask (B, Sk) bool (bytes, nonzero = a real
+// key) or null; heads of dw columns (a multiple of 8, at
+// most 256); grid: the persistent blocks of the kernel at DP 64 and 128
+// (ops/attention.py:flash_plan); qscale folds softmax's scale and log2(e)
+// into q.
+struct FlashLaunch {
+  const void* mask;
+  int B, H, Sq, Sk, dw, grid;
+  float qscale;
+};
+
+// Attention over q (B, H, Sq, dw), k / v (B, H, Sk, dw) into o (B, H, Sq,
+// dw). Returns 0, a CUDA error code, or 1000 + the CUresult of encoding a
+// tensor map.
+int launch_flash_attention(const FlashOperand& q, const FlashOperand& k, const FlashOperand& v,
+                           const FlashOperand& o, const FlashLaunch& a, cudaStream_t stream);

@@ -14,7 +14,7 @@
 // 32-82 tokens, width 768) the four projections are ~95% of the operations,
 // so the site is bound by tensor-core operations (~0.3-0.5 ms at
 // 989 TF/s), not by the ~0.2-0.4 GB it must move. The projections therefore
-// run on the tensor cores at Hopper's rate (gemm_bias_wgmma_kernel: wgmma
+// run on the tensor cores at Hopper's rate (gemm_bias_ws_kernel: wgmma
 // fed by TMA, f32 accumulators and the bias / residual epilogue in
 // registers). The attention core alone is bound by bytes: it reads q and
 // the [k|v] GEMM output and writes o, 0.120 ms at a BERT site, 0.154 ms at
@@ -48,159 +48,260 @@
 // resid row-major and packed; K % 8 == 0 and N % 8 == 0 (TMA's 16-byte row
 // rule); M ragged.
 //
-// wgmma m64n128k16 (bf16 in, f32 accumulators in registers) on 128 x 128
-// output tiles, fed by TMA through a ring of three stages of 64-deep K
-// chunks on mbarriers: a producer warp issues the loads, two consumer
-// warpgroups of 64 rows each issue a chunk's four products, wait for them
-// and release the stage at once. A is read K-major (boxes of 64 columns x
-// 128 rows, 128-byte swizzle); W lies (K, N) row-major and is read as it
-// lies, an MN-major B (two boxes of 64 columns x 64 K rows a stage), so no
-// transposed copy of the weights is made. Two blocks fit on an SM (97 KB of
-// shared memory each), so one block's epilogue overlaps the other's
-// products. Blocks run along N first: the blocks of one M tile run together
-// and read its A rows from L2, and the weights (at most 2.4 MB here) stay
-// in L2. TMA zero-fills rows past M and a K or N tail.
+// A persistent, warp-specialised wgmma kernel (the second design; the first
+// ran one 128 x 128 tile a block, drained its products after every K chunk
+// and staged its epilogue through the ring):
 //
-// The epilogue is staged. Stores straight from wgmma's fragment layout
-// write 4 bytes a thread across 8 rows, and on an H100 they cost the
-// kernel a large share of its time at K = 768. So each warpgroup writes
-// bf16(acc + bias) into the idle first stage as two 64 x 64 boxes in the
-// 128-byte swizzle (conflict-free for the fragment layout), reads it back
-// in rows of 16-byte chunks, adds the residual from 16-byte loads (all
-// issued before any store), and stores whole rows; rows past M and columns
-// past N are masked.
+// * One block an SM walks the output tiles (tile = blockIdx.x + i *
+//   gridDim.x; N tiles fastest, so the blocks at work at one time share A's
+//   rows in L2, and the weights, at most 2.4 MB here, stay there). The grid
+//   and the tile shape, 128 x 256 or 128 x 128, are chosen on the host
+//   (ops/fused_attn.py:gemm_plan): 128 x 256 reads each A row half as often
+//   from L2 and issues wgmma at N = 256, where there are enough tiles for
+//   the SMs, as at every serve site; 128 x 128 where the wide tile would
+//   leave SMs idle, as at the train sites (M 2,048 and 12,608).
+// * Three warpgroups: a producer, which keeps a ring of 64-deep K chunks
+//   full with TMA (A K-major, boxes of 64 columns x 128 rows; W read as it
+//   lies, (K, N) row-major, an MN-major B in boxes of 64 columns x 64 K
+//   rows, so no transposed copy of the weights is made), and gives up its
+//   registers (setmaxnreg) to two consumer warpgroups of 64 rows x BN
+//   columns each (128 f32 accumulators a thread at BN = 256). The producer
+//   runs into the next tile while the consumers finish this one.
+// * The consumers keep one chunk's products in flight: chunk k is issued
+//   before chunk k - 1 is waited for (wgmma_wait<1>) and its stage released.
+// * The epilogue (bias in f32, the bf16 rounding, then the residual in
+//   bf16) writes 64 x 64 boxes in the 128-byte swizzle (conflict-free for
+//   wgmma's fragment layout) that leave by TMA store, which clips rows past
+//   M and columns past N: the consumers go on to the next tile's products
+//   while the stores drain. A residual whose rows repeat every multiple of
+//   64 (every site's: all rows, or K2's 64 answer queries) is loaded by the
+//   producer into a warpgroup's output boxes after the tile's last chunk,
+//   so the epilogue adds it from shared memory in place (TMA_RESID; a ring
+//   of three 48 KB stages then leaves room for the four boxes); any other
+//   is read by the consumers, 16 bytes a thread, loads issued first.
 // ---------------------------------------------------------------------------
 
-constexpr int PG_BM = 128, PG_BN = 128, PG_BK = 64;  // tile rows, columns, K per stage
-constexpr int PG_STAGES = 3;
-constexpr int PG_THREADS = 288;  // 2 consumer warpgroups + 1 producer warp
-constexpr int PG_CONSUMER_WARPS = 8;
-constexpr int PG_A_BYTES = PG_BM * PG_BK * 2;            // 16 KB: 128 rows of 128 bytes
-constexpr int PG_W_BLK = PG_BK * 128;                    // 8 KB: 64 K rows of one 64-column block
-constexpr int PG_STAGE_BYTES = PG_A_BYTES + 2 * PG_W_BLK;
-constexpr int PG_BIAS_OFF = PG_STAGES * PG_STAGE_BYTES;  // the tile's 128 biases, f32
-constexpr int PG_BAR_OFF = PG_BIAS_OFF + PG_BN * 4;
-constexpr int PG_SMEM = PG_BAR_OFF + 64 + 1024;          // barriers; slack to align the base to 1 KB
-constexpr int PG_CHUNKS = 64 * PG_BN / 8 / 128;          // 16-byte output chunks a consumer thread stores
+template <int BN, bool TMA_RESID>  // output tile columns: 256 or 128; the residual by TMA
+struct PgLayout {
+  static constexpr int BM = 128, BK = 64;             // tile rows, K per stage
+  static constexpr int NBOX = BN / 64;                // 64-column boxes of W (and of a warpgroup's output)
+  // Output boxes a consumer warpgroup keeps: two in turn, or, when the
+  // producer loads the residual into them, all of a tile's.
+  static constexpr int OUT_BOXES = TMA_RESID ? NBOX : 2;
+  static constexpr int STAGES = TMA_RESID && BN == 256 ? 3 : 4;
+  static constexpr int A_BYTES = BM * BK * 2;         // 16 KB: 128 rows of 128 bytes
+  static constexpr int W_BLK = BK * 128;              // 8 KB: 64 K rows of one 64-column block
+  static constexpr int STAGE_BYTES = A_BYTES + NBOX * W_BLK;
+  static constexpr int OUT_OFF = STAGES * STAGE_BYTES;
+  static constexpr int OUT_BLK = 64 * 128;            // one 64 x 64 output box
+  static constexpr int BAR_OFF = OUT_OFF + 2 * OUT_BOXES * OUT_BLK;
+  static constexpr int SMEM = BAR_OFF + 128 + 1024;   // barriers; slack to align the base to 1 KB
+  static constexpr int THREADS = 384;                 // 2 consumer warpgroups + 1 producer warpgroup
+  static constexpr int CHUNKS = 64 * 64 / 8 / 128;    // 16-byte chunks of a box a consumer thread adds
+};
 
-// Byte offset of the 16-byte chunk holding columns 8 cc.. of row r in a
-// warpgroup's staged slab (two 64-column boxes, 128-byte swizzle).
-__device__ __forceinline__ int pg_chunk(int r, int cc) {
-  return (cc / 8) * PG_W_BLK + r * 128 + (((cc % 8) ^ (r % 8)) * 16);
-}
-
-__global__ void __launch_bounds__(PG_THREADS, 2)
-gemm_bias_wgmma_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap wmap,
-                       const float* __restrict__ bias, const bf16* __restrict__ resid, int resid_rows,
-                       bf16* __restrict__ C, int M, int N, int K) {
+template <int BN, bool TMA_RESID>
+__global__ void __launch_bounds__(384, 1)
+gemm_bias_ws_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap wmap,
+                    const __grid_constant__ CUtensorMap cmap, const __grid_constant__ CUtensorMap rmap,
+                    const float* __restrict__ bias, const bf16* __restrict__ resid, int resid_rows, int M, int N,
+                    int K, int tiles_n, int tiles) {
+  using L = PgLayout<BN, TMA_RESID>;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  float* sbias = reinterpret_cast<float*>(smem + PG_BIAS_OFF);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + PG_BAR_OFF);
-  uint64_t* empty = full + PG_STAGES;
-
-  const int bn = blockIdx.x * PG_BN, bm = blockIdx.y * PG_BM;
-  const int nk = (K + PG_BK - 1) / PG_BK;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* empty = full + L::STAGES;
+  uint64_t* rfull = empty + L::STAGES;  // a warpgroup's residual boxes have landed
+  uint64_t* rempty = rfull + 2;         // ... and its last stores have left them
+  const int nk = (K + L::BK - 1) / L::BK;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < PG_STAGES; ++s) {
+    for (int s = 0; s < L::STAGES; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&empty[s], PG_CONSUMER_WARPS);
+      mbar_init(&empty[s], 8);  // one arrival from each consumer warp
+    }
+    for (int w = 0; w < 2; ++w) {
+      mbar_init(&rfull[w], 1);
+      mbar_init(&rempty[w], 1);
     }
     mbar_fence_init();
   }
   __syncthreads();
 
-  if (warp == PG_CONSUMER_WARPS) {
-    // Producer: one thread keeps the ring full.
-    if (lane == 0) {
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  if (wg == 2) {
+    // Producer: one thread keeps the ring full across the block's tiles;
+    // the ring's stage and parity run on from one tile to the next. With
+    // TMA_RESID it loads a tile's residual into the consumers' output boxes
+    // after the tile's last chunk, once their stores of the tile before
+    // have left them.
+    setmaxnreg_dec<40>();
+    if (t == 0) {
       tma_prefetch_map(&amap);
       tma_prefetch_map(&wmap);
-      for (int kt = 0; kt < nk; ++kt) {
-        const int s = kt % PG_STAGES;
-        if (kt >= PG_STAGES) mbar_wait(&empty[s], (kt / PG_STAGES - 1) & 1);
-        mbar_expect_tx(&full[s], PG_STAGE_BYTES);
-        unsigned char* st = smem + s * PG_STAGE_BYTES;
-        tma_load_2d(st, &amap, &full[s], kt * PG_BK, bm);
-        tma_load_2d(st + PG_A_BYTES, &wmap, &full[s], bn, kt * PG_BK);
-        tma_load_2d(st + PG_A_BYTES + PG_W_BLK, &wmap, &full[s], bn + 64, kt * PG_BK);
+      int s = 0, phase = 0, it = 0, n = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++n) {
+        const int bm = (tile / tiles_n) * L::BM, bn = (tile % tiles_n) * BN;
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          if (it >= L::STAGES) mbar_wait(&empty[s], phase ^ 1);
+          mbar_expect_tx(&full[s], L::STAGE_BYTES);
+          unsigned char* st = smem + s * L::STAGE_BYTES;
+          tma_load_2d(st, &amap, &full[s], kt * L::BK, bm);
+#pragma unroll
+          for (int c = 0; c < L::NBOX; ++c)
+            tma_load_2d(st + L::A_BYTES + c * L::W_BLK, &wmap, &full[s], bn + 64 * c, kt * L::BK);
+          if (++s == L::STAGES) s = 0, phase ^= 1;
+        }
+        if constexpr (TMA_RESID) {
+          for (int w = 0; w < 2; ++w) {
+            if (n > 0) mbar_wait(&rempty[w], (n - 1) & 1);
+            mbar_expect_tx(&rfull[w], L::NBOX * L::OUT_BLK);
+            const int rrow = (bm + 64 * w) % resid_rows;  // resid_rows % 64 == 0: a box never wraps
+            for (int c = 0; c < L::NBOX; ++c)
+              tma_load_2d(smem + L::OUT_OFF + (w * L::OUT_BOXES + c) * L::OUT_BLK, &rmap, &rfull[w], bn + 64 * c,
+                          rrow);
+          }
+        }
       }
     }
     return;
   }
+  setmaxnreg_inc<232>();
 
-  // Consumers: warpgroup wg owns output rows [64 wg, 64 wg + 64) of the
-  // tile; this thread rows r0 and r0 + 8 of them.
-  const int wg = warp / 4, t = threadIdx.x % 128;
+  // Consumers: warpgroup wg owns output rows [64 wg, 64 wg + 64) of a tile;
+  // this thread rows r0 and r0 + 8 of them.
+  const int lane = t % 32;
   const int r0 = 16 * (t / 32) + lane / 4, qd = lane % 4;
-  if (threadIdx.x < PG_BN) sbias[threadIdx.x] = bn + threadIdx.x < N ? bias[bn + threadIdx.x] : 0.f;
-  float acc[64];
-  for (int kt = 0; kt < nk; ++kt) {
-    const int s = kt % PG_STAGES;
-    mbar_wait(&full[s], (kt / PG_STAGES) & 1);
-    const uint32_t a_addr = smem_u32(smem + s * PG_STAGE_BYTES) + wg * 64 * 128;
-    const uint32_t w_addr = smem_u32(smem + s * PG_STAGE_BYTES + PG_A_BYTES);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < PG_BK / 16; ++kk)
-      // A: 16 columns = 32 bytes along its 128-byte rows. W: 16 K rows of
-      // 128 bytes (2 KB) on; 1 KB between groups of eight K rows (SBO), one
-      // 64-column block to the next (LBO). The tile's first product
-      // overwrites the accumulators.
-      wgmma_bf16_ss_tb_n128(acc, wgmma_desc_sw128(a_addr + kk * 32, 16, 1024),
-                            wgmma_desc_sw128(w_addr + kk * 2048, PG_W_BLK, 1024), kt > 0 || kk > 0);
-    wgmma_commit();
-    wgmma_wait<0>();
-    if (lane == 0) mbar_arrive(&empty[s]);  // this warp has finished reading stage s
-  }
-  fence_regs(acc);
+  unsigned char* out_box = smem + L::OUT_OFF + wg * L::OUT_BOXES * L::OUT_BLK;
+  int s = 0, phase = 0, n = 0;
+  float acc[BN / 2];
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x, ++n) {
+    const int bm = (tile / tiles_n) * L::BM, bn = (tile % tiles_n) * BN;
 
-  // Both warpgroups are done with the stages (and sbias is written) before
-  // either overwrites the first stage.
-  named_barrier(1, 32 * PG_CONSUMER_WARPS);
-  unsigned char* slab = smem + wg * 2 * PG_W_BLK;
+    // The first chunk overwrites the accumulators; each later chunk is
+    // issued before the one before it is waited for and its stage released.
+    // A: 16 columns = 32 bytes along its 128-byte rows. W: 16 K rows of 128
+    // bytes (2 KB) on; 1 KB between groups of eight K rows (SBO), one
+    // 64-column block to the next (LBO).
+    mbar_wait(&full[s], phase);
+    {
+      const uint32_t a_addr = smem_u32(smem + s * L::STAGE_BYTES) + wg * 64 * 128;
+      const uint32_t w_addr = a_addr - wg * 64 * 128 + L::A_BYTES;
+      wgmma_fence();
 #pragma unroll
-  for (int j = 0; j < PG_BN / 8; ++j) {
-    const float2 bi = *reinterpret_cast<const float2*>(sbias + 8 * j + 2 * qd);
-    unsigned char* box = slab + (j / 8) * PG_W_BLK + qd * 4;
-    *reinterpret_cast<__nv_bfloat162*>(box + r0 * 128 + (((j % 8) ^ (r0 % 8)) * 16)) =
-        __floats2bfloat162_rn(acc[4 * j] + bi.x, acc[4 * j + 1] + bi.y);
-    *reinterpret_cast<__nv_bfloat162*>(box + (r0 + 8) * 128 + (((j % 8) ^ ((r0 + 8) % 8)) * 16)) =
-        __floats2bfloat162_rn(acc[4 * j + 2] + bi.x, acc[4 * j + 3] + bi.y);
-  }
-  named_barrier(2 + wg, 128);
-  // Thread t takes chunks idx = 128 i + t: row idx / 16, columns 8 (idx % 16)..;
-  // half of them at a time, each half's loads issued before its stores.
-#pragma unroll
-  for (int h = 0; h < PG_CHUNKS; h += PG_CHUNKS / 2) {
-    uint4 y[PG_CHUNKS / 2], rv[PG_CHUNKS / 2];
-#pragma unroll
-    for (int i = 0; i < PG_CHUNKS / 2; ++i) {
-      const int idx = (h + i) * 128 + t, r = idx / 16, cc = idx % 16;
-      const int g = bm + wg * 64 + r, c = bn + 8 * cc;
-      y[i] = *reinterpret_cast<const uint4*>(slab + pg_chunk(r, cc));
-      rv[i] = resid != nullptr && g < M && c < N
-                  ? *reinterpret_cast<const uint4*>(resid + static_cast<long long>(g % resid_rows) * N + c)
-                  : make_uint4(0, 0, 0, 0);
+      for (int kk = 0; kk < L::BK / 16; ++kk) {
+        const uint64_t da = wgmma_desc_sw128(a_addr + kk * 32, 16, 1024);
+        const uint64_t db = wgmma_desc_sw128(w_addr + kk * 2048, L::W_BLK, 1024);
+        if constexpr (BN == 256) wgmma_bf16_ss_tb_n256(acc, da, db, kk > 0);
+        else wgmma_bf16_ss_tb_n128(acc, da, db, kk > 0);
+      }
+      wgmma_commit();
     }
+    if constexpr (TMA_RESID) {
+      // The stores of the tile before have left the output boxes: the
+      // producer may load this tile's residual into them.
+      if (t == 0 && n > 0) {
+        bulk_wait_read<0>();
+        mbar_arrive(&rempty[wg]);
+      }
+    }
+    int prev = s;
+    if (++s == L::STAGES) s = 0, phase ^= 1;
+    for (int kt = 1; kt < nk; ++kt) {
+      mbar_wait(&full[s], phase);
+      const uint32_t a_addr = smem_u32(smem + s * L::STAGE_BYTES) + wg * 64 * 128;
+      const uint32_t w_addr = a_addr - wg * 64 * 128 + L::A_BYTES;
+      wgmma_fence();
 #pragma unroll
-    for (int i = 0; i < PG_CHUNKS / 2; ++i) {
-      const int idx = (h + i) * 128 + t, r = idx / 16, cc = idx % 16;
-      const int g = bm + wg * 64 + r, c = bn + 8 * cc;
-      if (resid != nullptr) {
-        // bf16(y + resid), y already rounded: the twin's order.
-        __nv_bfloat162* yh = reinterpret_cast<__nv_bfloat162*>(&y[i]);
-        const __nv_bfloat162* rh = reinterpret_cast<const __nv_bfloat162*>(&rv[i]);
+      for (int kk = 0; kk < L::BK / 16; ++kk) {
+        const uint64_t da = wgmma_desc_sw128(a_addr + kk * 32, 16, 1024);
+        const uint64_t db = wgmma_desc_sw128(w_addr + kk * 2048, L::W_BLK, 1024);
+        if constexpr (BN == 256) wgmma_bf16_ss_tb_n256(acc, da, db, 1);
+        else wgmma_bf16_ss_tb_n128(acc, da, db, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();
+      mbar_arrive_if(&empty[prev], lane == 0);  // this warp has finished reading the previous stage
+      prev = s;
+      if (++s == L::STAGES) s = 0, phase ^= 1;
+    }
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive_if(&empty[prev], lane == 0);
+
+    // Epilogue, a 64 x 64 box at a time: bf16(acc + bias), with the
+    // residual added in bf16 (the twin's order), through shared memory, out
+    // by TMA store.
+    const int grow = bm + wg * 64;  // the warpgroup's first output row
+    if constexpr (TMA_RESID) mbar_wait(&rfull[wg], n & 1);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 a = __bfloat1622float2(yh[e]), b = __bfloat1622float2(rh[e]);
-          yh[e] = __floats2bfloat162_rn(a.x + b.x, a.y + b.y);
+    for (int c = 0; c < L::NBOX; ++c) {
+      const int col0 = bn + 64 * c;
+      unsigned char* box = out_box + (TMA_RESID ? c : c & 1) * L::OUT_BLK;
+      uint4 rv[L::CHUNKS];
+      if (!TMA_RESID && resid != nullptr) {
+        // Any other residual: thread t's 16-byte chunks idx = 128 i + t of
+        // the box, row idx / 8, columns 8 (idx % 8)..; loads issued first.
+#pragma unroll
+        for (int i = 0; i < L::CHUNKS; ++i) {
+          const int idx = 128 * i + t, r = idx / 8, cc = idx % 8;
+          const int g = grow + r, col = col0 + 8 * cc;
+          rv[i] = g < M && col < N
+                      ? *reinterpret_cast<const uint4*>(resid + static_cast<long long>(g % resid_rows) * N + col)
+                      : make_uint4(0, 0, 0, 0);
         }
       }
-      if (g < M && c < N) *reinterpret_cast<uint4*>(C + static_cast<long long>(g) * N + c) = y[i];
+      if constexpr (!TMA_RESID) {
+        // The store issued from this box two boxes ago has finished reading it.
+        if (t == 0) bulk_wait_read<1>();
+        named_barrier(1 + wg, 128);
+      }
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        const int j = 8 * c + jj;
+        const int col = col0 + 8 * jj + 2 * qd;
+        const float2 bi = col < N ? *reinterpret_cast<const float2*>(bias + col) : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(box + swz_frag(r0 + 8 * h, jj, qd));
+          __nv_bfloat162 y = __floats2bfloat162_rn(acc[4 * j + 2 * h] + bi.x, acc[4 * j + 2 * h + 1] + bi.y);
+          if constexpr (TMA_RESID) {
+            const float2 a = __bfloat1622float2(y), r = __bfloat1622float2(*p);
+            y = __floats2bfloat162_rn(a.x + r.x, a.y + r.y);
+          }
+          *p = y;
+        }
+      }
+      if (!TMA_RESID && resid != nullptr) {
+        named_barrier(1 + wg, 128);
+#pragma unroll
+        for (int i = 0; i < L::CHUNKS; ++i) {
+          const int idx = 128 * i + t, r = idx / 8, cc = idx % 8;
+          uint4* p = reinterpret_cast<uint4*>(box + r * 128 + ((cc ^ (r % 8)) * 16));
+          uint4 y = *p;
+          __nv_bfloat162* yh = reinterpret_cast<__nv_bfloat162*>(&y);
+          const __nv_bfloat162* rh = reinterpret_cast<const __nv_bfloat162*>(&rv[i]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 a = __bfloat1622float2(yh[e]), b = __bfloat1622float2(rh[e]);
+            yh[e] = __floats2bfloat162_rn(a.x + b.x, a.y + b.y);
+          }
+          *p = y;
+        }
+      }
+      if (!TMA_RESID || c == L::NBOX - 1) {
+        fence_proxy_async();
+        named_barrier(1 + wg, 128);
+        if (t == 0) {
+          for (int b = TMA_RESID ? 0 : c; b <= c; ++b)
+            if (grow < M && bn + 64 * b < N)
+              tma_store_2d(&cmap, out_box + (TMA_RESID ? b : b & 1) * L::OUT_BLK, bn + 64 * b, grow);
+          bulk_commit();
+        }
+      }
     }
   }
+  if (t == 0) bulk_wait<0>();  // the stores have left shared memory before the block does
 }
 
 // ---------------------------------------------------------------------------
@@ -208,28 +309,54 @@ gemm_bias_wgmma_kernel(const __grid_constant__ CUtensorMap amap, const __grid_co
 // Each entry returns cudaGetLastError() after its launch.
 // ---------------------------------------------------------------------------
 
+template <int BN, bool TMA_RESID>
+static int launch_gemm(const CUtensorMap& am, const CUtensorMap& wm, const CUtensorMap& cm, const CUtensorMap& rm,
+                       const void* bias, const void* resid, int resid_rows, int M, int N, int K, int grid,
+                       cudaStream_t stream) {
+  using L = PgLayout<BN, TMA_RESID>;
+  auto kernel = gemm_bias_ws_kernel<BN, TMA_RESID>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tiles_n = (N + BN - 1) / BN, tiles = ((M + L::BM - 1) / L::BM) * tiles_n;
+  kernel<<<grid < tiles ? grid : tiles, L::THREADS, L::SMEM, stream>>>(
+      am, wm, cm, rm, static_cast<const float*>(bias), static_cast<const bf16*>(resid), resid_rows, M, N, K, tiles_n,
+      tiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // A: (M, K), W: (K, N), C: (M, N) bf16, resid: (resid_rows, N) bf16 or
 // null, each packed and 16-byte aligned; bias: (N,) f32. K % 8 == 0,
-// N % 8 == 0, M >= 1. Returns 0, a CUDA error code, or 1000 + the CUresult
-// of encoding a tensor map.
+// N % 8 == 0, M >= 1. tile: 0 for 128 x 256 output tiles, 1 for 128 x 128;
+// grid: the persistent grid's blocks (ops/fused_attn.py:gemm_plan), at least
+// 1 (at most one a tile is launched). Returns 0, a CUDA error code, or
+// 1000 + the CUresult of encoding a tensor map.
 extern "C" int btia_gemm_bias(const void* A, const void* W, const void* bias, const void* resid, int resid_rows,
-                              void* C, int M, int N, int K, void* stream) {
-  if (K % 8 != 0 || N % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+                              void* C, int M, int N, int K, int tile, int grid, void* stream) {
+  if (K % 8 != 0 || N % 8 != 0 || M < 1 || resid_rows < 1 || (tile != 0 && tile != 1) || grid < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const uint64_t adims[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(M)};
   const uint64_t wdims[2] = {static_cast<uint64_t>(N), static_cast<uint64_t>(K)};
+  const uint64_t cdims[2] = {static_cast<uint64_t>(N), static_cast<uint64_t>(M)};
   const uint64_t astride[1] = {2ull * K}, wstride[1] = {2ull * N};
-  const uint32_t abox[2] = {PG_BK, PG_BM}, wbox[2] = {64, PG_BK};
-  CUtensorMap am, wm;
+  const uint32_t abox[2] = {64, 128}, wbox[2] = {64, 64}, cbox[2] = {64, 64};
+  // A residual whose rows repeat every multiple of 64 (every site's: all
+  // rows, or K2's 64 answer queries) is loaded by TMA, 64-row boxes that
+  // never wrap; any other is read by the consumers.
+  const bool tma_resid = resid != nullptr && resid_rows % 64 == 0;
+  const uint64_t rdims[2] = {static_cast<uint64_t>(N), static_cast<uint64_t>(resid_rows)};
+  CUtensorMap am, wm, cm, rm;
   int err = encode_map(&am, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, A, adims, astride, abox);
   if (err == 0) err = encode_map(&wm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, W, wdims, wstride, wbox);
+  if (err == 0) err = encode_map(&cm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, C, cdims, wstride, cbox);
+  if (err == 0 && tma_resid) err = encode_map(&rm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, resid, rdims, wstride, cbox);
   if (err != 0) return err;
-  cudaError_t e = cudaFuncSetAttribute(gemm_bias_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, PG_SMEM);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((N + PG_BN - 1) / PG_BN, (M + PG_BM - 1) / PG_BM);
-  gemm_bias_wgmma_kernel<<<grid, PG_THREADS, PG_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      am, wm, static_cast<const float*>(bias), static_cast<const bf16*>(resid), resid_rows, static_cast<bf16*>(C), M,
-      N, K);
-  return static_cast<int>(cudaGetLastError());
+  if (!tma_resid) rm = cm;  // not read
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tma_resid)
+    return tile == 0 ? launch_gemm<256, true>(am, wm, cm, rm, bias, resid, resid_rows, M, N, K, grid, s)
+                     : launch_gemm<128, true>(am, wm, cm, rm, bias, resid, resid_rows, M, N, K, grid, s);
+  return tile == 0 ? launch_gemm<256, false>(am, wm, cm, rm, bias, resid, resid_rows, M, N, K, grid, s)
+                   : launch_gemm<128, false>(am, wm, cm, rm, bias, resid, resid_rows, M, N, K, grid, s);
 }
 
 // K1/K2's attention core: q (B, H, Sq, D), or with q_shared one

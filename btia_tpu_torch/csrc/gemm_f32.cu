@@ -4,7 +4,7 @@
 // btia_tpu/ops/fused_attn.py:_fused_kernel and _staticq_kernel compute in
 // their own bodies (q, [k|v] and the output projection, the bias added in
 // f32, the residual rows of the output projection). The bf16 policy runs
-// them on gemm_bias_wgmma_kernel (fused_attn.cu); wgmma's f32 input type is
+// them on gemm_bias_ws_kernel (fused_attn.cu); wgmma's f32 input type is
 // TF32, so the fp32 policy, held to the CPU's f32 at 1e-4, runs here: every
 // product is an f32 FFMA.
 //

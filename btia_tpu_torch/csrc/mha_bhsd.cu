@@ -16,15 +16,17 @@
 #include "flash.cuh"
 
 // strides: 12 values, the (batch, head, row) strides of q, k, v and o in
-// elements, each a nonzero multiple of 8. mask: (B, Sk) f32 {0, 1}, or
-// null. Returns 0, a CUDA error code (cudaErrorInvalidValue for a head
-// width the kernel does not take), or 1000 + the CUresult of encoding a
-// tensor map.
+// elements, each a nonzero multiple of 8. mask: (B, Sk) bool (bytes,
+// nonzero = a real key) or null. grid: the persistent blocks at D <= 128
+// (ops/attention.py:flash_plan). Returns 0, a CUDA error code
+// (cudaErrorInvalidValue for a head width the kernel does not take), or
+// 1000 + the CUresult of encoding a tensor map.
 extern "C" int btia_mha_bhsd(const void* q, const void* k, const void* v, const void* mask, void* o,
-                             const long long* strides, int B, int H, int Sq, int Sk, int D, float qscale,
+                             const long long* strides, int B, int H, int Sq, int Sk, int D, float qscale, int grid,
                              void* stream) {
   const long long* st = strides;
   const FlashOperand tq{q, st[0], st[1], st[2]}, tk{k, st[3], st[4], st[5]}, tv{v, st[6], st[7], st[8]},
       to{o, st[9], st[10], st[11]};
-  return launch_flash_attention(tq, tk, tv, mask, to, B, H, Sq, Sk, D, qscale, static_cast<cudaStream_t>(stream));
+  const FlashLaunch a{mask, B, H, Sq, Sk, D, grid, qscale};
+  return launch_flash_attention(tq, tk, tv, to, a, static_cast<cudaStream_t>(stream));
 }

@@ -38,12 +38,12 @@ _FP = ctypes.POINTER(ctypes.c_float)  # a host array of scales
 _PP = ctypes.POINTER(ctypes.c_void_p)  # a host array of device pointers
 _SIGNATURES = {
     "btia_layernorm": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
-    "btia_gemm_bias": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _P),
+    "btia_gemm_bias": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P),
     "btia_attn_core": (_P, _P, _P, _P, _I, _P, _LLP, _IP, _I, _I, _I, _I, _I, _I, _P),
     "btia_attn_core_map_stats": (_LLP,),
-    "btia_flash_bshd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P),
+    "btia_flash_bshd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),
     "btia_fanout": (_P, _P, _P, _P, _P, _LLP, _IP, _I, _I, _I, _I, _I, _F, _P),
-    "btia_mha_bhsd": (_P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _I, _F, _P),
+    "btia_mha_bhsd": (_P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _I, _F, _I, _P),
     "btia_bicross": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _LLP, _IP, _I, _I, _I, _I, _I, _F, _P),
     "btia_int8_quant_rows": (_P, _P, _P, _I, _I, _P),
     "btia_int8_gemm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),

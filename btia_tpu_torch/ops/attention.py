@@ -52,6 +52,7 @@ is plain PyTorch mirroring the reference's ``custom_vjp`` (``_mha_bwd``,
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -207,8 +208,7 @@ def _bhsd_operand(t: torch.Tensor, what: str):
     its stride: any stride reads its one index, and TMA takes only nonzero
     multiples of 16 bytes; a broadcast (stride 0) of a longer dimension is
     copied."""
-    if not t.is_cuda or t.dtype != torch.bfloat16:
-        raise ValueError(f"{what}: the CUDA kernel takes a bf16 CUDA tensor, got {t.dtype} on {t.device}")
+    _native.require(t, what, contiguous=False)
     st = _spans(t)
     if t.stride(3) != 1 or t.data_ptr() % 16 or any(s <= 0 or s % 8 for s in st):
         t = t.contiguous()
@@ -412,6 +412,37 @@ def _attend_bshd(route, q, k, v, mask, num_heads, qscale, mult_mask, what):
     return out
 
 
+# The H100's SMs: the persistent kernels' grids count blocks against them.
+H100_SMS = 132
+# Q rows of one work item of K3/K5's persistent kernel (csrc/flash_bshd.cu,
+# head widths padded to 64 or 128), and of one block of its first design
+# (DP 192: 128, DP 256: 64).
+FLASH_ITEM_ROWS = 128
+
+
+@functools.lru_cache(maxsize=256)
+def flash_plan(B: int, H: int, Sq: int, dw: int) -> tuple:
+    """(items, grid) of K3/K5's kernel for B x H heads of dw columns and Sq
+    query rows. At a padded width DP = 64 or 128 the persistent kernel's
+    work items are (128-row q tile, head, batch), numbered with the q tile
+    fastest, and its grid one block an SM up to one an item: block i takes
+    items i, i + grid, i + 2 grid, ... At DP 192 and 256 one block a q tile
+    of 128 or 64 rows: grid = items."""
+    dp = -(-dw // 64) * 64
+    rows = FLASH_ITEM_ROWS if dp <= 192 else 64
+    items = -(-Sq // rows) * H * B
+    return items, (min(items, H100_SMS) if dp <= 128 else items)
+
+
+def key_mask_arg(kv_mask: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """A (B, Sk) key mask (True / nonzero = a real key) as the tile kernels
+    read it, one byte a key: a bool mask as it lies (no copy once
+    contiguous), any other as ``kv_mask != 0``; None for no mask."""
+    if kv_mask is None:
+        return None
+    return (kv_mask if kv_mask.dtype == torch.bool else kv_mask != 0).contiguous()
+
+
 def k3_takes(head_dim: int) -> bool:
     """Whether K3's tensor-core (bf16) kernel is built for this head width."""
     return head_dim in TILE_HEAD_WIDTHS
@@ -455,11 +486,12 @@ def _mha_bhsd_cuda(q, k, v, kv_mask) -> torch.Tensor:
     # The output takes q's layout: for mha_bshd's views, a (B, S, H, D) buffer.
     out, st_o = _bhsd_operand(torch.empty_like(ops[0][0]), "mha_bhsd_attention out")
     strides = (ctypes.c_longlong * 12)(*(s for _, st in ops for s in st), *st_o)
-    mask = None if kv_mask is None else kv_mask.to(torch.float32).contiguous()
+    mask = key_mask_arg(kv_mask)
     _native.check(
         _native.lib().btia_mha_bhsd(
             *(t.data_ptr() for t, _ in ops), None if mask is None else mask.data_ptr(),
-            out.data_ptr(), strides, B, H, Sq, Sk, dw, _log2_scale(D), _native.stream(q),
+            out.data_ptr(), strides, B, H, Sq, Sk, dw, _log2_scale(D), flash_plan(B, H, Sq, dw)[1],
+            _native.stream(q),
         ),
         "btia_mha_bhsd",
     )
@@ -559,13 +591,13 @@ def _bshd_flash_cuda(q, k, v, kv_mask, num_heads: int) -> torch.Tensor:
     q, k, v = _native.aligned(q), _native.aligned(k), _native.aligned(v)
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         _native.require(t, f"bshd_flash_attention {name}")
-    mask = None if kv_mask is None else kv_mask.to(torch.float32).contiguous()
+    mask = key_mask_arg(kv_mask)
     out = torch.empty_like(q)
     _native.check(
         _native.lib().btia_flash_bshd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if mask is None else mask.data_ptr(), out.data_ptr(),
-            B, num_heads, D, Sq, Sk, _log2_scale(D), _native.stream(q),
+            B, num_heads, D, Sq, Sk, _log2_scale(D), flash_plan(B, num_heads, Sq, D)[1], _native.stream(q),
         ),
         "btia_flash_bshd",
     )

@@ -71,6 +71,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import weakref
 from typing import Optional, Tuple
 
@@ -78,7 +79,7 @@ import torch
 
 from btia_tpu_torch.ops import _native
 from btia_tpu_torch.ops.attention import (
-    FANOUT_MIN_BATCH, LOG2E, SMALL_SCORE_TILE, TILE_HEAD_WIDTHS, _resolved_impl, _route_or_raise,
+    FANOUT_MIN_BATCH, H100_SMS, LOG2E, SMALL_SCORE_TILE, TILE_HEAD_WIDTHS, _resolved_impl, _route_or_raise,
     attend, attend_log2, mha_bshd, short_plan,
 )
 from btia_tpu_torch.ops.norms import _layernorm_cuda, _ln_exact, layernorm
@@ -265,10 +266,6 @@ def _static_q_weights(queries, wq, bq, wk, bk, wv, bv, wo, bo, num_heads, cd):
     return prepare_once((queries, wq, bq, wk, bk, wv, bv, wo, bo), ("static_q", num_heads, cd), make)
 
 
-# The H100's SMs: the f32 GEMM's tile choice counts blocks against them.
-H100_SMS = 132
-
-
 # The f32 GEMM's block tiles (rows, columns), largest first: the C entry's
 # tile argument is the index.
 GEMM_F32_TILES = ((128, 128), (128, 64), (64, 64))
@@ -316,10 +313,39 @@ def gemm_f32(a2, w, b, resid=None, resid_rows=0):
 gemm_f32.launches = 0
 
 
+# The bf16 projection GEMM's output tiles (rows, columns): the C entry's
+# tile argument is the index.
+GEMM_TILES = ((128, 256), (128, 128))
+# What a 128 x 256 tile costs against two 128 x 128 tiles (one A read a
+# column of tiles fewer, wgmma at N = 256): the tile choice's weight.
+GEMM_WIDE_TILE_COST = 0.9
+
+
+@functools.lru_cache(maxsize=256)
+def gemm_plan(M: int, N: int) -> tuple:
+    """(tile, grid) of the bf16 projection GEMM (``gemm_bias_ws_kernel``):
+    the tile an index into ``GEMM_TILES``, the grid one persistent block an
+    H100 SM up to one a tile; block i takes tiles i, i + grid, ... (N tiles
+    fastest). 128 x 256 where N is a multiple of 256 and the rounds of
+    tiles a block walks, weighted by ``GEMM_WIDE_TILE_COST``, cost no more
+    than 128 x 128's: at every serve site (text 65,536 rows: 12 rounds
+    against 24); 128 x 128 where the wide tile would leave SMs idle, as at
+    the train sites (12,608 rows: 3 rounds of 297 wide tiles against 5 of
+    594)."""
+    def tiles(i):
+        bm, bn = GEMM_TILES[i]
+        return -(-M // bm) * -(-N // bn)
+
+    rounds = lambda i: -(-tiles(i) // H100_SMS)
+    tile = 0 if N % 256 == 0 and 2 * GEMM_WIDE_TILE_COST * rounds(0) <= rounds(1) else 1
+    return tile, min(tiles(tile), H100_SMS)
+
+
 def _gemm_cuda(a2, w, b, resid=None, resid_rows=0):
     """bf16(a2 @ w + b) (+ resid rows, repeating every resid_rows), on the
-    projection GEMM (``gemm_bias_wgmma_kernel``): TMA reads a2 (M, K) and w
-    (K, N) as they lie, at 16-byte aligned addresses. f32 operands take
+    projection GEMM (``gemm_bias_ws_kernel``, tile and grid by
+    ``gemm_plan``): TMA reads a2 (M, K) and w (K, N) as they lie and stores
+    the output, at 16-byte aligned addresses. f32 operands take
     ``gemm_f32``."""
     if a2.dtype == torch.float32:
         return gemm_f32(a2, w, b, resid, resid_rows)
@@ -339,7 +365,7 @@ def _gemm_cuda(a2, w, b, resid=None, resid_rows=0):
         _native.lib().btia_gemm_bias(
             a2.data_ptr(), w.data_ptr(), b.data_ptr(),
             None if resid is None else resid.data_ptr(), max(resid_rows, 1),
-            out.data_ptr(), M, N, K, _native.stream(a2),
+            out.data_ptr(), M, N, K, *gemm_plan(M, N), _native.stream(a2),
         ),
         "btia_gemm_bias",
     )

@@ -25,13 +25,16 @@ Phases, each fatal on failure:
    one shared query table), against ``attend_log2`` within max|ref|/32, the
    all-PAD row exactly 0, timed beside the twin, SDPA and the bytes bound;
    then K1/K2's
-   projection GEMM (``gemm_bias_wgmma_kernel``) alone at each serve shape
+   projection GEMM (``gemm_bias_ws_kernel``) alone at each serve shape
    (q, kv and out with the residual of the text and BTIA-image rows, K2's
    kv and its out with the query residual repeating every 64 rows) and
    each ``vqa_med_full`` train shape, each
    element within one bf16 step of ``_proj_plain`` plus the residual's
    rounding, timed beside ``torch.addmm`` (the yardstick) and the bound;
-   then K8 (the int8
+   then K3, K5 and the GEMM at the shapes a persistent schedule can get
+   wrong (EDGE_ATTN, EDGE_GEMM: work-item and tile counts around one and two
+   an SM, one row, M 1 / 127 / 129, every residual form) with the same
+   tolerances; then K8 (the int8
    FFN product) at the eight FFN shapes of the int8 serve step, each element
    within one bf16 step, its row quantization equal to its twin's, timed
    whole and by kernel (quantize, GEMM) beside ``torch._int_mm`` on the
@@ -875,6 +878,92 @@ def check_gemm(torch, dev):
     return rows, per_step
 
 
+# Phase 2, the shapes a persistent schedule can get wrong: K3 and K5 at
+# work-item counts just under, at and over one and two items an SM (132 and
+# 264 on an H100), at one row and one key, at one head of ViT-L, and with key
+# counts that leave the K/V ring at another stage and parity after every
+# item: (B, Sq, Sk, heads), items = ceil(Sq / 128) * heads * B; each at head
+# widths 64 and 128 (K5: 64 and 96), masked where the index is odd.
+EDGE_ATTN = ((1, 1, 1, 1), (1, 577, 577, 1), (131, 100, 300, 1), (66, 128, 300, 2), (133, 64, 229, 1),
+             (263, 50, 130, 1), (132, 100, 65, 2), (265, 20, 577, 1))
+# The projection GEMM at M 1, 127 and 129 and at tile counts around 132 and
+# 264 (N 256: 128 x 256 tiles; N 128: 128 x 128), with no residual, a
+# residual of every row or of 64 rows (loaded by TMA) and of 127 or 3 rows
+# (read by the consumers), K 200 and 136 for a K tail: (name, M, K, N,
+# rows the residual repeats over).
+EDGE_GEMM = (("m1", 1, 768, 768, 0), ("m127_res127", 127, 768, 768, 127), ("m129", 129, 768, 768, 0),
+             ("m129_res64", 129, 768, 768, 64), ("tiles131_k200", 131 * 128, 200, 256, 0),
+             ("tiles132_res_all", 132 * 128, 768, 256, 132 * 128), ("tiles133_res64", 133 * 128, 768, 256, 64),
+             ("tiles263_res3_k136", 263 * 128, 136, 256, 3), ("tiles264", 264 * 128, 768, 256, 0),
+             ("tiles265_res_all", 265 * 128, 768, 256, 265 * 128), ("tiles264_n128", 264 * 128, 768, 128, 0))
+
+
+def check_persistent_edges(torch, dev):
+    """Phase 2: K3, K5 and the projection GEMM at EDGE_ATTN and EDGE_GEMM
+    against their plain twins, with phase 2's tolerances (attention
+    max|twin| / 32; the GEMM one bf16 step an element, see ``check_gemm``).
+    Returns {"k3": ..., "k5": ..., "gemm": ...}; the comparison launches are
+    not main-path launches."""
+    from btia_tpu_torch.ops import attention as A
+    from btia_tpu_torch.ops import fused_attn as FA
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    bf = torch.bfloat16
+    randn = lambda *shape: torch.randn(*shape, generator=g, device=dev).to(bf)
+    counters = (A.bshd_flash_attention, A.mha_bhsd_attention)
+    before = [f.launches for f in counters]
+    out = {"k3": {}, "k5": {}, "gemm": {}}
+
+    def hold(group, name, got, ref, plan):
+        got, ref = got.float(), ref.float()
+        err, tol = (got - ref).abs().max().item(), ref.abs().max().item() / 32
+        out[group][name] = {"max_abs_err": err, "tol": tol, "items_grid": list(plan)}
+        if not (bool(torch.isfinite(got).all()) and err <= tol):
+            raise AssertionError(f"{group} {name}: err {err} > {tol} or not finite")
+
+    for i, (B, Sq, Sk, H) in enumerate(EDGE_ATTN):
+        mask = None
+        if i % 2:
+            mask = torch.rand(B, Sk, generator=g, device=dev) > 0.3
+            mask[:, 0] = True
+        for D in (64, 128):
+            q, k, v = randn(B, Sq, H * D), randn(B, Sk, H * D), randn(B, Sk, H * D)
+            hold("k3", f"B{B}_Sq{Sq}_Sk{Sk}_H{H}_D{D}", A.bshd_flash_attention(q, k, v, mask, H),
+                 A._bshd_flash_plain(q, k, v, mask, H), A.flash_plan(B, H, Sq, D))
+        for D in (64, 96):
+            q, k, v = randn(B, H, Sq, D), randn(B, H, Sk, D), randn(B, H, Sk, D)
+            hold("k5", f"B{B}_Sq{Sq}_Sk{Sk}_H{H}_D{D}", A.mha_bhsd_attention(q, k, v, mask),
+                 A._mha_bhsd_plain(q, k, v, mask), A.flash_plan(B, H, Sq, D))
+        del q, k, v
+    for f, n in zip(counters, before):
+        f.launches = n
+    for name, M, K, N, rr in EDGE_GEMM:
+        a = randn(M, K)
+        w = (torch.randn(K, N, generator=g, device=dev) * K**-0.5).to(bf)
+        b = torch.randn(N, generator=g, device=dev) * 0.02
+        r = randn(rr, N) if rr else None
+        got = FA._gemm_cuda(a, w, b, r, rr)
+        y0 = FA._proj_plain(a, w, b, bf)
+        ref = y0 if r is None else (y0.float() + r.float().repeat(-(-M // rr), 1)[:M]).to(bf)
+        diff = (got.float() - ref.float()).abs()
+        tol = bf16_steps(torch, ref) + (0 if r is None else bf16_steps(torch, y0)) + 1e-6 * ref.float().abs().max()
+        bad = int((diff > tol).sum())
+        tile, grid = FA.gemm_plan(M, N)
+        bm, bn = FA.GEMM_TILES[tile]
+        out["gemm"][name] = {"shape": [M, K, N], "resid_rows": rr, "tile": [bm, bn], "grid": grid,
+                             "tiles": -(-M // bm) * -(-N // bn), "max_abs_err": diff.max().item(),
+                             "elements_off": bad}
+        if bad or not bool(torch.isfinite(got.float()).all()):
+            raise AssertionError(f"GEMM edge {name}: {bad} elements disagree with _proj_plain")
+    log("  persistent-schedule edges, max abs err / tol: "
+        + ", ".join(f"K3 {n} {x['max_abs_err']:.3g}/{x['tol']:.3g}" for n, x in out["k3"].items()) + "; "
+        + ", ".join(f"K5 {n} {x['max_abs_err']:.3g}/{x['tol']:.3g}" for n, x in out["k5"].items()) + "; GEMM "
+        + ", ".join(f"{n} ({x['tiles']} tiles of {x['tile']}, grid {x['grid']}) {x['max_abs_err']:.3g}"
+                    for n, x in out["gemm"].items()))
+    torch.cuda.empty_cache()
+    return out
+
+
 def check_core(torch, dev):
     """Phase 2, K1/K2's attention core alone (CORE_SITES): the C entry of the
     short-sequence kernel bound by ``_core_launcher`` on the operands the
@@ -1374,8 +1463,9 @@ def routing_switches_phase(torch, dev, smi, model, host_imgs, host_qids, serve_s
     return res
 
 
-_PORTED = ("gemm_bias_wgmma_kernel", "ln_warp_kernel", "ln_block_kernel", "flash_attn_kernel", "short_flash_kernel",
-           "quant_rows_kernel", "quant_rows_loop_kernel", "int8_gemm_kernel", "attn_simt_kernel", "gemm_f32_kernel")
+_PORTED = ("gemm_bias_ws_kernel", "ln_warp_kernel", "ln_block_kernel", "flash_ws_kernel", "flash_attn_kernel",
+           "short_flash_kernel", "quant_rows_kernel", "quant_rows_loop_kernel", "int8_gemm_kernel", "attn_simt_kernel",
+           "gemm_f32_kernel")
 
 
 def profile_step(torch, step, smi, what="serve_step"):
@@ -3364,6 +3454,7 @@ def main() -> int:
     rows = check_kernels(torch, dev)
     core_rows, core_step = check_core(torch, dev)
     gemm_rows, gemm_step = check_gemm(torch, dev)
+    edges = check_persistent_edges(torch, dev)
     int8_rows = check_int8_kernel(torch, dev)
     counters = launch_counters()
     ops_rows, ops_counts = ops_api_phase(torch, dev, counters)
@@ -3591,7 +3682,9 @@ def main() -> int:
     kernels[6]["serve_step_layernorms"] = ln_census
     # K1/K2's projection GEMM, alone at the serve shapes (both launch it),
     # and their attention core alone on the short-sequence kernel.
-    kernels[0]["projection_gemm"] = {"sites": gemm_rows, "per_step": gemm_step}
+    kernels[0]["projection_gemm"] = {"sites": gemm_rows, "per_step": gemm_step, "edges": edges["gemm"]}
+    kernels[2]["persistent_edges"] = edges["k3"]
+    kernels[4]["persistent_edges"] = edges["k5"]
     for i, prefix in ((0, ("serve_bert", "serve_i2t", "serve_t2i", "train_")), (1, ("serve_k2",))):
         kernels[i]["attention_core"] = {
             "kernel_source": "btia_tpu_torch/csrc/short_flash.cuh", "entry": "btia_tpu_torch/csrc/fused_attn.cu",

@@ -13,9 +13,15 @@ Builds both checkouts' kernel libraries (each from its own
 ``btia_tpu_torch/csrc``), then runs each kernel's C entry at the shapes of
 ``chip_smoke.py``'s phases 2 and 2b in the order parent, this tree, this
 tree, parent, and prints both pairs of times (CUDA events, ms a call) with
-the largest difference between the two outputs. K3's shapes are also timed
-through K5's entry with K3's packed strides: the 4-D (B, H, S, D) tensor-map
-path over the same bytes. K4 runs at the six training shapes and the four
+the largest difference between the two outputs. K3 and K5 (at phase 2's and
+2b's shapes, ViT-L 16 x 577 through each entry) and the projection GEMM
+(at every site of ``GEMM_SITES`` and ``GEMM_TRAIN_SITES``, with the per-step
+sums weighted by launches) also time one PyTorch call of the same function
+in the same turns (parent, this, library, library, this, parent): SDPA,
+and ``torch.addmm`` with the residual added; each line gives the bound
+(``chip_smoke.bound_ms``) and each time's share of it. K3's shapes are also
+timed through K5's entry with K3's packed strides: the 4-D (B, H, S, D)
+tensor-map path over the same bytes. K4 runs at the six training shapes and the four
 serve shapes of ``chip_smoke.py``'s phase 2, K6 at phase 2b's two, K1/K2's
 attention core (``btia_attn_core``) at the four serve site shapes (K2's with
 one shared query table) and the train site shapes (BTIA img <- txt also at
@@ -65,13 +71,6 @@ CORE_SHAPES = ((2048, 32, 32, 12, True, False), (2048, 50, 32, 12, True, False),
                (2048, 64, 82, 12, True, True), (64, 32, 32, 12, True, False), (64, 197, 32, 12, True, False),
                (64, 32, 197, 12, False, False), (64, 197, 32, 6, True, False), (64, 197, 32, 4, True, False),
                (64, 197, 32, 3, True, False))
-# The projection GEMM: (name, M, K, N, rows its residual repeats over).
-GEMM_SHAPES = (("text_q", 65536, 768, 768, 0), ("text_kv", 65536, 768, 1536, 0),
-               ("text_out", 65536, 768, 768, 65536), ("image_q", 102400, 768, 768, 0),
-               ("image_kv", 102400, 768, 1536, 0), ("image_out", 102400, 768, 768, 102400),
-               ("head_kv", 167936, 768, 1536, 0), ("head_out", 131072, 768, 768, 64))
-
-
 def load_native(root: Path, name: str):
     """A checkout's ``ops/_native.py``, imported by path under `name`."""
     spec = importlib.util.spec_from_file_location(name, root / "btia_tpu_torch" / "ops" / "_native.py")
@@ -97,6 +96,11 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"card: {smi}", flush=True)
+    sys.path.insert(0, str(REPO))
+    import chip_smoke as cs
+    from btia_tpu_torch.ops.attention import flash_plan
+    from btia_tpu_torch.ops.fused_attn import GEMM_TILES, gemm_plan
+
     libs = {"parent": load_native(Path(sys.argv[1]).resolve(), "parent_native").lib(),
             "this": load_native(REPO, "this_native").lib()}
     dev = torch.device("cuda", 0)
@@ -116,11 +120,20 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / iters
 
-    def turns(name, make):
+    def turns(name, make, library=None, bound=None):
         """make(lib) -> (launch, output or a tuple of outputs); times in the
-        order parent, this, this, parent."""
-        times, outs = {"parent": [], "this": []}, {}
-        for who in ("parent", "this", "this", "parent"):
+        order parent, this, this, parent, or with a library yardstick (one
+        PyTorch call of the same function, timed only) parent, this,
+        library, library, this, parent. bound: (flops, bytes), printed as
+        the least time the card could take and each time's share of it.
+        Returns {"parent": [ms, ms], "this": [...], "library": [...]}."""
+        times, outs = {"parent": [], "this": [], "library": []}, {}
+        order = ("parent", "this", "this", "parent") if library is None else \
+            ("parent", "this", "library", "library", "this", "parent")
+        for who in order:
+            if who == "library":
+                times[who].append(time_ms(library))
+                continue
             launch, out = make(libs[who])
             code = launch()
             torch.cuda.synchronize()
@@ -129,28 +142,53 @@ def main() -> int:
             outs[who] = torch.cat([o.float().flatten() for o in (out if isinstance(out, tuple) else (out,))])
             times[who].append(time_ms(launch))
         diff = (outs["parent"] - outs["this"]).abs().max().item()
-        print(f"{name}: parent {[round(t, 4) for t in times['parent']]} ms, this tree "
-              f"{[round(t, 4) for t in times['this']]} ms, max |parent - this| {diff:.3g}", flush=True)
+        line = (f"{name}: parent {[round(t, 4) for t in times['parent']]} ms, this tree "
+                f"{[round(t, 4) for t in times['this']]} ms")
+        if library is not None:
+            line += f", library {[round(t, 4) for t in times['library']]} ms"
+        if bound is not None:
+            b_ms, by = cs.bound_ms(*bound)
+            share = lambda who: round(b_ms / min(times[who]), 3)
+            line += (f", bound {b_ms:.4f} ms ({by}; share parent {share('parent')}, this {share('this')}"
+                     + (f", library {share('library')}" if library is not None else "") + ")")
+        print(f"{line}, max |parent - this| {diff:.3g}", flush=True)
+        return times
 
     def strides(*ts):
         return (ctypes.c_longlong * 12)(*(x.stride(i) for x in ts for i in range(3)))
 
+    import torch.nn.functional as F
+
+    sdpa = F.scaled_dot_product_attention
+    # The earlier C signatures of K3's and K5's entries: an f32 mask, no grid.
+    flash_old = lambda lib: len(lib.btia_flash_bshd.argtypes) == 12
     for B, Sq, Sk, H, D, masked in K3_SHAPES if "k3" in groups else ():
         q, k, v = (torch.randn(B, S, H * D, generator=g, device=dev).to(bf) for S in (Sq, Sk, Sk))
-        m = (torch.rand(B, Sk, generator=g, device=dev) > 0.2).float() if masked else None
-        mp = None if m is None else m.data_ptr()
+        mb = torch.rand(B, Sk, generator=g, device=dev) > 0.2 if masked else None
+        mf = None if mb is None else mb.float()
+        items, grid = flash_plan(B, H, Sq, D)
 
-        def k3(lib, q=q, k=k, v=v, mp=mp, B=B, Sq=Sq, Sk=Sk, H=H, D=D):
+        def k3(lib, q=q, k=k, v=v, mb=mb, mf=mf, B=B, Sq=Sq, Sk=Sk, H=H, D=D, grid=grid):
             o = torch.empty_like(q)
-            return (lambda: lib.btia_flash_bshd(q.data_ptr(), k.data_ptr(), v.data_ptr(), mp, o.data_ptr(),
-                                                B, H, D, Sq, Sk, 0.18, stream)), o
+            qkv = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+            if flash_old(lib):
+                return (lambda: lib.btia_flash_bshd(*qkv, None if mf is None else mf.data_ptr(), o.data_ptr(),
+                                                    B, H, D, Sq, Sk, 0.18, stream)), o
+            return (lambda: lib.btia_flash_bshd(*qkv, None if mb is None else mb.data_ptr(), o.data_ptr(),
+                                                B, H, D, Sq, Sk, 0.18, grid, stream)), o
 
-        turns(f"K3 {B} x {Sq} <- {Sk}, {H} heads of {D}", k3)
+        split = lambda x, S, H=H, D=D, B=B: x.view(B, S, H, D).transpose(1, 2)
+        keep = None if mb is None else mb[:, None, None, :]
+        lib_fn = lambda q=q, k=k, v=v, keep=keep, Sq=Sq, Sk=Sk: sdpa(split(q, Sq), split(k, Sk), split(v, Sk),
+                                                                     attn_mask=keep)
+        flops, nbytes = 4 * B * H * Sq * Sk * D, 2 * (2 * q.numel() + k.numel() + v.numel()) + B * Sk * masked
+        turns(f"K3 {B} x {Sq} <- {Sk}, {H} heads of {D} ({items} items, grid {grid})", k3, lib_fn, (flops, nbytes))
         view = lambda x, S: x.view(B, S, H, D).transpose(1, 2)
         o4 = torch.empty_like(q)
         st = strides(view(q, Sq), view(k, Sk), view(v, Sk), view(o4, Sq))
-        four_d = lambda: libs["this"].btia_mha_bhsd(q.data_ptr(), k.data_ptr(), v.data_ptr(), mp, o4.data_ptr(),
-                                                    st, B, H, Sq, Sk, D, 0.18, stream)
+        four_d = lambda: libs["this"].btia_mha_bhsd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                                    None if mb is None else mb.data_ptr(), o4.data_ptr(), st, B, H,
+                                                    Sq, Sk, D, 0.18, grid, stream)
         if four_d() != 0:
             raise RuntimeError("K3 shape through K5's entry: CUDA error")
         print(f"  the same bytes through K5's 4-D path, this tree: "
@@ -162,19 +200,28 @@ def main() -> int:
             q, k, v = (torch.randn(B, S, H, D, generator=g, device=dev).to(bf).transpose(1, 2) for S in (Sq, Sk, Sk))
         else:
             q, k, v = (torch.randn(B, H, S, D, generator=g, device=dev).to(bf) for S in (Sq, Sk, Sk))
-        m = (torch.rand(B, Sk, generator=g, device=dev) > 0.2).float() if views else None
+        mb = torch.rand(B, Sk, generator=g, device=dev) > 0.2 if views else None
+        mf = None if mb is None else mb.float()
+        # K5's entry takes heads of 8k columns: D 96 as it is (DP 128).
+        items, grid = flash_plan(B, H, Sq, D)
 
-        def k5(lib, q=q, k=k, v=v, m=m, B=B, Sq=Sq, Sk=Sk, H=H, D=D):
+        def k5(lib, q=q, k=k, v=v, mb=mb, mf=mf, B=B, Sq=Sq, Sk=Sk, H=H, D=D, grid=grid):
             o = torch.empty_like(q)
             st = strides(q, k, v, o)
-            return (lambda: lib.btia_mha_bhsd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                              None if m is None else m.data_ptr(), o.data_ptr(), st, B, H, Sq, Sk,
-                                              D, 0.18, stream)), o
+            qkv = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+            if len(lib.btia_mha_bhsd.argtypes) == 13:  # the earlier C signature
+                return (lambda: lib.btia_mha_bhsd(*qkv, None if mf is None else mf.data_ptr(), o.data_ptr(), st, B,
+                                                  H, Sq, Sk, D, 0.18, stream)), o
+            return (lambda: lib.btia_mha_bhsd(*qkv, None if mb is None else mb.data_ptr(), o.data_ptr(), st, B, H,
+                                              Sq, Sk, D, 0.18, grid, stream)), o
 
-        turns(f"K5 {B} x {H} heads x {Sq} <- {Sk}, D {D}{', transposed views' if views else ''}", k5)
+        keep = None if mb is None else mb[:, None, None, :]
+        lib_fn = lambda q=q, k=k, v=v, keep=keep: sdpa(q, k, v, attn_mask=keep)
+        flops, nbytes = 4 * B * H * Sq * Sk * D, 2 * (2 * q.numel() + k.numel() + v.numel()) + B * Sk * views
+        turns(f"K5 {B} x {H} heads x {Sq} <- {Sk}, D {D}{', transposed views' if views else ''} "
+              f"({items} items, grid {grid})", k5, lib_fn, (flops, nbytes))
         del q, k, v
 
-    sys.path.insert(0, str(REPO))
     from btia_tpu_torch.ops.attention import fanout_strides, short_plan
 
     earlier = lambda lib, name, n: len(getattr(lib, name).argtypes) == n  # the earlier C signature
@@ -249,20 +296,43 @@ def main() -> int:
 
     compare_f32_and_wide(torch, libs, turns, dev, g, stream, groups)
 
-    for name, M, K, N, rr in GEMM_SHAPES if "gemm" in groups else ():
+    per_step = {}
+    for name, M, K, N, rr, launches in (cs.GEMM_SITES + cs.GEMM_TRAIN_SITES) if "gemm" in groups else ():
         a = torch.randn(M, K, generator=g, device=dev).to(bf)
         w = (torch.randn(K, N, generator=g, device=dev) * K**-0.5).to(bf)
         b = torch.randn(N, generator=g, device=dev) * 0.02
         r = torch.randn(rr, N, generator=g, device=dev).to(bf) if rr else None
+        tile, grid = gemm_plan(M, N)
 
-        def gemm(lib, a=a, w=w, b=b, r=r, M=M, K=K, N=N, rr=rr):
+        def gemm(lib, a=a, w=w, b=b, r=r, M=M, K=K, N=N, rr=rr, tile=tile, grid=grid):
             o = torch.empty(M, N, dtype=bf, device=dev)
-            return (lambda: lib.btia_gemm_bias(a.data_ptr(), w.data_ptr(), b.data_ptr(),
-                                               None if r is None else r.data_ptr(), max(rr, 1), o.data_ptr(),
-                                               M, N, K, stream)), o
+            args = (a.data_ptr(), w.data_ptr(), b.data_ptr(), None if r is None else r.data_ptr(), max(rr, 1),
+                    o.data_ptr(), M, N, K)
+            if len(lib.btia_gemm_bias.argtypes) == 10:  # the earlier C signature: one 128 x 128 tile a block
+                return (lambda: lib.btia_gemm_bias(*args, stream)), o
+            return (lambda: lib.btia_gemm_bias(*args, tile, grid, stream)), o
 
-        turns(f"GEMM {name} {M} x {K} -> {N}", gemm)
+        b_bf = b.to(bf)
+
+        def addmm(a=a, w=w, b_bf=b_bf, r=r, rr=rr, N=N):
+            y = torch.addmm(b_bf, a, w)
+            if r is not None:  # the residual, repeating every rr rows
+                y.view(-1, rr, N).add_(r)
+            return y
+
+        nbytes = 2 * (a.numel() + w.numel() + M * N + (r.numel() if rr else 0)) + 4 * N
+        times = turns(f"GEMM {name} {M} x {K} -> {N}{f', residual every {rr} rows' if rr else ''} "
+                      f"(tile {GEMM_TILES[tile]}, grid {grid})", gemm, addmm, (2 * M * K * N, nbytes))
+        path = "serve_step" if any(name == x[0] for x in cs.GEMM_SITES) else "train_step"
+        acc = per_step.setdefault(path, {"launches": 0, "parent": 0.0, "this": 0.0, "library": 0.0})
+        acc["launches"] += launches
+        for who in ("parent", "this", "library"):
+            acc[who] += launches * min(times[who])
         del a, w, b, r
+    for path, acc in per_step.items():
+        print(f"GEMM per {path.replace('_', ' ')} ({acc['launches']} launches, the better turn of each site): "
+              f"parent {acc['parent']:.3f} ms, this tree {acc['this']:.3f} ms, addmm {acc['library']:.3f} ms",
+              flush=True)
     return 0
 
 

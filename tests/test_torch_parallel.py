@@ -254,20 +254,26 @@ def test_primary_only_checkpoint_loads_into_a_one_process_predictor(trainer_run)
 def test_bench_serves_over_torchrun_ranks():
     """``python -m btia_tpu_torch.bench --mesh 2,1`` under torchrun (two CPU
     ranks on gloo): one JSON line, from the primary; the first step's best
-    logits as on one device; the value per device."""
+    logits as on one device; the value per device.
+
+    The bench rounds the per-device value and the global rate to 0.1 each,
+    so the global rate is twice the value within 0.15 (0.1 from doubling
+    the value's rounding, 0.05 from its own), whatever the rate: a slow host
+    serves ~50 pairs/s here. torchrun's standalone rendezvous binds its own
+    free port."""
     import json
     import os
     import subprocess
     import sys
 
-    from torch_mesh_worker import REPO, _free_port
+    from torch_mesh_worker import REPO
 
     args = ["--config", "tiny_test", "--batch", "4", "--questions", "2", "--steps", "2", "--warmup", "0",
             "--reps", "1", "--device", "cpu"]
     env = dict(os.environ, OMP_NUM_THREADS="2", PYTHONPATH=str(REPO))
-    mesh = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2",
-                           "--master-port", str(_free_port()), "-m", "btia_tpu_torch.bench", *args,
-                           "--mesh", "2,1"], cwd=REPO, env=env, capture_output=True, text=True, timeout=180)
+    mesh = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2",
+                           "-m", "btia_tpu_torch.bench", *args, "--mesh", "2,1"],
+                          cwd=REPO, env=env, capture_output=True, text=True, timeout=180)
     one = subprocess.run([sys.executable, "-m", "btia_tpu_torch.bench", *args], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=180)
     assert mesh.returncode == 0 and one.returncode == 0, mesh.stderr[-3000:] + one.stderr[-3000:]
@@ -277,4 +283,4 @@ def test_bench_serves_over_torchrun_ranks():
     want = [json.loads(x) for x in one.stderr.splitlines() if x.startswith('{"config"')][0]
     assert len(detail) == 1 and detail[0]["mesh"] == {"data": 2, "model": 1}
     assert abs(detail[0]["top1_mean"] - want["top1_mean"]) < 1e-4
-    assert detail[0]["global_pairs_per_sec"] == pytest.approx(2 * lines[0]["value"], rel=1e-3)
+    assert abs(detail[0]["global_pairs_per_sec"] - 2 * lines[0]["value"]) <= 0.15 + 1e-9
