@@ -19,7 +19,7 @@ from torch.utils.checkpoint import checkpoint
 from btia_tpu_torch.core.dtypes import DTypePolicy
 from btia_tpu_torch.ops.fused_attn import fused_dense_attention
 from btia_tpu_torch.ops.norms import layernorm
-from btia_tpu_torch.ops.quant import apply_act, int8_matmul_fused, quantize_weight
+from btia_tpu_torch.ops.quant import apply_act, int8_matmul_nk, int8_matmul_row_parallel, int8_weight
 from btia_tpu_torch.parallel.collectives import copy_to_model, reduce_from_model
 from btia_tpu_torch.parallel.mesh import MODEL_AXIS, axis_size
 
@@ -98,13 +98,14 @@ def _param(*shape, device) -> nn.Parameter:
 
 
 class Dense(nn.Module):
-    """nn.Dense / QuantizableDense: rows flattened to 2-D. The fp path runs
-    the operands and the bias add in the compute dtype. With ``int8`` the
-    product goes through K8 (``int8_matmul_fused``) with ``act`` (None or
-    ``"gelu_tanh"``) in its epilogue; the fp32 kernel is quantized on every
-    call, as the reference does (``layers.py:172-177``). ``reduce``, for a
-    row-parallel product under a model axis, sums the product over the model
-    group before the bias."""
+    """nn.Dense / QuantizableDense: rows flattened to 2-D. ``forward`` runs
+    the operands and the bias add in the compute dtype; ``reduce``, for a
+    row-parallel product under a model axis, sums the product over the
+    model group before the bias. ``int8`` runs the product through K8 with
+    ``act`` (None or ``"gelu_tanh"``) in its epilogue, on the fp32 kernel
+    quantized once per version of it (``int8_weight``): the reference
+    quantizes on every call (``layers.py:172-177``), which gives the same
+    int8 values and scales."""
 
     def __init__(self, in_dim: int, features: int, policy: DTypePolicy, device=None):
         super().__init__()
@@ -112,16 +113,32 @@ class Dense(nn.Module):
         self.kernel = _param(in_dim, features, device=device)
         self.bias = _param(features, device=device)
 
-    def forward(self, x: torch.Tensor, int8: bool = False, act: Optional[str] = None,
-                reduce=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, act: Optional[str] = None, reduce=None) -> torch.Tensor:
         cd = self.policy.compute_dtype
         x2 = x.reshape(-1, x.shape[-1]).to(cd)
-        if int8:
-            w_i8, w_scale = quantize_weight(self.kernel)
-            y = int8_matmul_fused(x2, w_i8, w_scale, self.bias.float(), act=act, out_dtype=cd)
+        y = torch.matmul(x2, self.kernel.to(cd))
+        y = apply_act((y if reduce is None else reduce(y)) + self.bias.to(cd), act)
+        return y.reshape(*x.shape[:-1], self.kernel.shape[1])
+
+    def int8(self, x: torch.Tensor, act: Optional[str] = None, x_amax=None, row_amax: bool = False,
+             row_parallel: bool = False):
+        """The int8 product (``int8_matmul_nk``); ``x_amax`` / ``row_amax``
+        pass the rows' amax between an Mlp's two products. ``row_parallel``
+        under a model axis: this rank's rows of the weight, summed over the
+        group (``int8_matmul_row_parallel``, which takes x_amax)."""
+        cd = self.policy.compute_dtype
+        x2 = x.reshape(-1, x.shape[-1]).to(cd)
+        row_parallel = row_parallel and axis_size(MODEL_AXIS) > 1
+        w_nk, w_scale = int8_weight(self.kernel, row_parallel)
+        if row_parallel:
+            if x_amax is None:
+                raise ValueError("a row-parallel int8 product takes its input's row amax (x_amax)")
+            y = apply_act(int8_matmul_row_parallel(x2, x_amax, w_nk, w_scale, self.bias, cd), act)
         else:
-            y = torch.matmul(x2, self.kernel.to(cd))
-            y = apply_act((y if reduce is None else reduce(y)) + self.bias.to(cd), act)
+            y = int8_matmul_nk(x2, w_nk, w_scale, self.bias, act, cd, x_amax=x_amax, row_amax=row_amax)
+        if row_amax:
+            y, amax = y
+            return y.reshape(*x.shape[:-1], self.kernel.shape[1]), amax
         return y.reshape(*x.shape[:-1], self.kernel.shape[1])
 
 
@@ -200,15 +217,22 @@ class Mlp(nn.Module):
 
     Under ``policy.int8`` a deterministic forward (``train`` False) runs both
     products through K8 with the tanh-GELU in fc1's epilogue
-    (``layers.py:228-233``). The branch keys on ``train``, not on ``drop``:
-    a train forward at dropout 0 has no Dropout and stays on the fp path.
+    (``layers.py:228-233``); fc1 also returns its rows' amax, at which fc2
+    quantizes the hidden rows in its GEMM (no quantization pass between
+    them; the same int8 values). The branch keys on ``train``, not on
+    ``drop``: a train forward at dropout 0 has no Dropout and stays on the
+    fp path.
 
     Under a model axis tp > 1 (``ops.fused_mesh``) fc1 holds this rank's
     hidden columns and fc2 its hidden rows (Megatron's column -> row pair):
     the input's gradient sums over the model group, and fc2's product is
-    summed over it before the whole bias. int8 FFNs under tp > 1 are not
-    ported: K8 quantizes each row of its operand, and a shard's rows are
-    not the reference's gathered product (ROADMAP.md)."""
+    summed over it before the whole bias. Under int8 fc1 needs nothing of
+    the group (x is whole on every rank, the weight scales are per output
+    column, the GELU elementwise); fc2 takes each hidden row's amax and
+    each output column's weight scale over the group (max all-reduces) and
+    sums its int32 products there, so an int8 Mlp under tp > 1 gives the
+    one-process result bit for bit, which is what the reference's gathered
+    product computes."""
 
     def __init__(self, dim: int, hidden_dim: int, policy: DTypePolicy, device=None,
                  inner_dropout: bool = False):
@@ -221,11 +245,8 @@ class Mlp(nn.Module):
     def forward(self, x: torch.Tensor, drop: Optional[Dropout] = None,
                 train: bool = False) -> torch.Tensor:
         if self.policy.int8 and not train:
-            if axis_size(MODEL_AXIS) > 1:
-                raise NotImplementedError(
-                    "int8 FFNs under a model axis > 1 are not ported (ROADMAP.md): K8's row "
-                    "quantization over a shard's hidden rows differs from the reference's")
-            return self.fc2(self.fc1(x, int8=True, act="gelu_tanh"), int8=True)
+            h, amax = self.fc1.int8(x, "gelu_tanh", row_amax=True)
+            return self.fc2.int8(h, x_amax=amax, row_parallel=True)
         exact = self.policy.compute_dtype == torch.float32
         h = F.gelu(self.fc1(copy_to_model(x)), approximate="none" if exact else "tanh")
         return self.fc2(maybe_drop(h, drop if self.inner_dropout else None), reduce=reduce_from_model)

@@ -46,7 +46,8 @@ _SIGNATURES = {
     "btia_mha_bhsd": (_P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _I, _F, _I, _P),
     "btia_bicross": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _LLP, _IP, _I, _I, _I, _I, _I, _F, _P),
     "btia_int8_quant_rows": (_P, _P, _P, _I, _I, _P),
-    "btia_int8_gemm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "btia_int8_gemm": (_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "btia_int8_dequant": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "btia_attn_simt": (_PP, _LLP, _IP, _FP, _I, _I, _I, _I, _IP, _P),
     "btia_attn_wide": (_PP, _LLP, _IP, _FP, _I, _I, _I, _I, _IP, _P),
     "btia_gemm_f32": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P),

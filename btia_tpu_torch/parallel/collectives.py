@@ -18,10 +18,12 @@ transpose gives it in the reference:
   the backward passes the (replicated) gradient through.
 
 ``all_reduce_sum`` sums both ways (BatchNorm's statistics over the data
-group). Without a mesh, or on an axis of size 1, each is the identity.
+group). ``all_reduce_max_`` takes the maximum (the row and column amaxes of
+int8 products under a model axis). Without a mesh, or on an axis of size 1,
+each is the identity.
 
 ``stats`` counts the all-reduces this process issued and their bytes, per
-axis; ``reset_stats`` zeroes it.
+axis (sums and maxima alike); ``reset_stats`` zeroes it.
 """
 
 from __future__ import annotations
@@ -45,16 +47,24 @@ def _group(axis: str, mesh: Optional[Mesh]):
     return None if mesh is None else mesh.group(axis)
 
 
-def all_reduce_(t: torch.Tensor, axis: str, mesh: Optional[Mesh] = None) -> torch.Tensor:
-    """Sum `t` (contiguous) over the axis's group, in place; returns it."""
+def all_reduce_(t: torch.Tensor, axis: str, mesh: Optional[Mesh] = None,
+                op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Sum `t` (contiguous) over the axis's group, in place (or reduce it
+    by `op`); returns it."""
     group = _group(axis, mesh)
     if group is None:
         return t
     s = stats.setdefault(axis, {"calls": 0, "bytes": 0})
     s["calls"] += 1
     s["bytes"] += t.numel() * t.element_size()
-    dist.all_reduce(t, group=group)
+    dist.all_reduce(t, op=op, group=group)
     return t
+
+
+def all_reduce_max_(t: torch.Tensor, axis: str, mesh: Optional[Mesh] = None) -> torch.Tensor:
+    """The elementwise maximum of `t` (contiguous) over the axis's group, in
+    place; returns it. Counted in ``stats`` as ``all_reduce_`` counts."""
+    return all_reduce_(t, axis, mesh, dist.ReduceOp.MAX)
 
 
 class _ReduceFromModel(torch.autograd.Function):

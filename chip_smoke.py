@@ -37,8 +37,12 @@ Phases, each fatal on failure:
    tolerances; then K8 (the int8
    FFN product) at the eight FFN shapes of the int8 serve step, each element
    within one bf16 step, its row quantization equal to its twin's, timed
-   whole and by kernel (quantize, GEMM) beside ``torch._int_mm`` on the
-   pre-quantized operands and a bf16 ``torch.matmul``;
+   whole and by kernel (quantize, GEMM), and through the model's road on
+   the weight prepared once (equal to the entry bit for bit), beside
+   ``torch._int_mm`` on the pre-quantized operands and a bf16
+   ``torch.matmul``; the row-parallel road's entries (row amax, quantize at
+   given amaxes, int32 accumulators, the epilogue on them) against their
+   twins at the same shapes;
 2b. the ops API at full width: one run through ``mha(impl="pallas")`` and
    ``mha()`` under ``set_attention_impl("pallas")`` at ViT-L/336
    self-attention, ``mha_bshd``'s long road at D = 96 (the AD head of
@@ -87,7 +91,8 @@ Phases, each fatal on failure:
    ``F.layer_norm`` timed at each;
 4b. the same step on ``streaming_vitl`` with ``model.int8_ffn`` (same
    seeded weights): K1 = 20, K2 = 1, K3 = 24, K8 = 90, the others 0,
-   timed steps and peak memory, logits against the same model on the CPU,
+   timed steps (no weight prepared again after the first step) and peak
+   memory, logits against the same model on the CPU,
    and top-1 agreement with the bf16 model (reported only);
 4c. ``StreamingServer`` over the int8 model (16 x 128, top-5, two decode
    threads) on 40 requests of 1-128 template questions with ingest-size
@@ -185,7 +190,11 @@ Phases, each fatal on failure:
    site on the rank's 6 or 8 heads), the bytes all-reduced a step equal to
    ``p8_reckoned_bytes``, each rank's peak memory and step time beside the
    one-process step's; (8b) ``Predictor(mesh=)`` on that model, a 1-image
-   ``predict`` and ``predict_batch`` against a one-process Predictor; (8c)
+   ``predict`` and ``predict_batch`` against a one-process Predictor; (8d)
+   the same model with ``model.int8_ffn`` under the same mesh, fc2 on K8's
+   row-parallel road: logits within a tenth of the largest of the
+   one-process int8 step's, K1 20 / K2 1 / K3 24 / K8 90 a rank, the bytes
+   all-reduced equal to ``p8_reckoned_bytes``' int8 reckoning; (8c)
    one data-parallel (2, 1) ``vqa_rad_lstm`` train step at 128 rows (64 a
    rank), bf16 and fp32, against the one-process step at 128 within
    ``P8_TRAIN_BOUNDS`` (K1 4 / K4 4 a rank in bf16).
@@ -1048,14 +1057,23 @@ def check_int8_kernel(torch, dev):
     must agree to one bf16 step at its magnitude; a floor of 1e-6 of the
     largest magnitude covers the tanh-GELU's cancelling 1 + tanh(z) (z < -4,
     outputs below 3e-5), where the two f32 tanh differ in the last place.
-    Times: the entry (its wrapper: both kernels and the weight's (N, K)
-    copy), each of its two kernels alone (``quantize_ms``: the row
-    quantization, which must give the twin's xi and sx bit for bit;
-    ``gemm_ms``: the int8 GEMM on the quantized rows and the (N, K) weight),
-    the twin, ``torch._int_mm`` on the pre-quantized operands (the int8
-    product only, the library yardstick) and a bf16 ``torch.matmul``. Then
-    the same at ``INT8_WIDE_K``, where the quantization takes its two-pass
-    kernel."""
+    Times: the ops API's entry (its wrapper: both kernels and the weight's
+    quantization and (N, K) copy), the model's road (``road_ms``:
+    ``int8_matmul_nk`` on the weight prepared once, as an Mlp runs it: at
+    a GELU site (fc1) the row quantization and the GEMM, which also takes
+    the output's row amax; at the others (fc2) the GEMM alone on bf16 x at
+    its rows' amax, quantizing x itself), each of the entry's two kernels
+    alone (``quantize_ms``: the row quantization, which must give the
+    twin's xi and sx bit for bit; ``gemm_ms``: the int8 GEMM on the
+    quantized rows and the (N, K) weight), the twin, ``torch._int_mm`` on
+    the pre-quantized operands (the int8 product only, the library
+    yardstick) and a bf16 ``torch.matmul``. The model's road must give the
+    entry's output bit for bit (so the GEMM's own quantization of bf16 x is
+    the row quantization's, held through the exact integer products), the
+    row amax the twin's; the row-parallel road's GEMM on bf16 x into int32
+    accumulators must give the twin's exactly, and its epilogue on them
+    the twin's within one bf16 step. Then the same at ``INT8_WIDE_K``,
+    where the quantization takes its two-pass kernel."""
     from btia_tpu_torch.ops import quant as Q
 
     g = torch.Generator(device=dev).manual_seed(2)
@@ -1080,10 +1098,29 @@ def check_int8_kernel(torch, dev):
             raise AssertionError(f"K8 {name}: the row quantization differs from its twin")
         del xi_ref, sx_ref
         w_nk = w_i8.t().contiguous()
+        x_amax = Q._row_amax_plain(x)
+        if act is not None:  # fc1: the quantization, the GEMM and the output's row amax
+            road = lambda: Q.int8_matmul_nk(x, w_nk, ws, b, act, row_amax=True)
+            y_road, amax = road()
+            if not torch.equal(amax, Q._row_amax_plain(y_road)):
+                raise AssertionError(f"K8 {name}: the output's row amax differs from its twin")
+            del amax
+        else:  # fc2: the GEMM on bf16 x at its rows' amax
+            road = lambda: Q.int8_matmul_nk(x, w_nk, ws, b, x_amax=x_amax)
+            y_road = road()
+        if not torch.equal(y_road, out):
+            raise AssertionError(f"K8 {name}: the model's road differs from the ops API's entry")
+        acc = Q._int8_gemm_cuda(x, x_amax, w_nk, ws, None, None, torch.int32, a_bf16=True)
+        if not (torch.equal(acc, Q._int8_acc_plain(xi, w_nk))
+                and torch.equal(Q._int8_gemm_cuda(xi, sx, w_nk, ws, None, None, torch.int32), acc)):
+            raise AssertionError(f"K8 {name}: the GEMM's int32 accumulators differ from the twin's")
+        deq_bad = bf16_steps_off(torch, Q._int8_dequant_cuda(acc, x_amax, ws, b, act, torch.bfloat16),
+                                 Q._int8_dequant_plain(acc, x_amax, ws, b, act, torch.bfloat16))
+        if deq_bad:
+            raise AssertionError(f"K8 {name}: {deq_bad} dequantized elements beyond one bf16 step of the twin")
+        del y_road, acc
         diff = (out.float() - ref.float()).abs()
-        mag = ref.float().abs()
-        step = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - 7)
-        bad = int((diff > step + 1e-6 * mag.max()).sum())
+        bad = bf16_steps_off(torch, out, ref)
         x_i8 = Q.quantize_activation(x)[0]
         w_col = w_i8.t().contiguous().t()  # (K, N), column-major
         try:
@@ -1096,7 +1133,7 @@ def check_int8_kernel(torch, dev):
         row = {
             "shape": [M, K, N], "act": act, "launches_per_step": per_step,
             "max_abs_err": diff.max().item(), "elements_off": bad,
-            "ms": cuda_time_ms(kernel, 10), "plain_ms": cuda_time_ms(plain, 3),
+            "ms": cuda_time_ms(kernel, 10), "road_ms": cuda_time_ms(road, 10), "plain_ms": cuda_time_ms(plain, 3),
             "quantize_ms": cuda_time_ms(lambda: Q._quantize_rows_cuda(x), 10),
             "gemm_ms": cuda_time_ms(
                 lambda: Q._int8_gemm_cuda(xi, sx, w_nk, ws, b, act, torch.bfloat16), 10),
@@ -1111,7 +1148,8 @@ def check_int8_kernel(torch, dev):
         row["quantize_bound_ms"] = bound_ms(0, nbytes(x, xi, sx))[0]
         row["gemm_bound_ms"] = bound_ms(2 * M * K * N, nbytes(xi, sx, w_nk, ws, b) + M * N * 2, PEAK_INT8_OPS)[0]
         log(f"  K8 {name} ({M} x {K} -> {N}, {act}): err {row['max_abs_err']:.4g}, {bad} elements "
-            f"beyond one bf16 step; entry {row['ms']:.4f} ms (quantize {row['quantize_ms']:.4f}, "
+            f"beyond one bf16 step; entry {row['ms']:.4f} ms, model's road {row['road_ms']:.4f} ms (quantize "
+            f"{row['quantize_ms']:.4f}, "
             f"GEMM {row['gemm_ms']:.4f}), plain {row['plain_ms']:.4f} ms, "
             f"_int_mm {row['library_ms']}, bf16 matmul {row['bf16_matmul_ms']:.4f} ms, "
             f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; quantize "
@@ -1119,10 +1157,19 @@ def check_int8_kernel(torch, dev):
         if bad:
             raise AssertionError(f"K8 {name}: {bad} elements disagree with the plain twin")
         rows[name] = row
-        del x, w, out, ref, diff, mag, step, x_i8, w_col, w_bf, xi, sx, w_nk
+        del x, w, out, ref, diff, x_i8, w_col, w_bf, xi, sx, w_nk, x_amax
     Q.int8_matmul_fused.launches = launches_before  # not main-path launches
     torch.cuda.empty_cache()
     return rows
+
+
+def bf16_steps_off(torch, out, ref) -> int:
+    """Elements of `out` beyond one bf16 step of `ref` at its magnitude, with
+    a floor of 1e-6 of the largest magnitude (``check_int8_kernel``)."""
+    diff = (out.float() - ref.float()).abs()
+    mag = ref.float().abs()
+    step = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - 7)
+    return int((diff > step + 1e-6 * mag.max()).sum())
 
 
 def _question_mask(torch, dev, g, n, s):
@@ -1857,12 +1904,14 @@ def int8_serve_phase(torch, dev, smi, bf16_model, host_imgs, host_qids, counters
     """Phase 4b: full-width streaming_vitl with int8_ffn, the same seeded
     weights as the bf16 model: one 16 x 128 step with every counter set to
     0 just before and read just after (K1 20, K2 1, K3 24, K8 90, the others 0),
-    timed steps, logits against the same model on the CPU, and top-1
+    timed steps (which must prepare no weight again: ``prepare_once.builds``
+    unchanged), logits against the same model on the CPU, and top-1
     agreement with the bf16 model (reported, not held)."""
     import numpy as np
 
     from btia_tpu_torch.configs import get_config
     from btia_tpu_torch.models.model import build_model
+    from btia_tpu_torch.ops import fused_attn as FA
     from btia_tpu_torch.ops.answers import argmax_real
 
     cfg = get_config("streaming_vitl", **{"model.int8_ffn": True})
@@ -1881,6 +1930,9 @@ def int8_serve_phase(torch, dev, smi, bf16_model, host_imgs, host_qids, counters
         raise AssertionError(f"int8 serve-step launch counts {counts} != {INT8_COUNTS}")
     if vals.shape != (B_IMG, N_Q, 5) or not np.isfinite(vals).all():
         raise AssertionError("int8 serve step: bad top-k")
+    # The first step prepared every weight (K8's 90 int8 weights among them);
+    # the timed steps prepare nothing again.
+    builds = FA.prepare_once.builds
     step(1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1889,6 +1941,9 @@ def int8_serve_phase(torch, dev, smi, bf16_model, host_imgs, host_qids, counters
         step(i)
     torch.cuda.synchronize()
     step_ms = 1e3 * (time.perf_counter() - t0) / TIMED_STEPS
+    rebuilt = FA.prepare_once.builds - builds
+    if rebuilt:
+        raise AssertionError(f"int8 serve steps after the first prepared {rebuilt} weight sets again")
     peak = torch.cuda.max_memory_allocated() / 2**30
     if "--profile" in sys.argv[1:]:
         profile_step(torch, lambda: step(0), smi, "int8_serve_step")
@@ -1909,6 +1964,7 @@ def int8_serve_phase(torch, dev, smi, bf16_model, host_imgs, host_qids, counters
         "config": "streaming_vitl + model.int8_ffn", "images": B_IMG, "questions_per_image": N_Q,
         "steps": TIMED_STEPS, "ms_per_step": step_ms, "pairs_per_s": B_IMG * N_Q / (step_ms / 1e3),
         "peak_mem_gib": peak, "launches": dict(zip(KERNELS, counts)),
+        "weight_sets_prepared_in_timed_steps": rebuilt,
         "top1_agreement_with_bf16": agree, "card_vs_cpu_max_abs_err": err,
         "card_vs_cpu_max_logit": scale, "card": smi,
     }
@@ -3052,6 +3108,8 @@ P8_CAVEAT = ("two ranks time-share one H100 and all-reduce through the host (glo
 # Per rank of streaming_vitl's (1, 2) mesh at 4 x 64: BERT's 12 and BTIA's
 # 8 K1 sites, the AD head's K2 and ViT-L's 24 blocks on K3 (8 of 16 heads).
 P8_SERVE_COUNTS = [20, 1, 24, 0, 0, 0, 0, 0, 0, 0, 0]
+# ... and with int8 FFNs: K8 on each of the 45 Mlps' two products a rank.
+P8_INT8_COUNTS = [20, 1, 24, 0, 0, 0, 0, 90, 0, 0, 0]
 # Per rank of the (2, 1) vqa_rad_lstm step at 64 rows: 4 K1 sites, K4 in
 # the backward of each.
 P8_TRAIN_COUNTS = [4, 0, 0, 4, 0, 0, 0, 0, 0, 0, 0]
@@ -3071,19 +3129,24 @@ P8_TRAIN_BOUNDS = {
 
 def p8_reckoned_bytes(cfg, B, Q):
     """The all-reduced bytes of one (1, 2) serve step as reckoned by hand:
-    each row-parallel product sums its rows x Dout bf16 partials once."""
+    each row-parallel product sums its rows x Dout bf16 partials once. With
+    ``model.int8_ffn`` each fc2 instead takes the maximum of its rows' f32
+    amaxes and sums its rows x Dout int32 partials (K8's row-parallel road);
+    its weight's column amaxes are all-reduced when the weight is prepared,
+    in the first step only."""
     from btia_tpu_torch.models.vit import VIT_SPECS
 
     m = cfg.model
     vit = VIT_SPECS[m.image_encoder]
     txt, img, head = B * Q * m.max_question_len, B * Q * (m.image_pool_grid ** 2 + 1), B * Q * m.num_answer_queries
-    rows_x_dout = (
-        vit.depth * 2 * B * vit.num_tokens * vit.dim  # o_proj, fc2 of each ViT block
-        + m.bert_layers * 2 * txt * m.bert_hidden  # o_proj, fc2 of each BERT layer
-        + m.btia_layers * 2 * (img + txt) * m.hidden_dim  # i2t / t2i o_proj and both fc2
-        + 2 * head * m.hidden_dim  # the AD head's o_proj and fc2
-    )
-    return 2 * rows_x_dout
+    # (rows, Dout) of the o_proj and of the fc2 of each block: ViT's, BERT's,
+    # BTIA's (i2t / t2i o_proj, both Mlps) and the AD head's.
+    sites = ([(vit.depth * B * vit.num_tokens, vit.dim), (m.bert_layers * txt, m.bert_hidden),
+              (m.btia_layers * (img + txt), m.hidden_dim), (head, m.hidden_dim)])
+    o_proj = sum(2 * rows * dout for rows, dout in sites)
+    if not m.int8_ffn:
+        return 2 * o_proj
+    return o_proj + sum(4 * rows * dout + 4 * rows for rows, dout in sites)
 
 
 def _p8_rank_serve(torch, dev, mesh, tmp):
@@ -3129,6 +3192,26 @@ def _p8_rank_serve(torch, dev, mesh, tmp):
     out["predict"] = pred.predict(inp["image"], corpus[0])
     out["predict_answers"] = pred.predict_answers(inp["image"], corpus)
     out["predict_counts"] = _counts(counters)
+    # 8d: the same seeded weights with int8 FFNs under the same mesh.
+    del pred, model, serve
+    torch.cuda.empty_cache()
+    cfg8 = get_config("streaming_vitl", **{"model.int8_ffn": True})
+    model8 = build_model(cfg8.model, device=dev, seed=0)
+    shard_serving_params(model8, mesh)
+    serve8 = make_sharded_serve_fn(model8, mesh)
+    serve8(imgs, qids)  # the first step prepares the weights (and all-reduces fc2's column amaxes)
+    torch.cuda.synchronize()
+    _zero(counters)
+    C.reset_stats()
+    logits8 = serve8(imgs, qids)
+    torch.cuda.synchronize()
+    out["int8"] = {"counts": _counts(counters), "reduced": {a: dict(s) for a, s in C.stats.items()},
+                   "logits": logits8.float().cpu()}
+    t0 = time.perf_counter()
+    for _ in range(P8_TIMED):
+        serve8(imgs, qids)
+    torch.cuda.synchronize()
+    out["int8"]["ms_per_step"] = 1e3 * (time.perf_counter() - t0) / P8_TIMED
     return out
 
 
@@ -3280,6 +3363,10 @@ def mesh_phase(torch, dev, smi):
     beside the reckoning of ``p8_reckoned_bytes``, each rank's peak memory
     beside the one-process step's, the step time. 8b: Predictor(mesh=) on
     that model, predict_batch / predict against one-process Predictor's.
+    8d: the same seeded weights with int8 FFNs under the same mesh (in the
+    same ranks, after 8b) against the one-process int8 step on the card:
+    logits within a tenth of the largest, K1 20 / K2 1 / K3 24 / K8 90 a
+    rank, the bytes all-reduced a step equal to ``p8_reckoned_bytes``.
     8c: one DP (2, 1) vqa_rad_lstm train step at a global batch of 128 (64 a
     rank) against the one-process step at 128, at dropout 0, bf16 and fp32:
     loss, global norm, the applied gradients and BatchNorm statistics within
@@ -3324,7 +3411,13 @@ def mesh_phase(torch, dev, smi):
         one_peak = (torch.cuda.max_memory_allocated() - held) / 2**30
     pred = Predictor(model, None, WordPieceTokenizer.toy_vocab(corpus), AnswerVocab(inp["answers"]), cfg, device=dev)
     ref_batch = pred.predict_batch(inp["image"], corpus)
-    del pred, model, imgs, qids
+    del pred, model
+    torch.cuda.empty_cache()
+    cfg8 = get_config("streaming_vitl", **{"model.int8_ffn": True})
+    model8 = build_model(cfg8.model, device=dev, seed=0)
+    with torch.inference_mode():
+        ref8 = model8.answer_questions(model8.encode_image(imgs), qids).float().cpu()
+    del model8, imgs, qids
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="chip_smoke_p8_") as tmp:
         tmp = Path(tmp)
@@ -3367,6 +3460,26 @@ def mesh_phase(torch, dev, smi):
             if not (b_err <= 0.1 * bscale and p_err <= 0.1 * bscale and len(o["predict_answers"]) == len(corpus)):
                 raise AssertionError(f"phase 8b rank {r}: Predictor(mesh=) disagrees: {b_err}, {p_err}")
         res["serve"] = serve
+        # 8d: int8 FFNs under the same mesh against the one-process int8 step.
+        reckoned8 = p8_reckoned_bytes(cfg8, P8_IMAGES, P8_QUESTIONS)
+        scale8 = ref8.abs().max().item()
+        int8 = {"max_abs_logit": scale8, "reckoned_bytes_per_step": reckoned8, "ranks": []}
+        for r, o in enumerate(x["int8"] for x in ranks):
+            err = (o["logits"] - ref8).abs().max().item()
+            reduced = o["reduced"].get("model", {"calls": 0, "bytes": 0})
+            int8["ranks"].append({"rank": r, "max_abs_err": err, "counts": dict(zip(KERNELS + NEW_KERNELS, o["counts"])),
+                                  "all_reduce_calls": reduced["calls"], "all_reduced_bytes": reduced["bytes"],
+                                  "ms_per_step": o["ms_per_step"]})
+            log(f"  8d rank {r}: int8 logits vs one process max abs err {err:.4g} (max |logit| {scale8:.4g}); "
+                f"launched {o['counts']}; all-reduced {reduced['bytes']} B in {reduced['calls']} calls (reckoned "
+                f"{reckoned8} B); {o['ms_per_step']:.1f} ms a step ({P8_CAVEAT})")
+            if o["counts"] != P8_INT8_COUNTS:
+                raise AssertionError(f"phase 8d rank {r}: launch counts {o['counts']} != {P8_INT8_COUNTS}")
+            if not (np.isfinite(o["logits"].numpy()).all() and err <= 0.1 * scale8):
+                raise AssertionError(f"phase 8d rank {r}: int8 logits disagree with one process: {err} > {0.1 * scale8}")
+            if reduced["bytes"] != reckoned8:
+                raise AssertionError(f"phase 8d rank {r}: all-reduced {reduced['bytes']} B != reckoned {reckoned8}")
+        res["int8"] = int8
         # 8c: the DP train step.
         one = p8_train_steps(torch, dev)
         t0 = time.perf_counter()
@@ -3699,10 +3812,12 @@ def main() -> int:
         "name": "int8_matmul_fused", "route": "cuda", "source": "btia_tpu_torch/csrc/int8_mm.cu",
         "replaces": "btia_tpu/ops/quant.py:87", "launches": sum(by_path[7].values()),
         "launches_by_path": by_path[7], "max_abs_err": max(x["max_abs_err"] for x in int8_rows.values()),
-        "ms": r["ms"], "quantize_ms": r["quantize_ms"], "gemm_ms": r["gemm_ms"], "plain_ms": r["plain_ms"],
+        "ms": r["ms"], "road_ms": r["road_ms"], "quantize_ms": r["quantize_ms"], "gemm_ms": r["gemm_ms"],
+        "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": r["library_ms"], "library": r["library"], "bf16_matmul_ms": r["bf16_matmul_ms"],
         "ms_per_step": sum(x["ms"] * x["launches_per_step"] for x in int8_rows.values()),
+        "road_ms_per_step": sum(x["road_ms"] * x["launches_per_step"] for x in int8_rows.values()),
         "bound_ms_per_step": sum(x["bound_ms"] * x["launches_per_step"] for x in int8_rows.values()),
         "sites": int8_rows,
     })

@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """Time the port's K3, K4, K5, K6, K1/K2's attention core and projection
-GEMM, the f32 attention and GEMM and the wide-head attention against
+GEMM, the f32 attention and GEMM, the wide-head attention and K8 against
 another checkout's on one card, in turns.
 
     git archive <commit> btia_tpu_torch | tar -x -C runs/parent
     python3 compare_kernels.py runs/parent [groups]
 
-groups: a comma-separated subset of k3, k5, k4, k6, core, gemm, f32, wide and
-gemm_f32 (default: all).
+groups: a comma-separated subset of k3, k5, k4, k6, core, gemm, f32, wide,
+gemm_f32 and k8 (default: all).
 
 Builds both checkouts' kernel libraries (each from its own
 ``btia_tpu_torch/csrc``), then runs each kernel's C entry at the shapes of
@@ -35,8 +35,21 @@ K6's two directions), the wide-head attention (``btia_attn_wide``) at its
 bf16 shapes against the other checkout's ``btia_attn_simt`` in its bf16
 instance (``elem`` 1) where that checkout has no wide entry, and the f32
 GEMM (``btia_gemm_f32``) at phase 2c's six sites, each entry called with
-its own checkout's C signature. Inputs are random from a seed; the card's
-name and power limit are printed first. Needs one CUDA card and ``nvcc``.
+its own checkout's C signature. K8 (``k8``) runs at ``chip_smoke.py``'s
+eight ``INT8_SITES`` and ``INT8_WIDE_K``: each checkout's row quantization
+and int8 GEMM entries (``btia_int8_quant_rows`` + ``btia_int8_gemm``, each
+with its own C signature) on the same bf16 x and (N, K) int8 weight, its
+GEMM alone on the quantized rows, and this tree's model road (fc1: the
+quantization and the GEMM that also takes the output's row amax; fc2: the
+GEMM alone on bf16 x, which it quantizes; its output must equal the
+entries'), in turns with two yardsticks timed only (parent, this,
+``_int_mm``, bf16 ``addmm``, ``addmm``, ``_int_mm``, this, parent):
+``torch._int_mm`` on the pre-quantized operands (the int8 product alone)
+and bf16 ``torch.addmm`` of the same product with its bias (the path int8
+replaces); each line gives the bound and each time's share of it, and the
+last the 90 launches' sums weighted by ``launches_per_step``. Inputs are
+random from a seed; the card's name and power limit are printed first.
+Needs one CUDA card and ``nvcc``.
 """
 
 from __future__ import annotations
@@ -79,7 +92,7 @@ def load_native(root: Path, name: str):
     return mod
 
 
-GROUPS = ("k3", "k5", "k4", "k6", "core", "gemm", "f32", "wide", "gemm_f32")
+GROUPS = ("k3", "k5", "k4", "k6", "core", "gemm", "f32", "wide", "gemm_f32", "k8")
 
 
 def main() -> int:
@@ -295,6 +308,8 @@ def main() -> int:
         del q, kv, m, mf
 
     compare_f32_and_wide(torch, libs, turns, dev, g, stream, groups)
+    if "k8" in groups:
+        compare_k8(torch, libs, time_ms, dev, g, stream)
 
     per_step = {}
     for name, M, K, N, rr, launches in (cs.GEMM_SITES + cs.GEMM_TRAIN_SITES) if "gemm" in groups else ():
@@ -432,6 +447,104 @@ def compare_f32_and_wide(torch, libs, turns, dev, g, stream, groups):
 
         turns(f"f32 GEMM {name} {M} x {K} -> {N} (block tile {GEMM_F32_TILES[gemm_f32_tile(M, N)]})", gemm)
         del a, w, b, res
+
+
+def compare_k8(torch, libs, time_ms, dev, g, stream):
+    """K8 at the int8 serve step's eight FFN sites and at INT8_WIDE_K: the
+    parent's entries (quantize + GEMM, and the GEMM alone), this tree's
+    model road (at a GELU site the quantization and the GEMM that also
+    takes the output's row amax; at the others the GEMM alone on bf16 x at
+    its rows' amax) and its entries as the ops API runs them (quantize +
+    GEMM), ``_int_mm`` and bf16 ``addmm`` in turns; the sums weighted by
+    launches a step."""
+    import chip_smoke as cs
+    from btia_tpu_torch.ops import quant as Q
+
+    bf = torch.bfloat16
+    names = ("parent", "this", "parent_gemm", "this_gemm", "this_road", "int_mm", "addmm")
+    total = {k: 0.0 for k in names + ("bound",)}
+    launches = 0
+    for name, M, K, N, act, per_step in cs.INT8_SITES + (cs.INT8_WIDE_K,):
+        x = (torch.randn(M, K, generator=g, device=dev) * 2).to(bf)
+        w = torch.randn(K, N, generator=g, device=dev) * K**-0.5
+        b = torch.randn(N, generator=g, device=dev) * 0.02
+        w_i8, ws = Q.quantize_weight(w)
+        w_nk = w_i8.t().contiguous()
+        xi, sx = Q._quantize_rows_plain(x)
+        x_amax = Q._row_amax_plain(x)
+        act_i = Q.ACTS.index(act)
+        _, grid = Q.int8_plan(M, N)
+
+        def entry(lib, mode):
+            """mode: "pair" (quantize + GEMM), "gemm" (the GEMM on xi) or
+            "road" (this tree's model road)."""
+            y = torch.empty(M, N, dtype=bf, device=dev)
+            qi, qs = torch.empty(M, K, dtype=torch.int8, device=dev), torch.empty(M, dtype=torch.float32, device=dev)
+            amax = torch.zeros(M, dtype=torch.float32, device=dev)
+            earlier = len(lib.btia_int8_gemm.argtypes) == 12  # the parent's C signature
+
+            def gemm(a, scale, a_bf16=0, row_amax=None):
+                if earlier:
+                    return lib.btia_int8_gemm(a.data_ptr(), scale.data_ptr(), w_nk.data_ptr(), ws.data_ptr(),
+                                              b.data_ptr(), y.data_ptr(), M, N, K, act_i, 0, stream)
+                return lib.btia_int8_gemm(a.data_ptr(), scale.data_ptr(), a_bf16, w_nk.data_ptr(), ws.data_ptr(),
+                                          b.data_ptr(), y.data_ptr(), row_amax, M, N, K, act_i, 0, grid, stream)
+
+            quant = lambda: lib.btia_int8_quant_rows(x.data_ptr(), qi.data_ptr(), qs.data_ptr(), M, K, stream)
+            if mode == "gemm":
+                return (lambda: gemm(xi, sx)), y
+            if mode == "pair":
+                return (lambda: quant() or gemm(qi, qs)), y
+            if act is None:
+                return (lambda: gemm(x, x_amax, 1)), y
+
+            def road():
+                amax.zero_()
+                return quant() or gemm(qi, qs, 0, amax.data_ptr())
+
+            return road, y
+
+        w_col = w_nk.t()  # (K, N), column-major: _int_mm's layout for B
+        w_bf, b_bf = w.to(bf), b.to(bf)
+        yard = {"int_mm": lambda: torch._int_mm(xi, w_col), "addmm": lambda: torch.addmm(b_bf, x, w_bf)}
+        times = {k: [] for k in names}
+        outs = {}
+        for who in ("parent", "this", "int_mm", "addmm", "addmm", "int_mm", "this", "parent"):
+            if who in yard:
+                times[who].append(time_ms(yard[who], 10))
+                continue
+            for mode in ("pair", "gemm") + (("road",) if who == "this" else ()):
+                launch, out = entry(libs[who], mode)
+                code = launch()
+                torch.cuda.synchronize()
+                if code != 0:
+                    raise RuntimeError(f"K8 {name}: the {who} kernels ({mode}) returned CUDA error {code}")
+                outs[f"{who}_{mode}"] = out.float()
+                times[who + {"pair": "", "gemm": "_gemm", "road": "_road"}[mode]].append(time_ms(launch, 10))
+        ref = Q._int8_mm_plain(x, w_i8, ws, b, act, bf).float()
+        diff = {k: (v - ref).abs().max().item() for k, v in outs.items()}
+        if not torch.equal(outs["this_road"], outs["this_pair"]):
+            raise RuntimeError(f"K8 {name}: this tree's model road differs from its quantize + GEMM")
+        b_ms, by = cs.bound_ms(2 * M * K * N, 2 * x.numel() + w_i8.numel() + 8 * N + 2 * M * N, cs.PEAK_INT8_OPS)
+        best = {k: min(v) for k, v in times.items()}
+        fmt = lambda k: [round(t, 4) for t in times[k]]
+        print(f"K8 {name} {M} x {K} -> {N}{', GELU' if act else ''} (grid {grid}): quantize + GEMM parent "
+              f"{fmt('parent')} ms, this tree {fmt('this')} ms; GEMM alone parent {fmt('parent_gemm')}, this tree "
+              f"{fmt('this_gemm')}; this tree's model road {fmt('this_road')}; _int_mm {fmt('int_mm')}, bf16 addmm "
+              f"{fmt('addmm')}; bound {b_ms:.4f} ms ({by}; share parent {b_ms / best['parent']:.3f}, this tree's "
+              f"road {b_ms / best['this_road']:.3f}); max |y - twin| parent {diff['parent_pair']:.3g}, this "
+              f"{diff['this_pair']:.3g}", flush=True)
+        if per_step:
+            for k in names:
+                total[k] += per_step * best[k]
+            total["bound"] += per_step * b_ms
+            launches += per_step
+        del x, w, b, w_i8, ws, w_nk, xi, sx, x_amax, w_col, w_bf, b_bf, outs
+        torch.cuda.empty_cache()
+    print(f"K8 per int8 serve step ({launches} launches, the better turn of each site): quantize + GEMM parent "
+          f"{total['parent']:.3f} ms, this tree {total['this']:.3f} ms; GEMM alone parent {total['parent_gemm']:.3f}, "
+          f"this tree {total['this_gemm']:.3f}; this tree's model road {total['this_road']:.3f}; _int_mm "
+          f"{total['int_mm']:.3f}; bf16 addmm {total['addmm']:.3f}; bound {total['bound']:.3f}", flush=True)
 
 
 if __name__ == "__main__":

@@ -85,3 +85,137 @@ def test_cuda_halves_check_their_shapes():
         Q._int8_mm_cuda(torch.zeros(4, 48, dtype=torch.bfloat16), torch.zeros(32, 8, dtype=torch.int8),
                         torch.ones(8), None, None, torch.bfloat16)
     assert Q.int8_matmul_fused.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# The weight prepared once per version, the model's road, the row-parallel
+# road's halves and the GEMM's persistent plan.
+
+
+def _kernel(K, N, seed):
+    rng = np.random.RandomState(seed)
+    return torch.nn.Parameter(torch.from_numpy(rng.randn(K, N).astype(np.float32) * K**-0.5))
+
+
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_prepared_weight_is_quantize_weight_transposed(name):
+    """``int8_weight`` gives ``quantize_weight``'s int8 values in K8's (N, K)
+    layout and its scales, bit for bit."""
+    M, K, N, act = SHAPES[name]
+    w = _kernel(K, N, len(name))
+    w_nk, ws = Q.int8_weight(w)
+    w_i8, scale = Q.quantize_weight(w)
+    assert w_nk.dtype == torch.int8 and w_nk.shape == (N, K) and w_nk.is_contiguous()
+    assert torch.equal(w_nk, w_i8.t()) and torch.equal(ws, scale)
+
+
+def test_weight_is_prepared_once_per_version():
+    """A second call prepares nothing and returns the same tensors; an
+    in-place update of the kernel (an optimizer step, ``load_state_dict``)
+    prepares it again, with the new values."""
+    from btia_tpu_torch.ops.fused_attn import prepare_once
+
+    w = _kernel(64, 32, 1)
+    builds = prepare_once.builds
+    first = Q.int8_weight(w)
+    assert prepare_once.builds == builds + 1
+    again = Q.int8_weight(w)
+    assert all(a is b for a, b in zip(again, first)) and prepare_once.builds == builds + 1
+    with torch.no_grad():
+        w.mul_(2)
+    moved = Q.int8_weight(w)
+    assert prepare_once.builds == builds + 2
+    assert torch.equal(moved[0], Q.quantize_weight(w)[0].t()) and torch.equal(moved[1], Q.quantize_weight(w)[1])
+
+
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_models_road_equals_the_ops_api(name, out):
+    """``int8_matmul_nk`` on the prepared weight and ``Dense.int8`` equal
+    ``int8_matmul_fused`` (per-call quantization) bit for bit."""
+    from btia_tpu_torch.core.dtypes import DTypePolicy
+    from btia_tpu_torch.models.layers import Dense
+
+    M, K, N, act = SHAPES[name]
+    x, _, _, b = _operands(M, K, N, seed=len(name) + 1)
+    w = _kernel(K, N, len(name) + 2)
+    want = Q.int8_matmul_fused(x, *Q.quantize_weight(w), b, act=act, out_dtype=out)
+    assert torch.equal(Q.int8_matmul_nk(x, *Q.int8_weight(w), b, act=act, out_dtype=out), want)
+    dense = Dense(K, N, DTypePolicy(compute_dtype=out, param_dtype=torch.float32))
+    with torch.no_grad():
+        dense.kernel.copy_(w)
+        dense.bias.copy_(b)
+        assert torch.equal(dense.int8(x.to(out), act), Q.int8_matmul_fused(
+            x.to(out), *Q.quantize_weight(w), b, act=act, out_dtype=out))
+
+
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("name", sorted(SHAPES))
+def test_row_parallel_halves_compose_to_the_whole(name, out):
+    """The row-parallel road's twins (the rows' amax, the quantization at
+    given amaxes, int32 accumulators, the epilogue on them at the amaxes'
+    scales) compose to ``_int8_mm_plain`` exactly; quantizing at a larger
+    amax than the row's own (a shard's row under the group's maximum) stays
+    in int8."""
+    M, K, N, act = SHAPES[name]
+    x, w_i8, ws, b = _operands(M, K, N, seed=len(name) + 3)
+    amax = Q._row_amax_plain(x)
+    assert amax.dtype == torch.float32 and amax.shape == (M,)
+    xi, sx = Q._quantize_rows_at_plain(x, amax)
+    assert torch.equal(xi, Q._quantize_rows_plain(x)[0]) and torch.equal(sx, Q._quantize_rows_plain(x)[1])
+    acc = Q._int8_acc_plain(xi, w_i8.t())
+    assert acc.dtype == torch.int32
+    assert torch.equal(Q._int8_dequant_plain(acc, amax, ws, b, act, out), Q._int8_mm_plain(x, w_i8, ws, b, act, out))
+    wide, _ = Q._quantize_rows_at_plain(x, amax * 3)
+    assert int(wide.abs().max()) <= 43
+
+
+@pytest.mark.parametrize("name", ["vit_fc1", "txt_fc1", "head_fc1", "ragged"])
+def test_mlp_pair_without_a_quantization_pass(name):
+    """An Mlp's two products on the model's road: fc1 also returns its
+    output's row amax (``row_amax``), and fc2 quantizes its bf16 input at
+    that amax (``x_amax``); the pair equals two calls of the ops API's
+    entry bit for bit, as does an int8 ``Mlp``."""
+    from btia_tpu_torch.core.dtypes import DTypePolicy
+    from btia_tpu_torch.models.layers import Mlp
+
+    M, K, H, _ = SHAPES[name]
+    x, _, _, _ = _operands(M, K, H, seed=len(name) + 4)
+    w1, w2 = _kernel(K, H, 5), _kernel(H, K, 6)
+    rng = np.random.RandomState(7)
+    b1, b2 = (torch.from_numpy(rng.randn(n).astype(np.float32) * 0.02) for n in (H, K))
+    h, amax = Q.int8_matmul_nk(x, *Q.int8_weight(w1), b1, "gelu_tanh", row_amax=True)
+    want_h = Q.int8_matmul_fused(x, *Q.quantize_weight(w1), b1, act="gelu_tanh")
+    assert torch.equal(h, want_h) and torch.equal(amax, want_h.float().abs().amax(-1))
+    want = Q.int8_matmul_fused(want_h, *Q.quantize_weight(w2), b2)
+    assert torch.equal(Q.int8_matmul_nk(h, *Q.int8_weight(w2), b2, x_amax=amax), want)
+    mlp = Mlp(K, H, DTypePolicy(int8=True))
+    with torch.no_grad():
+        for t, v in ((mlp.fc1.kernel, w1), (mlp.fc1.bias, b1), (mlp.fc2.kernel, w2), (mlp.fc2.bias, b2)):
+            t.copy_(v)
+        assert torch.equal(mlp(x), want)
+    with pytest.raises(ValueError, match="row_amax"):
+        Q.int8_matmul_nk(x, *Q.int8_weight(w1), b1, None, row_amax=True)
+    with pytest.raises(ValueError, match="x_amax"):
+        Q.int8_matmul_nk(h, *Q.int8_weight(w2), b2, "gelu_tanh", x_amax=amax)
+
+
+@pytest.mark.parametrize("M,N", [(1, 1), (128, 256), (129, 257), (9232, 4096), (65536, 768), (131072, 1536)])
+def test_int8_plan_covers_every_tile_once(M, N):
+    """The persistent GEMM's walk: block b takes tiles b + j * grid while
+    they exist; every 128 x 256 tile is taken once, and no block is
+    launched without one."""
+    tiles, grid = Q.int8_plan(M, N)
+    assert tiles == -(-M // 128) * -(-N // 256) and 1 <= grid <= min(tiles, Q.H100_SMS)
+    taken = sorted(b + j * grid for b in range(grid) for j in range(tiles) if b + j * grid < tiles)
+    assert taken == list(range(tiles))
+
+
+def test_row_parallel_without_a_mesh_is_the_one_process_product():
+    """``int8_matmul_row_parallel`` with no model group: the all-reduces are
+    the identity, so it is the plain product at the given amaxes; the CPU
+    twins count no launch."""
+    x, w_i8, ws, b = _operands(40, 96, 48, seed=7)
+    got = Q.int8_matmul_row_parallel(x, Q._row_amax_plain(x), w_i8.t().contiguous(), ws, b)
+    assert torch.equal(got, Q._int8_mm_plain(x, w_i8, ws, b, None, torch.bfloat16))
+    assert Q.int8_matmul_fused.launches == 0

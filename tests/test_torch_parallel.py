@@ -8,7 +8,7 @@ package's, and a ``Trainer`` that reads ``cfg.mesh``.
   "a.b.c"), and on a small mlp-head tree, where the one leaf that differs
   is named with its reason;
 * the slicing helpers, the errors of a model axis that does not divide a
-  width, ``fused_mesh``'s no-op cases and the int8 refusal under TP;
+  width, ``fused_mesh``'s no-op cases, int8 FFNs under TP against one process;
 * ``Trainer`` under ``streaming_vitl``'s registered mesh (data -1, model 2),
   and under (data 2, model 1), as two CPU ranks on gloo
   (``tests/torch_mesh_worker.py``): one epoch on a synthetic VQA-Med corpus
@@ -188,14 +188,71 @@ def test_fused_mesh_none_and_one_rank_are_no_ops():
     assert active_mesh() is None
 
 
-def test_int8_ffn_under_a_model_axis_is_refused():
-    cfg = get_config("streaming_vitl", **SMALL, **{"model.int8_ffn": True})
+INT8 = {**SMALL, "model.int8_ffn": True, "model.mixed_precision": True}
+
+
+@pytest.fixture(scope="module")
+def int8_run(tmp_path_factory):
+    """A small streaming_vitl with int8 FFNs (bf16) under (1, 2), two gloo
+    ranks: an Mlp alone and the sharded serve (``scenario_int8``)."""
+    root = tmp_path_factory.mktemp("int8_mesh")
+    rng = np.random.RandomState(14)
+    ids = np.zeros((2, 32, 32), np.int64)
+    ids[..., :6] = rng.randint(1, 500, (2, 32, 6))
+    inputs = {"config": "streaming_vitl", "overrides": INT8,
+              "mlp_x": (rng.randn(2, 40, 128) * 2).astype(np.float32),
+              "images": rng.randint(0, 256, (2, 96, 96, 3)).astype(np.uint8), "qids": ids}
+    torch.save(inputs, root / "inputs.pt")
+    return inputs, spawn("int8", 1, 2, root)
+
+
+def test_int8_mlp_under_a_model_axis_is_the_one_process_mlp(int8_run):
+    """An int8 Mlp under (1, 2) (fc1 column-parallel, fc2 row-parallel on
+    K8's row-parallel road) equals the one-process int8 Mlp bit for bit:
+    fc1's columns are exact on a shard, fc2's row and column scales are the
+    group's maxima, and its int32 partial products are summed exactly before
+    the epilogue, so tolerance 0. The first call all-reduces fc2's column
+    amaxes (its weight is prepared once), and every call its 80 rows'
+    amaxes (f32) and int32 partials."""
+    inputs, ranks = int8_run
+    cfg = get_config("streaming_vitl", **INT8)
     model = build_model(cfg.model, device="cpu")
-    x = torch.zeros(1, 3, 128, dtype=torch.bfloat16)
+    assert model.policy.int8
     mlp = model.btia.layer0.mlp_img
-    with use_mesh(Mesh(1, 2)), pytest.raises(NotImplementedError, match="ROADMAP"):
-        mlp(x)
-    assert mlp(x).shape == x.shape  # one device: K8's twin
+    x = torch.from_numpy(inputs["mlp_x"]).to(torch.bfloat16)
+    with torch.inference_mode():
+        want = mlp(x)
+    rows, dim = 80, 128
+    for r in ranks:
+        assert r["fc2_shape"] == (mlp.fc2.kernel.shape[0] // 2, dim)
+        for got in r["mlp"]:
+            assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+        step = rows * 4 + rows * dim * 4
+        assert r["mlp_reduced"] == [{"calls": 3, "bytes": dim * 4 + step}, {"calls": 2, "bytes": step}]
+
+
+def test_int8_serve_under_a_model_axis_matches_one_process(int8_run):
+    """The sharded serve of the int8 model under (1, 2) against the
+    one-process serve. The int8 FFNs are exact on the mesh, but every
+    attention site's row-parallel output projection sums bf16 partials in
+    another order than one process's product (the fp road), so a logit
+    moves by a few bf16 steps, and such a change can move an int8
+    quantization step of a later FFN: logits within 3 % of the largest
+    (1.0-1.1 % at three seeds of these inputs).
+    Both ranks return the same logits."""
+    inputs, ranks = int8_run
+    cfg = get_config("streaming_vitl", **INT8)
+    model = build_model(cfg.model, device="cpu")
+    with torch.inference_mode():
+        imgs, qids = torch.from_numpy(inputs["images"]), torch.from_numpy(inputs["qids"])
+        want = model.answer_questions(model.encode_image(imgs), qids).float()
+    scale = want.abs().max().item()
+    for r in ranks:
+        got = r["serve"].float()
+        assert got.shape == want.shape and torch.isfinite(got).all()
+        err = (got - want).abs().max().item()
+        assert err <= 0.03 * scale, (err, scale)
+    torch.testing.assert_close(ranks[0]["serve"], ranks[1]["serve"], rtol=0, atol=0)
 
 
 # cfg.mesh: streaming_vitl's registered (data -1, model 2), and (2, 1)

@@ -178,6 +178,30 @@ def scenario_serve(mesh, inputs):
     return out
 
 
+def scenario_int8(mesh, inputs):
+    """int8 FFNs under the mesh (``model.int8_ffn``): one Mlp of the sharded
+    model alone, twice (the first call prepares its weights), with the
+    bytes each call all-reduced; then the sharded serve."""
+    import torch
+
+    from btia_tpu_torch.infer.sharded import make_sharded_serve_fn, shard_serving_params
+    from btia_tpu_torch.parallel import collectives as C
+    from btia_tpu_torch.parallel.mesh import use_mesh
+
+    _, model = _model(inputs)
+    shard_serving_params(model, mesh)
+    mlp = model.btia.layer0.mlp_img
+    x = _t(inputs["mlp_x"]).to(torch.bfloat16)
+    out = {"fc2_shape": tuple(mlp.fc2.kernel.shape), "mlp": [], "mlp_reduced": []}
+    with torch.inference_mode(), use_mesh(mesh):
+        for _ in range(2):
+            C.reset_stats()
+            out["mlp"].append(mlp(x))
+            out["mlp_reduced"].append(dict(C.stats.get("model", {})))
+    out["serve"] = make_sharded_serve_fn(model, mesh)(_t(inputs["images"]), _t(inputs["qids"]))
+    return out
+
+
 def train_run(cfg, batches, mesh=None, seed=0):
     """Train steps of a model built from `seed` on global batches (numpy
     dicts), each rank on its rows: the metrics of every step and the whole
