@@ -1,8 +1,10 @@
 // Hopper building blocks shared by the wgmma / TMA kernels (K3 and K5 in
 // flash_bshd.cu, K4 and K6 in short_flash.cuh, K1/K2's projection GEMM in
-// fused_attn.cu, K8 in int8_mm.cu): mbarriers, TMA tile loads and stores,
-// named barriers and setmaxnreg for warp-specialised kernels, the wgmma
-// shared-memory descriptor, and the wgmma instructions as inline PTX.
+// fused_attn.cu, K8 in int8_mm.cu, the wide-head kernel in attn_wide.cu):
+// mbarriers, TMA tile loads and stores, named barriers and setmaxnreg for
+// warp-specialised kernels, thread block clusters and their distributed
+// shared memory, the wgmma shared-memory descriptor, and the wgmma
+// instructions as inline PTX.
 // Everything here needs sm_90a.
 //
 // Conventions. A tile that TMA writes with CU_TENSOR_MAP_SWIZZLE_128B is
@@ -56,6 +58,15 @@ __device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, bool pred) {
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
                : "memory");
+}
+
+// mbar_expect_tx where `pred` holds, as a predicated instruction.
+__device__ __forceinline__ void mbar_expect_tx_if(uint64_t* bar, uint32_t bytes, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n@p mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n}\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes), "r"(static_cast<int>(pred))
+      : "memory");
 }
 
 // Wait until the barrier has completed the phase of the given parity. A
@@ -179,6 +190,66 @@ template <int N>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
+
+// ---------------------------------------------------------------------------
+// Thread block clusters (the wide-head kernel, attn_wide.cu): a block's rank
+// in its cluster, stores into a peer's shared memory (distributed shared
+// memory, through mapa) counted on the peer's mbarrier, mbarrier arrivals on
+// a peer's barrier and waits that acquire what the peers released, and the
+// barrier over every thread of the cluster.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The address in block `rank`'s shared memory of what lies at `addr` in
+// this block's (both shared::cluster addresses).
+__device__ __forceinline__ uint32_t mapa_shared(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// Store 16 bytes into a peer's shared memory (addresses from mapa_shared)
+// and count them on the peer's mbarrier `bar` (complete_tx), as a TMA load
+// counts its bytes: the peer's wait on `bar` sees the data.
+__device__ __forceinline__ void st_async_f4(uint32_t addr, float4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, [%5];\n" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
+// Predicated (no branch: it may sit between a wgmma product and its wait).
+__device__ __forceinline__ void mbar_arrive_remote_if(uint32_t bar, bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n@p mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n}\n" ::"r"(
+          bar),
+      "r"(static_cast<int>(pred))
+      : "memory");
+}
+
+// mbar_wait that acquires at cluster scope what the arrivals released (and
+// the bytes st_async counted). The polling loop is one asm block, without a
+// branch of the compiler's: it may sit between a wgmma product and its wait.
+// A phase that never completes traps after 2^26 polls, as mbar_wait does.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u32 n;\nmov.u32 n, 0;\nAW_WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], %1;\n@p bra AW_DONE;\n"
+      "add.u32 n, n, 1;\nsetp.eq.u32 p, n, 67108864;\n@p trap;\nbra AW_WAIT;\nAW_DONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// The barrier over every thread of every block of the cluster, in two
+// halves: arrive (release) and, later, wait (acquire); each thread waits
+// once for each arrival before it arrives again.
+__device__ __forceinline__ void cluster_arrive() { asm volatile("barrier.cluster.arrive.release;\n" ::: "memory"); }
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory"); }
 
 // ---------------------------------------------------------------------------
 // wgmma

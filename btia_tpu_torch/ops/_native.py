@@ -49,7 +49,7 @@ _SIGNATURES = {
     "btia_int8_gemm": (_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "btia_int8_dequant": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     "btia_attn_simt": (_PP, _LLP, _IP, _FP, _I, _I, _I, _I, _IP, _P),
-    "btia_attn_wide": (_PP, _LLP, _IP, _FP, _I, _I, _I, _I, _IP, _P),
+    "btia_attn_wide": (_LLP, _I, _F, _F, _I, _I, _I, _I, _I, _P),
     "btia_gemm_f32": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P),
 }
 
@@ -99,8 +99,9 @@ def build() -> Path:
             log, _ = proc.communicate()
             if proc.returncode != 0:
                 failures.append(f"{src.name}:\n{log}")
-            else:  # ptxas's registers / shared memory / spills per kernel
+            else:  # ptxas's registers / shared memory / spills per kernel, kept beside the library
                 print(f"nvcc {src.name}:\n{log}", file=sys.stderr)
+                (out_dir / f"{src.stem}.ptxas.txt").write_text(log)
         if failures:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failures))
         tmp_lib = Path(tmp) / LIB_NAME
@@ -121,6 +122,13 @@ def lib() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return handle
+
+
+def ptxas_log(source: str) -> str:
+    """What nvcc (ptxas -v) said building `source` (a name in csrc, e.g.
+    "attn_wide.cu") into the current library: "" if it was not built here."""
+    p = BUILD_ROOT / source_hash() / f"{Path(source).stem}.ptxas.txt"
+    return p.read_text() if p.exists() else ""
 
 
 def timed_build() -> float:
@@ -148,7 +156,15 @@ def check(code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code}")
 
 
+# The current stream's handle as an int, without building a torch.cuda.Stream
+# (a few microseconds a launch); absent from builds without CUDA.
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def stream(t: torch.Tensor) -> int:
+    """The handle of the current CUDA stream on t's device."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(t.get_device())
     return torch.cuda.current_stream(t.device).cuda_stream
 
 

@@ -200,20 +200,67 @@ def _mha_bhsd_plain(q, k, v, kv_mask) -> torch.Tensor:
     return (acc / e.sum(-1, keepdim=True)).to(q.dtype)
 
 
+def _span_strides(shape, stride) -> list:
+    """The (batch, head, row) strides of a (B, H, S, D) operand with a
+    dimension of size 1 given the span of the others: any stride reads its
+    one index, and TMA takes only nonzero multiples of 16 bytes. A stride
+    of 0 over several rows (a broadcast) stays 0."""
+    if shape[0] > 1 and shape[1] > 1 and shape[2] > 1:
+        return [stride[0], stride[1], stride[2]]
+    span = max([shape[3]] + [stride[i] * shape[i] for i in range(3) if shape[i] > 1])
+    return [span if shape[i] == 1 else stride[i] for i in range(3)]
+
+
+def _spans(t: torch.Tensor) -> list:
+    """``_span_strides`` of a (B, H, S, D) view."""
+    return _span_strides(t.shape, t.stride())
+
+
+# The CUDA-core and wide-head launchers (``attend``) take each operand as a
+# spec: (tensor, element offset from its data pointer, (B, H, S, D) shape,
+# (batch, head, row, column) strides). An entry names the heads inside its
+# buffers this way without building views, which cost the host several
+# microseconds each (PERF.md §6); a view is built only where a copy is.
+def operand(t: torch.Tensor) -> tuple:
+    """The spec of a (B, H, S, D) view."""
+    return t, 0, t.shape, t.stride()
+
+
+def operand_view(spec) -> torch.Tensor:
+    """The (B, H, S, D) view a spec names."""
+    t, off, shape, stride = spec
+    return t.as_strided(shape, stride, t.storage_offset() + off)
+
+
+def _ptr(spec) -> int:
+    """The device address of a spec's first element."""
+    return spec[0].data_ptr() + spec[1] * spec[0].element_size()
+
+
+def _tma_ok(ptr: int, col_stride: int, st) -> bool:
+    """Whether TMA reads a 16-bit operand in place at this address through
+    (batch, head, row) strides st: columns packed, a 16-byte aligned base,
+    strides multiples of 8 elements, the head and row strides nonzero (a
+    batch stride of 0 is one row that every batch row reads)."""
+    return col_stride == 1 and ptr % 16 == 0 and not (st[0] % 8 or st[1] % 8 or st[2] % 8) \
+        and st[1] > 0 and st[2] > 0 and st[0] >= 0
+
+
+def _packed(t: torch.Tensor) -> torch.Tensor:
+    """t packed, at a 16-byte aligned address."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t  # packed, but at an unaligned storage offset
+
+
 def _bhsd_operand(t: torch.Tensor, what: str):
     """A (B, H, S, D) bf16 CUDA operand the tile kernels read in place
-    (16-byte rows through its strides), copied only where its strides do
-    not allow that; returns it with its (batch, head, row) strides. A
-    dimension of size 1 (a batch of 1) is given the span of the others as
-    its stride: any stride reads its one index, and TMA takes only nonzero
-    multiples of 16 bytes; a broadcast (stride 0) of a longer dimension is
-    copied."""
+    (16-byte rows through its strides, ``_tma_ok``), copied only where its
+    strides do not allow that; returns it with its (batch, head, row)
+    strides (``_spans``). A broadcast (stride 0) batch is copied."""
     _native.require(t, what, contiguous=False)
     st = _spans(t)
-    if t.stride(3) != 1 or t.data_ptr() % 16 or any(s <= 0 or s % 8 for s in st):
-        t = t.contiguous()
-        if t.data_ptr() % 16:  # packed, but at an unaligned storage offset
-            t = t.clone()
+    if not _tma_ok(t.data_ptr(), t.stride(3), st) or st[0] == 0:
+        t = _packed(t)
         st = _spans(t)
     return t, st
 
@@ -260,71 +307,81 @@ def _route_or_raise(dtype, head_dim, tensor_core_takes, what, widths) -> str:
 
 def simt_plan(problems, head_dim: int) -> list:
     """The f32 kernel's plan (``btia_attn_simt``) for problems of (q, k, v,
-    o, mask, qscale) f32 (B, H, S, D) views: [query rows a block, output
+    o, mask, qscale) f32 operand specs (``operand``): [query rows a block, output
     columns a block, load path]. 32 rows where every problem's Sq <= 32 (the
     K1 sites at 32 question tokens), else 64; 64 columns for D <= 64, else
     ``SIMT_SLICE`` (a wider head splits over the grid); 16-byte copies
     (path 1) where every pointer is 16-byte aligned and every stride and D
     are multiples of 4 elements, else 4-byte copies (path 0)."""
-    bq = 32 if all(p[0].shape[2] <= 32 for p in problems) else 64
+    bq = 32 if all(p[0][2][2] <= 32 for p in problems) else 64
     slice_w = 64 if head_dim <= 64 else SIMT_SLICE
-    views = [t for p in problems for t in p[:4]]
-    vec = head_dim % 4 == 0 and all(t.data_ptr() % 16 == 0 and all(s % 4 == 0 for s in t.stride()[:3])
-                                    for t in views)
+    specs = [x for p in problems for x in p[:4]]
+    vec = head_dim % 4 == 0 and all(_ptr(x) % 16 == 0 and all(s % 4 == 0 for s in x[3][:3]) for x in specs)
     return [bq, slice_w, int(vec)]
 
 
-def wide_plan(dw: int) -> list:
+@functools.lru_cache(maxsize=None)
+def wide_plan(dw: int) -> tuple:
     """The wide kernel's plan (``btia_attn_wide``) for a head padded to `dw`
-    columns: [slice width, slices]. As few slices of at most ``WIDE_SLICE``
+    columns: (slice width, slices). As few slices of at most ``WIDE_SLICE``
     columns as cover the head, each rounded up to a multiple of 64 (192 or
     256 above 256 columns): D 384 as 2 x 192, 512 as 2 x 256, 1024 as
-    4 x 256."""
+    4 x 256. The slices are the blocks of one thread block cluster, block r
+    owning columns [r * width, (r + 1) * width) (at most 4: 1024 / 256)."""
     n = -(-dw // WIDE_SLICE)
-    return [-(-dw // (64 * n)) * 64, n]
+    return -(-dw // (64 * n)) * 64, n
 
 
-def _problem_args(problems):
-    """The C entries' problem arrays from (q, k, v, o, mask, qscale)
-    (B, H, S, D) views: device pointers (q, k, v, o, mask), (batch, head,
-    row) strides, (B, H, Sq, Sk), the q scales, and the masks' element size
-    (1: bool read as bytes; 4: f32 {0, 1}). Returns them with the masks,
-    which must outlive the launch."""
-    masks = [None if p[4] is None else (p[4].contiguous() if p[4].dtype == torch.bool
-                                        else p[4].to(torch.float32).contiguous()) for p in problems]
+def _key_masks(masks):
+    """The problems' (B, Sk) key masks as the C entries read them, bool
+    (read as bytes) or {0, 1} f32, packed, with their element size (1 or
+    4; 4 where no problem has one). Returns (masks, element size)."""
+    masks = [None if m is None else (m.contiguous() if m.dtype == torch.bool else m.to(torch.float32).contiguous())
+             for m in masks]
     mask_bytes = {1 if m.dtype == torch.bool else 4 for m in masks if m is not None} or {4}
     if len(mask_bytes) != 1:
         raise ValueError("attention: the problems' key masks must share a dtype")
+    return masks, mask_bytes.pop()
+
+
+def _problem_args(problems):
+    """The f32 entry's problem arrays from (q, k, v, o, mask, qscale)
+    operand specs (``operand``): device pointers (q, k, v, o, mask), (batch, head,
+    row) strides, (B, H, Sq, Sk), the q scales, and the masks' element size
+    (``_key_masks``). Returns them with the masks, which must outlive the
+    launch."""
+    masks, mask_bytes = _key_masks([p[4] for p in problems])
     ptrs, strides, dims, scales = [], [], [], []
     for (q, k, v, o, _, qscale), m in zip(problems, masks):
-        ptrs += [t.data_ptr() for t in (q, k, v, o)] + [None if m is None else m.data_ptr()]
-        strides += [s for t in (q, k, v, o) for s in t.stride()[:3]]
-        dims += [q.shape[0], q.shape[1], q.shape[2], k.shape[2]]
+        ptrs += [_ptr(x) for x in (q, k, v, o)] + [None if m is None else m.data_ptr()]
+        strides += [s for x in (q, k, v, o) for s in x[3][:3]]
+        dims += [*q[2][:3], k[2][2]]
         scales.append(qscale)
     n = len(problems)
     return ((ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_longlong * len(strides))(*strides),
-            (ctypes.c_int * len(dims))(*dims), (ctypes.c_float * n)(*scales), mask_bytes.pop(), masks)
+            (ctypes.c_int * len(dims))(*dims), (ctypes.c_float * n)(*scales), mask_bytes, masks)
 
 
 def simt_attention(problems, head_dim: int, mult_mask: bool) -> None:
     """Launch the f32 kernel (``csrc/attn_simt.cu``, CUDA cores) on one or two
     problems (K6's two directions), each ``(q, k, v, o, mask, qscale)``:
-    f32 (B, H, S, D) views read and written through their strides (o
-    in place); a (B, Sk) key mask (bool, read as bytes, or {0, 1} f32) or
+    f32 (B, H, S, D) operand specs (``operand``) read and written through
+    their strides (o in place); a (B, Sk) key mask (bool, read as bytes, or {0, 1} f32) or
     None; the factor q is scaled by. ``mult_mask`` picks K1/K2/K4's mask
     (after exp2, a fully masked row gives 0) over K3/K5/K6's additive -1e9.
     Counts its launches in ``.launches``."""
     for p in problems:
-        for t in p[:4]:
-            _native.require(t, "CUDA-core attention", torch.float32, contiguous=False)
-    problems = [(*(t if t.stride(3) == 1 else t.contiguous() for t in p[:3]), *p[3:]) for p in problems]
-    if any(p[3].stride(3) != 1 for p in problems):
+        for x in p[:4]:
+            _native.require(x[0], "CUDA-core attention", torch.float32, contiguous=False)
+    problems = [(*(x if x[3][3] == 1 else operand(operand_view(x).contiguous()) for x in p[:3]), *p[3:])
+                for p in problems]
+    if any(p[3][3][3] != 1 for p in problems):
         raise ValueError("CUDA-core attention: the output's columns must be packed")
     ptrs, strides, dims, scales, mask_bytes, masks = _problem_args(problems)
     plan = simt_plan(problems, head_dim)
     _native.check(
         _native.lib().btia_attn_simt(ptrs, strides, dims, scales, len(problems), head_dim, mask_bytes,
-                                     int(mult_mask), (ctypes.c_int * 3)(*plan), _native.stream(problems[0][0])),
+                                     int(mult_mask), (ctypes.c_int * 3)(*plan), _native.stream(problems[0][0][0])),
         "btia_attn_simt",
     )
     simt_attention.launches += 1
@@ -333,63 +390,76 @@ def simt_attention(problems, head_dim: int, mult_mask: bool) -> None:
 simt_attention.launches = 0
 
 
-def _spans(t: torch.Tensor) -> list:
-    """t's (batch, head, row) strides with a dimension of size 1 given the
-    span of the others: any stride reads its one index, and TMA takes only
-    nonzero multiples of 16 bytes."""
-    shape, stride = t.shape, t.stride()
-    span = max([shape[3]] + [stride[i] * shape[i] for i in range(3) if shape[i] > 1])
-    return [span if shape[i] == 1 else stride[i] for i in range(3)]
+def _wide_read(x, dw: int):
+    """(tensor, pointer, (batch, head, row) strides) through which the wide
+    kernel's TMA reads the bf16 operand spec x: in place where it can
+    (``_tma_ok``, D == dw; a dimension of size 1 takes ``_span_strides``; a
+    batch stride of 0, one row that every batch row reads as K2's query
+    table, is kept), else from one packed copy, D zero-padded to dw (where
+    D % 8: TMA rows are 16-byte multiples)."""
+    t, _, shape, stride = x
+    ptr, st = _ptr(x), _span_strides(shape, stride)
+    if shape[3] == dw and _tma_ok(ptr, stride[3], st):
+        return t, ptr, st
+    t = operand_view(x)
+    if shape[3] != dw:
+        t = torch.nn.functional.pad(t, (0, dw - shape[3]))
+    t = _packed(t)
+    return t, t.data_ptr(), _spans(t)
 
 
-def wide_operand(t: torch.Tensor, dw: int) -> torch.Tensor:
-    """A (B, H, S, D) bf16 view as the wide kernel's TMA reads it: D padded to
-    dw (one zero-padded copy where D % 8), columns packed, a 16-byte aligned
-    base, (batch, head, row) strides nonzero multiples of 8 elements (a
-    dimension of size 1 takes ``_spans``); a batch stride of 0 (one row that
-    every batch row reads: K2's query table) is kept. Copied only where the
-    view does not allow that."""
-    if t.shape[3] != dw:
-        t = torch.nn.functional.pad(t, (0, dw - t.shape[3]))
-    st = _spans(t)
-    if t.shape[0] > 1 and t.stride(0) == 0:
-        st[0] = 0
-    if t.stride(3) != 1 or t.data_ptr() % 16 or any(s % 8 for s in st) or min(st[1:]) <= 0 or st[0] < 0:
-        t = t.contiguous()
-        if t.data_ptr() % 16:  # packed, but at an unaligned storage offset
-            t = t.clone()
-        st = _spans(t)
-    return t.as_strided(t.shape, (*st, 1))
+# The wide kernel's argument array (csrc/attn_wide.cu, AW_ARGS): int64 a
+# problem, the device pointers of q, k, v, o and the key mask (0: none), the
+# (batch, head, row) strides of q, k, v and o, and B, H, Sq, Sk.
+WIDE_ARGS = 21
+
+
+def wide_args(problems, dw: int):
+    """The wide kernel's arguments from (q, k, v, o, mask, qscale) problems
+    of bf16 operand specs (``operand``), packed in one pass: the int64 array
+    (``WIDE_ARGS`` a problem), the two q scales, the masks' element size
+    (``_key_masks``), the tensors that must outlive the launch, and the
+    (o, buffer) pairs whose buffer the kernel writes in o's place (o's rows
+    not 16-byte aligned, or D % 8) and the caller copies back."""
+    masks, mask_bytes = _key_masks([p[4] for p in problems])
+    vals, keep, copies = [], [], []
+    for (q, k, v, o, _, _), mask in zip(problems, masks):
+        reads = [_wide_read(x, dw) for x in (q, k, v)]
+        out, _, shape, stride = o
+        ptr, st = _ptr(o), _span_strides(shape, stride)
+        if shape[3] != dw or not _tma_ok(ptr, stride[3], st):
+            out = torch.empty((*shape[:3], dw), dtype=out.dtype, device=out.device)
+            ptr, st = out.data_ptr(), _spans(out)
+            copies.append((o, out))
+        reads.append((out, ptr, st))
+        keep += [r[0] for r in reads] + [mask]
+        vals += [r[1] for r in reads] + [0 if mask is None else mask.data_ptr()]
+        for r in reads:
+            vals += r[2]
+        vals += [*q[2][:3], k[2][2]]
+    scales = [p[5] for p in problems] + [1.0]
+    return (ctypes.c_longlong * len(vals))(*vals), scales[:2], mask_bytes, keep, copies
 
 
 def wide_attention(problems, head_dim: int, mult_mask: bool) -> None:
-    """Launch the wide-head kernel (``csrc/attn_wide.cu``, tensor cores) on
-    one or two problems as ``simt_attention`` takes them, bf16 at head widths
-    of 257 to 1024: q, k and v read in place where TMA can (``wide_operand``),
-    o written in place where its rows are 16-byte aligned, else through one
-    padded buffer. Counts its launches in ``.launches``."""
-    for p in problems:
-        for t in p[:4]:
-            _native.require(t, "wide-head attention", torch.bfloat16, contiguous=False)
+    """Launch the wide-head kernel (``csrc/attn_wide.cu``, tensor cores,
+    a thread block cluster an item) on one or two problems as
+    ``simt_attention`` takes them, bf16 at head widths of 257 to 1024: q, k
+    and v read in place where TMA can (``_wide_read``), o written in place
+    where its rows are 16-byte aligned, else through one padded buffer. The
+    callers have checked that the operands are bf16 CUDA tensors; the C
+    entry refuses the pointers and strides it cannot read. Counts its
+    launches in ``.launches``."""
     dw = _round8(head_dim)
-    staged, outs = [], []
-    for q, k, v, o, mask, qscale in problems:
-        st = list(o.stride())
-        direct = dw == head_dim and st[3] == 1 and o.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in st[:3])
-        out = o if direct else torch.empty((*o.shape[:3], dw), dtype=o.dtype, device=o.device)
-        outs.append((o, out))
-        staged.append((wide_operand(q, dw), wide_operand(k, dw), wide_operand(v, dw),
-                       out.as_strided(out.shape, (*_spans(out), 1)), mask, qscale))
-    ptrs, strides, dims, scales, mask_bytes, masks = _problem_args(staged)
-    plan = wide_plan(dw)
+    args, (qs0, qs1), mask_bytes, keep, copies = wide_args(problems, dw)
+    sw, n = wide_plan(dw)
     _native.check(
-        _native.lib().btia_attn_wide(ptrs, strides, dims, scales, len(staged), dw, mask_bytes, int(mult_mask),
-                                     (ctypes.c_int * 2)(*plan), _native.stream(staged[0][0])),
+        _native.lib().btia_attn_wide(args, len(problems), qs0, qs1, dw, sw, n, mask_bytes, int(mult_mask),
+                                     _native.stream(keep[0])),
         "btia_attn_wide",
     )
-    for o, out in outs:
-        if out is not o:
-            o.copy_(out[..., :head_dim])
+    for o, out in copies:
+        operand_view(o).copy_(out[..., :head_dim])
     wide_attention.launches += 1
 
 
@@ -397,18 +467,24 @@ wide_attention.launches = 0
 
 
 def attend(route: str, problems, head_dim: int, mult_mask: bool) -> None:
-    """``simt_attention`` (route "simt") or ``wide_attention`` ("wide")."""
+    """``simt_attention`` (route "simt") or ``wide_attention`` ("wide") on
+    (q, k, v, o, mask, qscale) problems of operand specs (``operand``)."""
     (simt_attention if route == "simt" else wide_attention)(problems, head_dim, mult_mask)
 
 
 def _attend_bshd(route, q, k, v, mask, num_heads, qscale, mult_mask, what):
     """K3 and K4 on the f32 or wide-head kernel: (B, S, H*D) q, k, v read
-    as (B, H, S, D) views; the output packed (B, Sq, H*D)."""
+    as (B, H, S, D) operands; the output packed (B, Sq, H*D)."""
     for t in (q, k, v):  # the route took q's dtype
         _native.require(t, what, q.dtype, contiguous=False)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    heads = [t.unflatten(2, (num_heads, -1)).transpose(1, 2) for t in (q, k, v, out)]
-    attend(route, [(*heads, mask, qscale)], q.shape[2] // num_heads, mult_mask)
+    D = q.shape[2] // num_heads
+
+    def heads(t):  # the spec of t.unflatten(2, (H, D)).transpose(1, 2)
+        sb, ss, sc = t.stride()
+        return t, 0, (t.shape[0], num_heads, t.shape[1], D), (sb, D * sc, ss, sc)
+
+    attend(route, [(heads(q), heads(k), heads(v), heads(out), mask, qscale)], D, mult_mask)
     return out
 
 
@@ -475,7 +551,7 @@ def _mha_bhsd_cuda(q, k, v, kv_mask) -> torch.Tensor:
         for t in (q, k, v):  # the route took q's dtype
             _native.require(t, "mha_bhsd_attention", q.dtype, contiguous=False)
         out = torch.empty_like(q if q.stride(3) == 1 else q.contiguous())
-        attend(route, [(q, k, v, out, kv_mask, _log2_scale(D))], D, mult_mask=False)
+        attend(route, [(*map(operand, (q, k, v, out)), kv_mask, _log2_scale(D))], D, mult_mask=False)
         return out
     dw = -(-D // 8) * 8
     if dw != D:

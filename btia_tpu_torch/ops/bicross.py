@@ -28,7 +28,7 @@ import torch
 from btia_tpu_torch.ops import _native
 from btia_tpu_torch.ops.attention import (
     SMALL_SCORE_TILE, _bhsd_operand, _log2_scale, _mha_bhsd_plain, _round8, _resolved_impl,
-    _route_or_raise, attend, mha_bshd, mha_reference, short_plan,
+    _route_or_raise, attend, mha_bshd, mha_reference, operand, short_plan,
 )
 
 
@@ -65,7 +65,9 @@ def _bicross_views(route, qi, ki, vi, qt, kt, vt, txt_mask):
         _native.require(t, "bicross_bhsd_attention", qi.dtype, contiguous=False)
     oi, ot = (torch.empty_like(x if x.stride(3) == 1 else x.contiguous()) for x in (qi, qt))
     c = _log2_scale(qi.shape[3])
-    attend(route, [(qi, kt, vt, oi, txt_mask, c), (qt, ki, vi, ot, None, c)], qi.shape[3], mult_mask=False)
+    x = [operand(t) for t in (qi, ki, vi, qt, kt, vt, oi, ot)]
+    attend(route, [(x[0], x[4], x[5], x[6], txt_mask, c), (x[3], x[1], x[2], x[7], None, c)], qi.shape[3],
+           mult_mask=False)
     return oi, ot
 
 

@@ -437,8 +437,8 @@ def _core_cuda(q, kv, kv_mask, B, Sq, Sk, num_heads, q_shared=False):
     """The attention core of K1/K2 on the card: bf16 at ``core_takes``'s
     widths on the short-sequence kernel (``_core_launcher``); bf16 from 257
     to 1024 wide on the wide-head kernel and f32 on the CUDA-core kernel
-    (``attention.attend``), reading the same buffers as (B, H, S, D) views
-    through the same strides."""
+    (``attention.attend``), reading the same buffers as (B, H, S, D)
+    operands (specs, ``attention.operand``) through the same strides."""
     HD = q.shape[1]
     D = HD // num_heads
     route = _route_or_raise(q.dtype, HD / num_heads, core_takes,
@@ -458,10 +458,9 @@ def _core_cuda(q, kv, kv_mask, B, Sq, Sk, num_heads, q_shared=False):
     if q_shared:  # K2's one table for every batch row
         ops["q"] = (0, [0, *ops["q"][1][1:]])
     base = {"q": q, "k": kv, "v": kv, "o": out}
-    views = [base[n].as_strided((B, num_heads, Sq if n in "qo" else Sk, D), (*ops[n][1], 1),
-                                base[n].storage_offset() + ops[n][0]) for n in "qkvo"]
+    specs = [(base[n], ops[n][0], (B, num_heads, Sq if n in "qo" else Sk, D), (*ops[n][1], 1)) for n in "qkvo"]
     # q arrives in the log2 domain: scaled by 1.
-    attend(route, [(*views, kv_mask, 1.0)], D, mult_mask=True)
+    attend(route, [(*specs, kv_mask, 1.0)], D, mult_mask=True)
     return out
 
 

@@ -66,13 +66,18 @@ Phases, each fatal on failure:
    ``vqa_rad_lstm``'s 64 x 49 <- 32 and 32 <- 49, K2's 2048 x 64 <- 82 with
    its shared table, K3 at ViT-B, K4, K5 at ViT-L on transposed views, K6
    pooled, and K5 at D = 256: two output slices) within 1e-4 of the largest
-   magnitude; the tensor-core attention of ``csrc/attn_wide.cu`` in bf16 at
-   head widths 384, 512, 768 and 1024 (K1's core, K3, K4, K5, K6) and 300
-   (K5, the padded copy) within 1/32 of it, each call seen to move its
-   kernel's counter; the f32 GEMM of ``csrc/gemm_f32.cu`` at the fp32
-   forwards' projection shapes within 1e-4; each timed beside its twin,
-   SDPA or ``F.linear`` (TF32 off) and the bound at the operands' peak
-   (67 TFLOP/s f32 on the CUDA cores, 989 bf16);
+   magnitude; the tensor-core attention of ``csrc/attn_wide.cu`` (thread
+   block clusters of one block a column slice) in bf16 at head widths 384,
+   512, 768 and 1024 (K1's core, K3, K4, K5, K6) and 300 (K5, the padded
+   copy) within 1/32 of it, each call seen to move its kernel's counter,
+   also timed through its C entry alone on the operands its launcher
+   packed, with the host's share of the wrapper (wrapper - C entry) and
+   the launcher's host time a call by line (host clock), and ptxas's
+   registers and spills of each instance; the f32 GEMM of
+   ``csrc/gemm_f32.cu`` at the fp32 forwards' projection shapes within
+   1e-4; each timed beside its twin, SDPA or ``F.linear`` (TF32 off) and
+   the bound at the operands' peak (67 TFLOP/s f32 on the CUDA cores, 989
+   bf16);
 3. serve a few requests through ``Predictor.predict_answers`` on the
    full-width ``streaming_vitl`` with seeded random weights (buckets of
    1-8 questions: under the fused sites' batch floor of 64, so K1 = K2 = 0
@@ -120,7 +125,8 @@ Phases, each fatal on failure:
    head at head width 384 on the wide-head kernel, as phase 5b: one train
    step (K1 20 / K3 13 / K4 20, the wide-head kernel 17: 8 BTIA cores, the
    AD head, 8 K4 calls in the backward) and an eval forward (K1 20 / K3 13,
-   wide 9) against the CPU;
+   wide 9) against the CPU, then five eval forwards and five train steps
+   timed (host clock, ending in a synchronize);
 5c. full-width ``pathvqa_vit`` (ViT-B/16, BERT-base, 2 BTIA layers, an AD
    head of 256 answer queries over 4096 answers) through ``Trainer`` on a
    synthetic PathVQA corpus, ``train.steps_per_call`` cut from 8 to 1: one
@@ -223,6 +229,7 @@ import contextlib
 import copy
 import ctypes
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -1751,7 +1758,7 @@ def train_step_vs_cpu(torch, dev, counters):
     return res
 
 
-def wide_heads_phase(torch, dev, smi, counters, heads_list=WIDE_HEADS, expected=None, phase="5b"):
+def wide_heads_phase(torch, dev, smi, counters, heads_list=WIDE_HEADS, expected=None, phase="5b", timed_steps=0):
     """Phase 5b: full-width vqa_med_full with model.num_heads 6, 4 and 3, so
     that its 4 BTIA layers and its AD head run at head widths 128, 192 and
     256 (BERT and ViT-B keep 12 heads of 64). For each, through the Trainer
@@ -1762,7 +1769,8 @@ def wide_heads_phase(torch, dev, smi, counters, heads_list=WIDE_HEADS, expected=
     weights on the CPU on its first rows, logits within a tenth of the
     largest. Phase 5d runs the same at model.num_heads 2 (head width 384,
     ``WIDE_KERNEL_COUNTS``: those sites on the wide-head kernel), its counts
-    K1..K8 and NEW_KERNELS."""
+    K1..K8 and NEW_KERNELS, and times `timed_steps` train steps and eval
+    forwards after the counted ones (host clock, ending in a synchronize)."""
     import numpy as np
 
     from btia_tpu_torch.configs import get_config
@@ -1794,6 +1802,7 @@ def wide_heads_phase(torch, dev, smi, counters, heads_list=WIDE_HEADS, expected=
                 + ", ".join(f"{k} {c}" for k, c in zip(names, counts)))
             if counts != train_expected or not np.isfinite(loss):
                 raise AssertionError(f"{what} train step: loss {loss}, launch counts {counts} != {train_expected}")
+            timed = {}
 
             model = trainer.model
             model.eval()
@@ -1803,6 +1812,12 @@ def wide_heads_phase(torch, dev, smi, counters, heads_list=WIDE_HEADS, expected=
                 out_gpu = model(images, qids, train=False)
                 torch.cuda.synchronize()
                 eval_counts = [f.launches for f in counters]
+                if timed_steps:  # host clock, ending in a synchronize
+                    t0 = time.perf_counter()
+                    for _ in range(timed_steps):
+                        model(images, qids, train=False)
+                    torch.cuda.synchronize()
+                    timed["eval_ms_per_forward"] = (time.perf_counter() - t0) / timed_steps * 1e3
                 cpu_model = copy.deepcopy(model).to("cpu")
                 out_cpu = cpu_model(images[:2].cpu(), qids[:2].cpu(), train=False)
             del cpu_model
@@ -1810,12 +1825,21 @@ def wide_heads_phase(torch, dev, smi, counters, heads_list=WIDE_HEADS, expected=
             scale = out_cpu.float().abs().max().item()
             res = {"config": f"vqa_med_full + model.{what}", "head_width": hw, "train_loss": loss,
                    "train_launches": dict(zip(names, counts)), "eval_launches": dict(zip(names, eval_counts)),
-                   "eval_card_vs_cpu_max_abs_err": err, "eval_max_logit": scale, "card": smi}
+                   "eval_card_vs_cpu_max_abs_err": err, "eval_max_logit": scale, **timed, "card": smi}
             log(json.dumps({f"head_width_{hw}": res}))
             if not bool(torch.isfinite(out_gpu).all()) or not err <= 0.1 * scale:
                 raise AssertionError(f"{what} eval: card and CPU logits disagree: {err} > {0.1 * scale}")
             if eval_counts != eval_expected:
                 raise AssertionError(f"{what} eval launch counts {eval_counts} != {eval_expected}")
+            if timed_steps:  # train steps on the same batch, after the eval check
+                model.train()
+                t0 = time.perf_counter()
+                for _ in range(timed_steps):
+                    trainer.train_step(trainer.state, batch)
+                torch.cuda.synchronize()
+                res["train_ms_per_step"] = (time.perf_counter() - t0) / timed_steps * 1e3
+                log(f"  {timed_steps} train steps {res['train_ms_per_step']:.2f} ms a step, eval forwards "
+                    f"{res['eval_ms_per_forward']:.2f} ms a forward at batch {B_TRAIN} ({smi})")
             results[hw] = res
             del trainer, model, batch, out_gpu
         torch.cuda.empty_cache()
@@ -2175,6 +2199,146 @@ def _simt_row(torch, name, kernel, plain, library, flops, nbytes_, dt, iters=5):
     return row
 
 
+def _wide_capture(torch, kernel):
+    """Run kernel() (an entry's CUDA half on the wide route) once, recording
+    what its launcher packed (``ops/attention.py::wide_args``, with the
+    tensors the pointers name) and the C call it made. Returns (the C call
+    alone, a function that repacks the same problems, the stream lookup on
+    the call's first operand, the problems)."""
+    from btia_tpu_torch.ops import _native
+    from btia_tpu_torch.ops import attention as A
+
+    rec, real_args, real_lib_fn = {}, A.wide_args, _native.lib
+    real_lib = real_lib_fn()
+
+    def spy_args(problems, dw):
+        rec["problems"], rec["dw"] = problems, dw
+        rec["packed"] = real_args(problems, dw)
+        return rec["packed"]
+
+    class SpyLib:
+        def __getattr__(self, name):
+            return getattr(real_lib, name)
+
+        def btia_attn_wide(self, *a):
+            rec["call"] = a
+            return real_lib.btia_attn_wide(*a)
+
+    A.wide_args, _native.lib = spy_args, (lambda: SpyLib())
+    try:
+        rec["out"] = kernel()
+    finally:
+        A.wide_args, _native.lib = real_args, real_lib_fn
+    torch.cuda.synchronize()
+    t0 = rec["packed"][3][0]
+    return (lambda: real_lib.btia_attn_wide(*rec["call"]), lambda: real_args(rec["problems"], rec["dw"]),
+            lambda: _native.stream(t0), rec["problems"])
+
+
+def _host_us(torch, fn, n=200):
+    """Host microseconds a call of fn over n calls (launches queue on the
+    card meanwhile; the synchronize after them is not counted)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return dt
+
+
+def _operand_builders(entry, problems):
+    """Two ways for an entry to hand its launcher the operands of one call,
+    from the operand specs it handed (``ops/attention.py::operand``): the
+    (B, H, S, D) views a launcher of views needs (K1/K2's core:
+    ``as_strided`` on the q, [k|v] and output buffers; K3/K4: ``unflatten``
+    and ``transpose`` of the (B, S, H*D) tensors), and the specs, built as
+    the entry builds them. None for K5 and K6, whose operands are the
+    caller's own views."""
+    if entry not in ("core", "k3", "k4"):
+        return None
+    ops = [x for p in problems for x in p[:4]]
+    if entry == "core":
+        return (lambda: [t.as_strided(s, st, t.storage_offset() + off) for t, off, s, st in ops],
+                lambda: [(t, off, s, st) for t, off, s, st in ops])
+    H, D = ops[0][2][1], ops[0][2][3]
+
+    def spec(t):  # ops/attention.py::_attend_bshd's heads()
+        sb, ss, sc = t.stride()
+        return t, 0, (t.shape[0], H, t.shape[1], D), (sb, D * sc, ss, sc)
+
+    return (lambda: [x[0].unflatten(2, (H, -1)).transpose(1, 2) for x in ops],
+            lambda: [spec(x[0]) for x in ops])
+
+
+def _wide_entry_times(torch, name, entry, kernel, wrapper_ms):
+    """The wide kernel's C entry alone on the operands its launcher packed
+    (CUDA events), the host's share of the wrapper (wrapper - C entry), and
+    the host time a call, line by line (host clock): the whole entry, the
+    packing (``wide_args``), the C call (its tensor maps and launch), the
+    stream lookup, and the rest (the entry's own checks, output and operand
+    specs); within the rest, building the call's specs against building
+    views of the same operands (``_operand_builders``)."""
+    from btia_tpu_torch.ops import _native
+
+    c_call, pack, stream, problems = _wide_capture(torch, kernel)
+    code = c_call()
+    torch.cuda.synchronize()
+    _native.check(code, f"{name}: btia_attn_wide")
+    c_ms = cuda_time_ms(c_call, 10)
+    host = {"entry": _host_us(torch, kernel), "wide_args": _host_us(torch, pack),
+            "c_call": _host_us(torch, c_call), "stream": _host_us(torch, stream)}
+    host["rest"] = host["entry"] - host["wide_args"] - host["c_call"] - host["stream"]
+    builders = _operand_builders(entry, problems)
+    if builders is not None:
+        host["views"], host["specs"] = (_host_us(torch, b) for b in builders)
+    log(f"    C entry {c_ms:.4f} ms; wrapper - C entry {1e3 * (wrapper_ms - c_ms):.1f} us; host us a call: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in host.items()))
+    return {"c_entry_ms": c_ms, "host_share_us": 1e3 * (wrapper_ms - c_ms), "host_us": host}
+
+
+def wide_ptxas():
+    """ptxas's registers, spills and C75xx warnings for each instance of
+    the wide kernel (attn_wide_kernel<slice width, cluster size, zero-rows
+    mask>), from the build's log."""
+    from btia_tpu_torch.ops import _native
+
+    text = _native.ptxas_log("attn_wide.cu")
+    out, cur = {}, None
+
+    def instance(mangled):
+        t = re.search(r"ILi(\d+)ELi(\d+)ELb([01])E", mangled)
+        return f"attn_wide_kernel<{t.group(1)}, {t.group(2)}, {t.group(3)}>" if t else mangled
+
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = instance(m.group(1)) if "attn_wide_kernel" in m.group(1) else None
+            if cur:
+                out.setdefault(cur, {"warnings": []})
+            continue
+        m = re.search(r"C75\d\d.*?(_Z\S*attn_wide_kernel\S*)", line)
+        if m:  # ptxas names the function a serialisation warning is about
+            out.setdefault(instance(m.group(1).strip("'")), {"warnings": []})["warnings"].append(line.strip())
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[cur]["spill_stores"], out[cur]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+    for k, v in out.items():
+        log(f"  ptxas {k}: {v.get('registers')} registers, spill stores {v.get('spill_stores')} B, "
+            f"loads {v.get('spill_loads')} B{'; ' + ' | '.join(v['warnings']) if v['warnings'] else ''}")
+    if not out:
+        log("  ptxas: no log of attn_wide.cu (the library was not built by this checkout's build)")
+    return out
+
+
 def wide_cases():
     """Phase 2c's bf16 cases of the wide-head kernel: (name, entry, dims)."""
     cases = []
@@ -2212,6 +2376,8 @@ def check_simt(torch, dev):
         if counter.launches != before + 1:
             raise AssertionError(f"{name}: the call did not launch {counter.__name__}")
         row = {"entry": entry, **dims, **_simt_row(torch, name, kernel, plain, library, flops, nb, dt)}
+        if dt == torch.bfloat16:
+            row.update(_wide_entry_times(torch, name, entry, kernel, row["ms"]))
         (attn if dt == torch.float32 else wide)[name] = row
         del kernel, plain, library
         torch.cuda.empty_cache()
@@ -3573,6 +3739,7 @@ def main() -> int:
     ops_rows, ops_counts = ops_api_phase(torch, dev, counters)
     rows.update(ops_rows)
     simt_attn, wide_attn, simt_gemm = check_simt(torch, dev)
+    wide_ptx = wide_ptxas()
     log(f"  (phase 2c done at {time.perf_counter() - T0:.0f} s)")
 
     # Phase 3: Predictor on full-width streaming_vitl.
@@ -3696,7 +3863,8 @@ def main() -> int:
     # From here on every counter: K1..K8, the CUDA-core kernels and the
     # wide-head kernel.
     all_counters = counters + new_counters()
-    wide_kernel = wide_heads_phase(torch, dev, smi, all_counters, (WIDE_KERNEL_HEADS,), WIDE_KERNEL_COUNTS, "5d")
+    wide_kernel = wide_heads_phase(torch, dev, smi, all_counters, (WIDE_KERNEL_HEADS,), WIDE_KERNEL_COUNTS, "5d",
+                                   timed_steps=5)
     log(f"  (phase 5d done at {time.perf_counter() - T0:.0f} s)")
     pathvqa = pathvqa_phase(torch, dev, smi, counters)
     log(f"  (phase 5c done at {time.perf_counter() - T0:.0f} s)")
@@ -3842,6 +4010,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             "library": "F.linear (TF32 off)" if name == "gemm_f32" else "F.scaled_dot_product_attention",
+            **({"c_entry_ms": r["c_entry_ms"], "host_share_us": r["host_share_us"], "ptxas": wide_ptx}
+               if name == "wide_attention" else {}),
             "sites": sites,
         })
     log(json.dumps({"summary": {

@@ -7,7 +7,7 @@ another checkout's on one card, in turns.
     python3 compare_kernels.py runs/parent [groups]
 
 groups: a comma-separated subset of k3, k5, k4, k6, core, gemm, f32, wide,
-gemm_f32 and k8 (default: all).
+gemm_f32, k8 and f32_wrap (default: all).
 
 Builds both checkouts' kernel libraries (each from its own
 ``btia_tpu_torch/csrc``), then runs each kernel's C entry at the shapes of
@@ -32,10 +32,14 @@ called that way. The f32 attention (``btia_attn_simt``) runs at
 ``chip_smoke.py``'s phase 2c f32 shapes through each entry's operand layout
 (K1/K2's core on the GEMM outputs, K3/K4 packed, K5 on transposed views,
 K6's two directions), the wide-head attention (``btia_attn_wide``) at its
-bf16 shapes against the other checkout's ``btia_attn_simt`` in its bf16
-instance (``elem`` 1) where that checkout has no wide entry, and the f32
-GEMM (``btia_gemm_f32``) at phase 2c's six sites, each entry called with
-its own checkout's C signature. K8 (``k8``) runs at ``chip_smoke.py``'s
+bf16 shapes in turns with SDPA on the same operands (parent, this,
+library, library, this, parent), with the bound: this tree's cluster entry
+on the argument array ``wide_args`` packs, the other checkout's through
+its own signature (a block a slice: pointer, stride and dims arrays and
+the two-value plan; or, where that checkout has no wide entry, its
+``btia_attn_simt`` in its bf16 instance, ``elem`` 1), and the f32 GEMM
+(``btia_gemm_f32``) at phase 2c's six sites, each entry called with its
+own checkout's C signature. K8 (``k8``) runs at ``chip_smoke.py``'s
 eight ``INT8_SITES`` and ``INT8_WIDE_K``: each checkout's row quantization
 and int8 GEMM entries (``btia_int8_quant_rows`` + ``btia_int8_gemm``, each
 with its own C signature) on the same bf16 x and (N, K) int8 weight, its
@@ -47,7 +51,11 @@ entries'), in turns with two yardsticks timed only (parent, this,
 ``torch._int_mm`` on the pre-quantized operands (the int8 product alone)
 and bf16 ``torch.addmm`` of the same product with its bias (the path int8
 replaces); each line gives the bound and each time's share of it, and the
-last the 90 launches' sums weighted by ``launches_per_step``. Inputs are
+last the 90 launches' sums weighted by ``launches_per_step``. The
+``f32_wrap`` group times the f32 attention's wrappers (an entry's CUDA
+half, host code included) at phase 2c's f32 cases, each checkout's in a
+process of its own that imports that checkout's package, in turns
+(parent, this, this, parent). Inputs are
 random from a seed; the card's name and power limit are printed first.
 Needs one CUDA card and ``nvcc``.
 """
@@ -92,10 +100,54 @@ def load_native(root: Path, name: str):
     return mod
 
 
-GROUPS = ("k3", "k5", "k4", "k6", "core", "gemm", "f32", "wide", "gemm_f32", "k8")
+GROUPS = ("k3", "k5", "k4", "k6", "core", "gemm", "f32", "wide", "gemm_f32", "k8", "f32_wrap")
+
+
+def wrapper_times(root: Path) -> int:
+    """In a process of its own: each f32 attention case of ``chip_smoke.py``
+    phase 2c through its entry's CUDA half (the wrapper: host code and
+    kernel), ms a call on CUDA events, with `root`'s ``btia_tpu_torch``
+    imported (this file's ``chip_smoke`` for the cases). Prints one JSON
+    object, case -> ms."""
+    sys.path[:0] = [str(root), str(REPO)]
+    import json
+
+    import torch
+
+    import chip_smoke as cs
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(9)
+    out = {}
+    for name, entry, dims in cs.SIMT_F32_CASES:
+        kernel = cs._simt_case(torch, dev, name, entry, dims, torch.float32, g)[0]
+        out[name] = cs.cuda_time_ms(kernel, 20)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def compare_wrappers(torch, parent: Path) -> None:
+    """The f32 attention's wrappers (host code included), the other
+    checkout's and this tree's, each in a process of its own, in turns
+    (parent, this, this, parent)."""
+    import json
+
+    times = {"parent": [], "this": []}
+    for who in ("parent", "this", "this", "parent"):
+        root = parent if who == "parent" else REPO
+        res = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--wrappers", str(root)],
+                             capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise RuntimeError(f"the {who} wrappers failed:\n{res.stderr[-3000:]}")
+        times[who].append(json.loads(res.stdout.strip().splitlines()[-1]))
+    for name in times["this"][0]:
+        p, t = ([round(x[name], 4) for x in times[w]] for w in ("parent", "this"))
+        print(f"f32 wrapper {name}: parent {p} ms, this tree {t} ms", flush=True)
 
 
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--wrappers":
+        return wrapper_times(Path(sys.argv[2]).resolve())
     groups = set(sys.argv[2].split(",")) if len(sys.argv) == 3 else set(GROUPS)
     if len(sys.argv) not in (2, 3) or not (Path(sys.argv[1]) / "btia_tpu_torch" / "csrc").is_dir() \
             or not groups <= set(GROUPS):
@@ -308,6 +360,8 @@ def main() -> int:
         del q, kv, m, mf
 
     compare_f32_and_wide(torch, libs, turns, dev, g, stream, groups)
+    if "f32_wrap" in groups:
+        compare_wrappers(torch, Path(sys.argv[1]).resolve())
     if "k8" in groups:
         compare_k8(torch, libs, time_ms, dev, g, stream)
 
@@ -354,8 +408,11 @@ def main() -> int:
 def attention_problems(torch, entry, dims, dt, dev, g):
     """One attention call of phase 2c as the entry lays it out: (inputs, a
     function that makes fresh outputs and returns (problems, outputs), D,
-    mult_mask). Problems are (q, k, v, o, mask, qscale) (B, H, S, D) views,
-    as ``ops/attention.py::_problem_args`` takes them."""
+    mult_mask, SDPA on the same operands, (flops, bytes) for the bound).
+    Problems are (q, k, v, o, mask, qscale) of (B, H, S, D) views;
+    ``ops/attention.py::operand`` makes them the specs the launchers take."""
+    import torch.nn.functional as F
+
     from btia_tpu_torch.ops.attention import _log2_scale
     from btia_tpu_torch.ops.fused_attn import core_operands
 
@@ -363,7 +420,12 @@ def attention_problems(torch, entry, dims, dt, dev, g):
     HD, c = H * D, _log2_scale(D)
     r = lambda *shape: torch.randn(*shape, generator=g, device=dev).to(dt)
     mask = torch.rand(B, Sk, generator=g, device=dev) > 0.2 if dims.get("masked") else None
+    sdpa_mask = None if mask is None else mask[:, None, None, :]
     heads = lambda x: x.unflatten(2, (H, D)).transpose(1, 2)
+    sdpa = F.scaled_dot_product_attention
+    el = torch.empty((), dtype=dt).element_size()
+    flops = 4 * B * H * Sq * Sk * D
+    io = lambda *ts: sum(t.numel() * t.element_size() for t in ts if t is not None)
     if entry == "core":
         shared = dims.get("shared", False)
         q, kv = (r(Sq if shared else B * Sq, HD) * c), r(B * Sk, 2 * HD)
@@ -375,7 +437,9 @@ def attention_problems(torch, entry, dims, dt, dev, g):
         def make():
             o = torch.empty(B * Sq, HD, dtype=dt, device=dev)
             return [(view(q, "q", Sq), view(kv, "k", Sk), view(kv, "v", Sk), view(o, "o", Sq), mask, 1.0)], (o,)
-        return (q, kv, mask), make, D, True
+        qv = view(q, "q", Sq)
+        library = lambda: sdpa(qv, view(kv, "k", Sk), view(kv, "v", Sk), sdpa_mask)
+        return (q, kv, mask), make, D, True, library, (flops, io(q, kv, mask) + B * Sq * HD * el)
     if entry in ("k3", "k4"):
         q, k, v = r(B, Sq, HD), r(B, Sk, HD), r(B, Sk, HD)
         m = mask if entry == "k3" or mask is None else mask.float()
@@ -383,51 +447,66 @@ def attention_problems(torch, entry, dims, dt, dev, g):
         def make():
             o = torch.empty_like(q)
             return [(heads(q), heads(k), heads(v), heads(o), m, c)], (o,)
-        return (q, k, v, m), make, D, entry == "k4"
+        library = lambda: sdpa(heads(q), heads(k), heads(v), sdpa_mask)
+        return (q, k, v, m), make, D, entry == "k4", library, (flops, io(q, k, v, mask, q))
     if entry == "k5":
         q, k, v = (r(B, S, H, D).transpose(1, 2) for S in (Sq, Sk, Sk))
 
         def make():
             o = torch.empty_like(q)
             return [(q, k, v, o, mask, c)], (o,)
-        return (q, k, v, mask), make, D, False
+        return (q, k, v, mask), make, D, False, lambda: sdpa(q, k, v, sdpa_mask), (flops, io(q, k, v, mask, q))
     xs = [r(B, H, S, D) for S in (Sq, Sq, Sq, Sk, Sk, Sk)]  # k6: qi, ki, vi, qt, kt, vt
 
     def make():
         oi, ot = torch.empty_like(xs[0]), torch.empty_like(xs[3])
         return [(xs[0], xs[4], xs[5], oi, mask, c), (xs[3], xs[1], xs[2], ot, None, c)], (oi, ot)
-    return (xs, mask), make, D, False
+    library = lambda: (sdpa(xs[0], xs[4], xs[5], sdpa_mask), sdpa(xs[3], xs[1], xs[2]))
+    return (xs, mask), make, D, False, library, (2 * flops, io(*xs, mask, xs[0], xs[3]))
 
 
 def compare_f32_and_wide(torch, libs, turns, dev, g, stream, groups):
     """The f32 attention, the wide-head attention and the f32 GEMM, this
-    tree against the other checkout, each through its own C signature."""
+    tree against the other checkout, each through its own C signature; the
+    wide-head attention also beside SDPA, with the bound."""
     import chip_smoke as cs
-    from btia_tpu_torch.ops.attention import _problem_args, simt_plan, wide_plan
+    from btia_tpu_torch.ops.attention import _problem_args, operand, simt_plan, wide_args, wide_plan
     from btia_tpu_torch.ops.fused_attn import GEMM_F32_TILES, gemm_f32_tile
 
     cases = [(n, e, d, torch.float32) for n, e, d in cs.SIMT_F32_CASES] if "f32" in groups else []
     cases += [(n, e, d, torch.bfloat16) for n, e, d in cs.wide_cases() if d["D"] % 8 == 0] if "wide" in groups else []
     for name, entry, dims, dt in cases:
-        keep, make, D, mult = attention_problems(torch, entry, dims, dt, dev, g)
+        keep, make, D, mult, library, bound = attention_problems(torch, entry, dims, dt, dev, g)
 
         def attn(lib, make=make, D=D, mult=mult, dt=dt, keep=keep):
             problems, outs = make()
-            ptrs, strides, dims_c, scales, mask_bytes, masks = _problem_args(problems)
+            problems = [(*map(operand, p[:4]), *p[4:]) for p in problems]
             n = len(problems)
             simt = lib.btia_attn_simt
             if simt.argtypes[8] is ctypes.c_int:  # the earlier signature: one kernel, elem 0 f32 / 1 bf16
+                ptrs, strides, dims_c, scales, mask_bytes, masks = _problem_args(problems)
                 elem = int(dt == torch.bfloat16)
                 return (lambda: simt(ptrs, strides, dims_c, scales, n, D, mask_bytes, int(mult), elem, stream)), outs
             if dt == torch.float32:
+                ptrs, strides, dims_c, scales, mask_bytes, masks = _problem_args(problems)
                 plan = (ctypes.c_int * 3)(*simt_plan(problems, D))
                 return (lambda: simt(ptrs, strides, dims_c, scales, n, D, mask_bytes, int(mult), plan, stream)), outs
-            plan = (ctypes.c_int * 2)(*wide_plan(D))
-            return (lambda: lib.btia_attn_wide(ptrs, strides, dims_c, scales, n, D, mask_bytes, int(mult), plan,
-                                               stream)), outs
+            if lib.btia_attn_wide.argtypes[2] is not ctypes.c_float:  # the earlier signature: a block a slice
+                ptrs, strides, dims_c, scales, mask_bytes, masks = _problem_args(problems)
+                plan = (ctypes.c_int * 2)(*wide_plan(D))
+                return (lambda: lib.btia_attn_wide(ptrs, strides, dims_c, scales, n, D, mask_bytes, int(mult), plan,
+                                                   stream)), outs
+            args, (qs0, qs1), mask_bytes, kept, _ = wide_args(problems, D)
+            sw, ns = wide_plan(D)
+            return (lambda: lib.btia_attn_wide(args, n, qs0, qs1, D, sw, ns, mask_bytes, int(mult), stream)), outs
 
         b_, sq, sk, h = (dims[k] for k in ("B", "Sq", "Sk", "H"))
-        turns(f"{'f32' if dt == torch.float32 else 'wide bf16'} {name}: {b_} x {h} heads of {D}, {sq} <- {sk}", attn)
+        what = f"{'f32' if dt == torch.float32 else 'wide bf16'} {name}: {b_} x {h} heads of {D}, {sq} <- {sk}"
+        if dt == torch.float32:
+            turns(what, attn)
+        else:
+            sw, ns = wide_plan(D)
+            turns(f"{what}, clusters of {ns} x {sw} columns", attn, library, bound)
         del keep, make
         torch.cuda.empty_cache()
 

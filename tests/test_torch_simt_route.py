@@ -154,18 +154,27 @@ class _FakeLib:
             self._attend(ptrs, strides, dims, qscale, p, D, mask_bytes, mult, F32, _slices(D, slice_w))
         return 0
 
-    def btia_attn_wide(self, ptrs, strides, dims, qscale, nprob, dw, mask_bytes, mult, plan, stream):
-        sw, n = plan[:2]
+    def btia_attn_wide(self, args, nprob, qs0, qs1, dw, sw, n, mask_bytes, mult, stream):
+        """The cluster entry: WIDE_ARGS int64 a problem (q, k, v, o, mask
+        pointers; q, k, v, o strides; B, H, Sq, Sk), read back into the
+        arrays ``_attend`` takes."""
         self.calls.append(("btia_attn_wide", BF16, nprob, dw, mult, (sw, n)))
-        if dw % 8 or sw not in (192, 256) or not (n - 1) * sw < dw <= n * sw:
+        if dw % 8 or sw not in (192, 256) or not 2 <= n <= 4 or not (n - 1) * sw < dw <= n * sw:
             return INVALID
+        a = [args[i] for i in range(A.WIDE_ARGS * nprob)]
+        ptrs, strides, dims = [], [], []
+        for p in range(nprob):
+            x = a[A.WIDE_ARGS * p: A.WIDE_ARGS * (p + 1)]
+            ptrs += x[:5]
+            strides += x[5:17]
+            dims += x[17:21]
         for p in range(nprob):
             st = strides[12 * p: 12 * p + 12]
-            if any(ptrs[5 * p + i] % 16 for i in range(4)) or any(x % 8 or x < 0 for x in st) \
+            if any(ptrs[5 * p + i] % 16 or not ptrs[5 * p + i] for i in range(4)) or any(x % 8 or x < 0 for x in st) \
                     or min(st[1], st[2], st[4], st[5], st[7], st[8], st[10], st[11]) == 0 \
                     or (st[9] == 0 and dims[4 * p] > 1):
                 return INVALID
-            self._attend(ptrs, strides, dims, qscale, p, dw, mask_bytes, mult, BF16, _slices(dw, sw, n))
+            self._attend(ptrs, strides, dims, (qs0, qs1), p, dw, mask_bytes, mult, BF16, _slices(dw, sw, n))
         return 0
 
     def btia_gemm_f32(self, a, w, bias, resid, resid_rows, c, M, N, K, tile, vec, stream):
@@ -376,12 +385,18 @@ def test_wide_slices_every_width():
         assert _covers_once(_slices(dw, sw, n), dw) and (n - 1) * sw < dw <= n * sw <= n * 256, D
 
 
+def _specs(problems):
+    """(q, k, v, o, mask, qscale) problems of (B, H, S, D) views with their
+    operands as the launchers take them (``attention.operand``)."""
+    return [(*map(A.operand, p[:4]), *p[4:]) for p in problems]
+
+
 @pytest.mark.parametrize("D", [1, 4, 50, 63, 64, 65, 96, 128, 129, 200, 256, 300, 1000, 1024])
 def test_simt_slices_cover_every_column_once(D):
     """The f32 kernel's slices: one of 64 columns up to D 64, of 128 above;
     a head wider than 128 splits over the grid, every column once."""
     x = torch.zeros(2, 1, 3, D)
-    bq, slice_w, _ = A.simt_plan([(x, x, x, x, None, 1.0)], D)
+    bq, slice_w, _ = A.simt_plan(_specs([(x, x, x, x, None, 1.0)]), D)
     assert slice_w == (64 if D <= 64 else 128) and bq == 32
     assert _covers_once(_slices(D, slice_w), D)
 
@@ -390,9 +405,9 @@ def test_simt_query_rows_a_block():
     """32 query rows a block only where every problem's Sq <= 32 (K6's two
     directions decide together)."""
     a, b = torch.zeros(2, 1, 32, 64), torch.zeros(2, 1, 50, 64)
-    assert A.simt_plan([(a, a, a, a, None, 1.0)], 64)[0] == 32
-    assert A.simt_plan([(b, a, a, b, None, 1.0)], 64)[0] == 64
-    assert A.simt_plan([(a, b, b, a, None, 1.0), (b, a, a, b, None, 1.0)], 64)[0] == 64
+    assert A.simt_plan(_specs([(a, a, a, a, None, 1.0)]), 64)[0] == 32
+    assert A.simt_plan(_specs([(b, a, a, b, None, 1.0)]), 64)[0] == 64
+    assert A.simt_plan(_specs([(a, b, b, a, None, 1.0), (b, a, a, b, None, 1.0)]), 64)[0] == 64
 
 
 # (name, M, K, N, expected block tile): chip_smoke.py's f32 GEMM sites
@@ -436,7 +451,7 @@ def test_simt_load_path_by_alignment(D, H, off, vec):
     """16-byte copies only where every pointer is 16-byte aligned and every
     stride and D are multiples of 4 elements; otherwise 4-byte copies."""
     x = _packed(D, H, off)
-    assert A.simt_plan([(x, x, x, _packed(D, H), None, 1.0)], D)[2] == vec
+    assert A.simt_plan(_specs([(x, x, x, _packed(D, H), None, 1.0)]), D)[2] == vec
 
 
 def test_simt_load_path_k1_value_rows():
@@ -447,28 +462,29 @@ def test_simt_load_path_k1_value_rows():
         k = kv.as_strided((3, 1, 7, hd), (7 * 2 * hd, hd, 2 * hd, 1))
         v = kv.as_strided((3, 1, 7, hd), (7 * 2 * hd, hd, 2 * hd, 1), hd)
         q = torch.zeros(3, 1, 5, hd)
-        assert A.simt_plan([(q, k, v, q, None, 1.0)], hd)[2] == vec, hd
+        assert A.simt_plan(_specs([(q, k, v, q, None, 1.0)]), hd)[2] == vec, hd
 
 
 def test_wide_operand_reads_in_place_or_copies():
     """TMA reads a bf16 view in place where its base is 16-byte aligned and
     its strides are multiples of 8; a shared (batch stride 0) table keeps
     its stride; a misaligned view or a width that is not a multiple of 8
-    is copied (padded to dw)."""
+    is copied (padded to dw). ``_wide_read`` gives the tensor, the pointer
+    and the strides the kernel reads it through."""
     buf = torch.zeros(2 * 5 * 2 * 384 + 8, dtype=BF16)
     x = buf[:-8].view(2, 5, 2 * 384).unflatten(2, (2, 384)).transpose(1, 2)
-    y = A.wide_operand(x, 384)
-    assert y.data_ptr() == x.data_ptr() and y.stride() == x.stride()
+    y, ptr, st = A._wide_read(A.operand(x), 384)
+    assert y is x and ptr == x.data_ptr() and st == list(x.stride()[:3])
     shared = torch.zeros(1, 2, 5, 384, dtype=BF16).expand(4, 2, 5, 384)
-    y = A.wide_operand(shared, 384)
-    assert y.data_ptr() == shared.data_ptr() and y.stride(0) == 0
+    y, ptr, st = A._wide_read(A.operand(shared), 384)
+    assert ptr == shared.data_ptr() and st[0] == 0
     odd = buf[4:-4].view(2, 5, 2 * 384).unflatten(2, (2, 384)).transpose(1, 2)  # 8 bytes off
-    y = A.wide_operand(odd, 384)
-    assert y.data_ptr() % 16 == 0 and torch.equal(y, odd)
+    y, ptr, st = A._wide_read(A.operand(odd), 384)
+    assert ptr == y.data_ptr() and ptr % 16 == 0 and torch.equal(y, odd)
     narrow = torch.randn(2, 2, 5, 300).to(BF16)
-    y = A.wide_operand(narrow, 304)
+    y, ptr, st = A._wide_read(A.operand(narrow), 304)
     assert y.shape[3] == 304 and torch.equal(y[..., :300], narrow) and not y[..., 300:].any()
-    assert all(s % 8 == 0 and s > 0 for s in y.stride()[:3])
+    assert all(s % 8 == 0 and s > 0 for s in st)
 
 
 @pytest.mark.parametrize("entry", ["btia_attn_simt", "btia_attn_wide", "btia_gemm_f32"])
