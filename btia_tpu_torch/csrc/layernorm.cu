@@ -3,8 +3,10 @@
 //
 // Replaces btia_tpu/ops/norms.py:_ln_kernel (wrapper _layernorm_pallas,
 // behind the custom_vjp _layernorm_fast). The wrapper is
-// btia_tpu_torch/ops/norms.py:layernorm_fast; K1's LayerNorm prologue and
-// post-LN epilogue (ops/fused_attn.py:_ln_cuda) launch the same kernel.
+// btia_tpu_torch/ops/norms.py:_layernorm_cuda, behind the entries layernorm
+// (every LayerNorm of the models) and layernorm_fast (the ops API); K1's
+// LayerNorm prologue and post-LN epilogue (ops/fused_attn.py) launch the same
+// kernel.
 //
 // What bounds it on an H100: a few operations per element over one read and
 // one write of every row, so bytes (at the serving step's largest site,
@@ -12,9 +14,13 @@
 // kernel keeps a 512-row block in VMEM; here each row is read once into
 // registers, its sum and sum of squares reduced there (a warp per row up to
 // D = 1024, a 256-thread block per row up to D = 4096), and written once, so
-// no statistic or intermediate goes back to device memory. x and y may be
-// the same buffer: every thread has read its values before the reduction
-// that precedes any write.
+// no statistic or intermediate goes back to device memory. Wider rows (the
+// TPU kernel takes any width) have no register array that holds them: a
+// 512-thread block per row reads the row once for its sums and once more to
+// normalise it, the second read mostly from L2 (a row of 8192 bf16 values is
+// 16 KB). x and y may be the same buffer: every thread has read its values
+// before the reduction that precedes any write, and in the two-read kernel
+// each element is read and then written by the same thread.
 //
 // Arithmetic as the TPU kernel's: mean and mean of squares in f32, var =
 // max(0, mean2 - mean^2), rsqrt(var + eps), then ((x - mean) * inv) * scale
@@ -44,6 +50,7 @@ __device__ __forceinline__ float ln_out(float x, float mean, float inv, float sc
 constexpr int LN_WARP_ROWS = 8;  // rows (warps) per block of the warp-per-row kernel
 constexpr int LN_BLOCK = 256;    // threads of the block-per-row kernel
 constexpr int LN_BLOCK_NPT = 16; // values per thread there: D <= 4096
+constexpr int LN_WIDE_BLOCK = 512; // threads of the two-read kernel (D > 4096)
 
 // A warp per row, NPL <= 32 values per lane (D <= 32 * NPL), lane-strided
 // so that each load instruction reads consecutive elements.
@@ -113,6 +120,40 @@ ln_block_kernel(const T* x, T* y, const float* __restrict__ scale, const float* 
   }
 }
 
+// A block per row for D > LN_BLOCK * LN_BLOCK_NPT, any width: the row is
+// read twice, so nothing bounds D but the int that holds it.
+template <typename T>
+__global__ void __launch_bounds__(LN_WIDE_BLOCK)
+ln_wide_kernel(const T* x, T* y, const float* __restrict__ scale, const float* __restrict__ bias, int D,
+               float eps) {
+  __shared__ float part[2][LN_WIDE_BLOCK / 32];
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const T* xr = x + static_cast<long long>(blockIdx.x) * D;
+  T* yr = y + static_cast<long long>(blockIdx.x) * D;
+  float s = 0.f, s2 = 0.f;
+  for (int c = tid; c < D; c += LN_WIDE_BLOCK) {
+    const float v = to_f32<T>(xr[c]);
+    s += v;
+    s2 += v * v;
+  }
+  s = warp_sum(s);
+  s2 = warp_sum(s2);
+  if (lane == 0) {
+    part[0][warp] = s;
+    part[1][warp] = s2;
+  }
+  __syncthreads();
+  s = lane < LN_WIDE_BLOCK / 32 ? part[0][lane] : 0.f;
+  s2 = lane < LN_WIDE_BLOCK / 32 ? part[1][lane] : 0.f;
+  s = warp_sum(s);
+  s2 = warp_sum(s2);
+  const float mean = s / D;
+  const float inv = rsqrtf(fmaxf(0.f, s2 / D - mean * mean) + eps);
+  for (int c = tid; c < D; c += LN_WIDE_BLOCK) {
+    yr[c] = from_f32<T>(ln_out(to_f32<T>(xr[c]), mean, inv, scale[c], bias[c]));
+  }
+}
+
 template <typename T>
 static int launch_ln(const void* x, void* y, const float* scale, const float* bias, int M, int D, float eps,
                      cudaStream_t stream) {
@@ -132,14 +173,13 @@ static int launch_ln(const void* x, void* y, const float* scale, const float* bi
   } else if (D <= LN_BLOCK * LN_BLOCK_NPT) {
     ln_block_kernel<T><<<M, LN_BLOCK, 0, stream>>>(xt, yt, scale, bias, D, eps);
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    ln_wide_kernel<T><<<M, LN_WIDE_BLOCK, 0, stream>>>(xt, yt, scale, bias, D, eps);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // x, y: (M, D) row-major, bf16 (is_f32 == 0) or f32; y may be x. scale,
-// bias: (D,) f32. Returns a CUDA error code; cudaErrorInvalidValue for D
-// above 4096.
+// bias: (D,) f32, any D >= 1. Returns a CUDA error code.
 extern "C" int btia_layernorm(const void* x, void* y, const void* scale, const void* bias, int M, int D, float eps,
                               int is_f32, void* stream) {
   const float* sc = static_cast<const float*>(scale);

@@ -156,9 +156,10 @@ class LayerNormParams(nn.Module):
 
 
 class LayerNorm(LayerNormParams):
-    """Fast-variance f32 LayerNorm, output in the compute dtype. ``fast`` is
-    passed as the reference passes it (``layers.py:260-261``); ``layernorm``
-    ignores it, as the reference's does."""
+    """Fast-variance f32 LayerNorm, output in the compute dtype: K7 on the
+    card, its plain twin on the CPU (``ops/norms.py::layernorm``). ``fast``
+    is passed as the reference passes it (``layers.py:260-261``);
+    ``layernorm`` ignores it, as the reference's does."""
 
     def __init__(self, dim: int, policy: DTypePolicy, eps: float = 1e-6, device=None):
         super().__init__(dim, eps, device)

@@ -55,8 +55,8 @@ rank runs the single-device entry on its ``num_heads // tp`` heads: the
 site cut to its prologue (the q/kv pre-LNs stay in the chain; no residual,
 no post-LN) with the bias share ``(bo.float() / tp).to(bo.dtype)``. The
 partial outputs are summed over the model group, then the residual (the
-query table on K2's road) and the post-LN (the plain ``layernorm``, as the
-reference's) act on the sum. The gate reads the shard's shapes: the local
+query table on K2's road) and the post-LN (``layernorm``: K7 on the card)
+act on the sum. The gate reads the shard's shapes: the local
 batch and the (HD / tp)-wide projections. A site that fails it takes the
 unfused road split the same way (its projections on the shard's columns,
 the attention on its heads, the output product summed before its bias),

@@ -1,18 +1,22 @@
 """LayerNorm with the reference's fast-variance formula, and K7.
 
-The port of ``btia_tpu/ops/norms.py``. ``layernorm`` routes to ``_ln_exact``
-whatever ``fast`` says, as the reference does: f32 statistics, var =
-max(0, E[x^2] - E[x]^2), rsqrt — the formula flax's ``nn.LayerNorm`` uses
-(``use_fast_variance=True``). ``F.layer_norm`` computes the variance in two
-passes and would not round the same way, so it is not used.
+The port of ``btia_tpu/ops/norms.py``. The formula is the reference's
+``_ln_exact``: f32 statistics, var = max(0, E[x^2] - E[x]^2), rsqrt — the
+one flax's ``nn.LayerNorm`` uses (``use_fast_variance=True``).
+``F.layer_norm`` computes the variance in two passes and would not round the
+same way, so it is not used.
 
 K7, the single-pass row kernel (``_ln_kernel`` behind ``_layernorm_pallas``
-and the custom_vjp ``_layernorm_fast``), is ``layernorm_fast``: a CUDA
-tensor launches ``csrc/layernorm.cu`` (counted in ``.launches``) or raises,
-a CPU tensor takes the plain twin, which is ``_ln_exact`` itself (the TPU
-kernel computes the same arithmetic). Its backward is the vjp of
-``_ln_exact``. The model's LayerNorms do not route through K7, as the
-reference's do not.
+and the custom_vjp ``_layernorm_fast``), is ``csrc/layernorm.cu``. Two
+entries reach it, each with its own launch count: ``layernorm``, which
+every LayerNorm of the models calls, and ``layernorm_fast``, the ops API's.
+On a CUDA tensor each launches K7 (its backward the vjp of ``_ln_exact``, as
+the reference's ``_layernorm_fast_bwd``) or raises; on a CPU tensor each is
+``_ln_exact`` itself, the kernel's plain twin (the TPU kernel computes the
+same arithmetic). The reference's ``layernorm`` ignores ``fast`` and keeps
+the plain formula on every device: there XLA fuses it into one pass over
+each row. Eager PyTorch runs it as a chain of about a dozen f32 passes over
+device memory, so on the card the model's LayerNorms go to K7.
 """
 
 from __future__ import annotations
@@ -20,9 +24,6 @@ from __future__ import annotations
 import torch
 
 from btia_tpu_torch.ops import _native
-
-# The widest row K7 takes (a 256-thread block of 16 values a thread).
-LN_MAX_WIDTH = 4096
 
 
 def _ln_exact(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float) -> torch.Tensor:
@@ -43,10 +44,14 @@ def layernorm(
 ) -> torch.Tensor:
     """Normalize over the last axis in f32. Returns x.dtype.
 
-    ``fast`` is accepted and ignored, as in the reference, whose measurement
-    found its kernel level with the plain formula; K7 is ``layernorm_fast``."""
+    A CUDA tensor launches K7 (counted in ``.launches``) or raises; a CPU
+    tensor takes ``_ln_exact``. ``fast`` is accepted and ignored, as in the
+    reference: the device decides."""
     del fast
-    return _ln_exact(x, scale, bias, eps)
+    return _native.route(layernorm, x, _LayerNormFast.apply, _ln_exact, x, scale, bias, eps)
+
+
+layernorm.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -58,15 +63,13 @@ _LN_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 def _layernorm_cuda(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float,
                     out: torch.Tensor = None) -> torch.Tensor:
-    """Launch K7 over the rows of x's last axis; `out`, if given, is a
-    contiguous tensor of x's shape and may be x (in place). Counts nothing:
-    ``layernorm_fast`` counts its own launches, and K1's prologue and
-    post-LN launch this as part of K1's chain."""
+    """Launch K7 over the rows of x's last axis, at any width; `out`, if
+    given, is a contiguous tensor of x's shape and may be x (in place).
+    Counts nothing: its entries count their own launches, and K1's prologue
+    and post-LN launch this as part of K1's chain."""
     D = x.shape[-1]
-    if x.dtype not in _LN_DTYPES or not 1 <= D <= LN_MAX_WIDTH:
-        raise ValueError(
-            f"K7 kernel takes bf16 or f32 rows of width 1..{LN_MAX_WIDTH}, got {x.dtype} width {D}"
-        )
+    if x.dtype not in _LN_DTYPES or D < 1:
+        raise ValueError(f"K7 kernel takes bf16 or f32 rows of width 1 or more, got {x.dtype} width {D}")
     x = x.contiguous()
     _native.require(x, "layernorm x", x.dtype)
     out = torch.empty_like(x) if out is None else out
@@ -91,7 +94,7 @@ class _LayerNormFast(torch.autograd.Function):
     def forward(ctx, x, scale, bias, eps):
         ctx.save_for_backward(x, scale, bias)
         ctx.eps = eps
-        return _native.route(layernorm_fast, x, _layernorm_cuda, _ln_exact, x, scale, bias, eps)
+        return _layernorm_cuda(x, scale, bias, eps)
 
     @staticmethod
     def backward(ctx, g):
@@ -108,11 +111,11 @@ class _LayerNormFast(torch.autograd.Function):
 def layernorm_fast(
     x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, eps: float = 1e-6
 ) -> torch.Tensor:
-    """K7: LayerNorm over the last axis in one read and one write of each row
-    (bf16 or f32 in, the same out; f32 statistics). A CUDA tensor launches
-    the kernel (counted in ``.launches``) or raises; a CPU tensor takes the
-    plain twin."""
-    return _LayerNormFast.apply(x, scale, bias, eps)
+    """K7 through the ops API: LayerNorm over the last axis in one pass over
+    each row (bf16 or f32 in, the same out; f32 statistics). A CUDA tensor
+    launches the kernel (counted in ``.launches``) or raises; a CPU tensor
+    takes the plain twin."""
+    return _native.route(layernorm_fast, x, _LayerNormFast.apply, _ln_exact, x, scale, bias, eps)
 
 
 layernorm_fast.launches = 0

@@ -174,6 +174,8 @@ class Trainer:
                 "examples_per_sec": n_items / max(wall, 1e-6),
                 **{f"val_{k}": v for k, v in eval_metrics.items()},
             }
+            if self.device.type == "cuda":  # this process's card, since it started
+                row["peak_mem_gib"] = torch.cuda.max_memory_allocated(self.device) / 2**30
             history.append(row)
             self.logger.log(split="epoch", **row)
             # Async: the next epoch's steps overlap the checkpoint write.

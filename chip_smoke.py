@@ -59,7 +59,8 @@ Phases, each fatal on failure:
    transposed views, at a batch of 1 and with a broadcast batch; K6 at
    D = 16 to 256 on strided views (above 128 through ``bicross_attention(
    impl="pallas")``) and its fully masked row against the mean of V; K7's
-   block-per-row kernel at small shapes; each Function's backward against
+   block-per-row kernel at small shapes and its two-read kernel at widths
+   6144 and 8192 (at 8192 also in place); each Function's backward against
    autograd through its twin;
 2c. the f32 and wide-head kernels: the CUDA-core attention of
    ``csrc/attn_simt.cu`` through each entry's CUDA half in f32 (K1's core at
@@ -85,19 +86,24 @@ Phases, each fatal on failure:
    and agree with the same model run on the CPU;
 4. run the bench-shaped serve step (encode_image -> answer_questions ->
    top-k) with every launch counter set to 0 just before one step and read
-   just after: K1 = 20, K2 = 1, K3 = 24, the others 0 launches; a second
+   just after: K1 = 20, K2 = 1, K3 = 24, K7 = 74 (every standalone
+   LayerNorm), the others 0 launches; a second
    step prepares none of K1/K2's weights again (``prepare_once``); then
    time a few steps, counting the core's tensor-map cache hits; the same
-   step under ``set_attention_impl("xla")`` (every
-   counter 0) and under ``disable_fused()`` (K3 = 24, K4 = 21, the others
-   0), each timed, its logits within a tenth of the largest logit of the
-   default step's; then the step's 74 standalone LayerNorms (the plain
-   formula) counted by shape, and K7, the plain formula and
-   ``F.layer_norm`` timed at each;
+   step under ``set_attention_impl("xla")`` (K7 = 103, the others 0), under
+   ``disable_fused()`` (K3 = 24, K4 = 21, K7 = 103, the others 0) and with
+   the models' LayerNorms on the plain formula (``plain_layernorms``, the
+   road before they reached K7: K7 = 0), each timed, its logits within a
+   tenth of the largest logit of the default step's; then the step's 74
+   standalone LayerNorms counted by shape, each one K7 launch through
+   ``layernorm`` and the plain formula never on a CUDA tensor, and K7, the
+   plain formula and ``F.layer_norm`` timed at each;
 4b. the same step on ``streaming_vitl`` with ``model.int8_ffn`` (same
-   seeded weights): K1 = 20, K2 = 1, K3 = 24, K8 = 90, the others 0,
-   timed steps (no weight prepared again after the first step) and peak
-   memory, logits against the same model on the CPU,
+   seeded weights): K1 = 20, K2 = 1, K3 = 24, K7 = 74 (held as phase 4's),
+   K8 = 90, the others 0, timed steps (no weight prepared again after the
+   first step) and peak memory, the same step timed on the plain
+   LayerNorms with its logits against K7's, logits against the same model
+   on the CPU,
    and top-1 agreement with the bf16 model (reported only);
 4c. ``StreamingServer`` over the int8 model (16 x 128, top-5, two decode
    threads) on 40 requests of 1-128 template questions with ingest-size
@@ -110,63 +116,70 @@ Phases, each fatal on failure:
    synthetic VQA-Med corpus (64 images, 128 training pairs): one epoch with
    its val evaluation and checkpoint, ten steps on one repeated batch (the
    loss must be finite and fall), one of them with every counter set to 0
-   just before and read just after (K1 = 20, K3 = 13, K4 = 20, the others
-   0: K4 runs in the backward of every K1 site), a timed run of steps,
-   the test evaluation at batch 128 (K1 = 20, K3 = 13, K4 = 0), a checkpoint
-   restore round trip, and one step's loss and gradients on the card
-   against the same step on the CPU (full depth, dropout 0);
+   just before and read just after (K1 = 20, K3 = 13, K4 = 20, K7 = 79,
+   the others 0: K4 runs in the backward of every K1 site), a timed run of
+   steps, the same steps on the plain LayerNorms and an eval forward's
+   logits on both roads, the test evaluation at batch 128 (K1 = 20, K3 =
+   13, K4 = 0, K7 = 51), a checkpoint restore round trip, and one step's
+   loss and gradients on the card against the same step on the CPU (full
+   depth, dropout 0);
 5b. full-width ``vqa_med_full`` with ``model.num_heads`` 6, 4 and 3 (BTIA
    and the AD head at head widths 128, 192 and 256) through ``Trainer``:
    for each, one train step with every counter set to 0 just before and
-   read just after (K1 = 20, K3 = 13, K4 = 20), then one eval forward of the
-   batch on the card (K1 = 20, K3 = 13) against the same model and weights
-   on the CPU on two rows, logits within a tenth of the largest;
+   read just after (K1 = 20, K3 = 13, K4 = 20, K7 = 79), then one eval
+   forward of the batch on the card (K1 = 20, K3 = 13, K7 = 51) against the
+   same model and weights on the CPU on two rows, logits within a tenth of
+   the largest;
 5d. full-width ``vqa_med_full`` with ``model.num_heads`` 2: BTIA and the AD
    head at head width 384 on the wide-head kernel, as phase 5b: one train
-   step (K1 20 / K3 13 / K4 20, the wide-head kernel 17: 8 BTIA cores, the
-   AD head, 8 K4 calls in the backward) and an eval forward (K1 20 / K3 13,
-   wide 9) against the CPU, then five eval forwards and five train steps
+   step (K1 20 / K3 13 / K4 20 / K7 79, the wide-head kernel 17: 8 BTIA
+   cores, the AD head, 8 K4 calls in the backward) and an eval forward (K1
+   20 / K3 13 / K7 51, wide 9) against the CPU, then five eval forwards and five train steps
    timed (host clock, ending in a synchronize);
 5c. full-width ``pathvqa_vit`` (ViT-B/16, BERT-base, 2 BTIA layers, an AD
    head of 256 answer queries over 4096 answers) through ``Trainer`` on a
    synthetic PathVQA corpus, ``train.steps_per_call`` cut from 8 to 1: one
    train step at batch 64 with every counter set to 0 just before and read
-   just after (K1 = 16, K3 = 13, K4 = 16: the head's 256 x 229 score tile is
-   above 32768, so it goes unfused to K3), then one eval forward (K1 = 16,
-   K3 = 13) against the same model and weights on the CPU on two rows,
+   just after (K1 = 16, K3 = 13, K4 = 16, K7 = 67: the head's 256 x 229
+   score tile is above 32768, so it goes unfused to K3), then one eval
+   forward (K1 = 16, K3 = 13, K7 = 47) against the same model and weights on the CPU on two rows,
    logits within a tenth of the largest;
 6. full-width ``vqa_rad_lstm`` (ResNet-50 at 224, bi-LSTM 512, hidden 512,
    8 heads of 64, 2 BTIA layers, an mlp head over 512 answers), bf16: the
    16 x 128 serve step with every counter (K1..K8 and the two CUDA-core
    kernels) set to 0 just before and read just after (K1 4: its BTIA
-   sites), timed, one image's 64 questions against the CPU within a tenth
-   of the largest logit; three ``Predictor`` requests (no kernel: buckets
-   under the batch floor); one ``Trainer`` call of its registered 8 scanned
-   steps at batch 64 on a synthetic VQA-RAD corpus (K1 32, K4 32; finite
-   losses, the BatchNorm statistics moved); one eval forward (K1 4) against
+   sites; K7 6), timed, and timed on the plain LayerNorms with its logits
+   against K7's, one image's 64 questions against the CPU within a tenth
+   of the largest logit; three ``Predictor`` requests (buckets under the
+   batch floor: K7 14 each, no other kernel); one ``Trainer`` call of its
+   registered 8 scanned steps at batch 64 on a synthetic VQA-RAD corpus (K1
+   32, K4 32, K7 112; finite losses, the BatchNorm statistics moved), then
+   one call each on the plain LayerNorms and on K7 again, timed; one eval
+   forward (K1 4, K7 6) against
    the CPU on two rows; one train step against the CPU under each policy
    (bf16: loss, gradient norm and BatchNorm statistics within phase 5's
    bounds; fp32: the gradients too, K1 and K4 on the CUDA-core kernels; see
    ``train_step_card_vs_cpu``);
 6b. full-width ``slake_bert`` (ResNet-50, BERT-base, 2 BTIA layers, mlp
-   head), bf16, not timed: one serve step (K1 16: 12 BERT and 4 BTIA sites),
-   one train step through ``Trainer`` (K1 16, K4 16), one eval forward, each
-   against the CPU;
+   head), bf16, not timed: one serve step (K1 16: 12 BERT and 4 BTIA sites;
+   K7 19), one train step through ``Trainer`` (K1 16, K4 16, K7 39), one
+   eval forward, each against the CPU;
 6c. the fp32 policy against the CPU within 1e-3 of the largest logit (f32
    on both sides with TF32 off, the convolutions' too): ``vqa_rad_lstm``'s
    eval forward at batch 64 (K1 4, each on 3 f32 GEMMs and the CUDA-core
-   attention), ``streaming_vitl``'s serve step of 2 images x 32 questions
-   (K1 20, K2 1, K3 24; CUDA-core attention 45, f32 GEMM 62), and
-   ``tiny_test`` (no kernel), one train step (loss and gradient norm within
-   1e-4) and a ``Predictor`` answer;
+   attention; K7 6 on f32 rows), ``streaming_vitl``'s serve step of 2
+   images x 32 questions (K1 20, K2 1, K3 24, K7 74; CUDA-core attention 45,
+   f32 GEMM 62), and ``tiny_test`` (K7 only: 24), one train step (loss and
+   gradient norm within 1e-4) and a ``Predictor`` answer;
 7. the user's entry points, each with every counter set to 0 just before
    and read just after: (7a) ``btia_tpu_torch.cli.main`` in this process,
    ``train`` (one epoch of full-width ``vqa_rad_lstm`` at batch 64 on a
    synthetic VQA-RAD corpus of 160 images: K1 4 a train step and a val
-   batch, K4 4 a train step), ``eval`` (K1 4 a batch), ``predict`` on the
-   corpus's DICOM (no kernel) and ``serve`` over the image directory with
-   top-3, question dedup and batches of 8 images x 16 questions (K1 4 a
-   batch, warmup included; every image answered once); (7b) a
+   batch, K4 4 a train step, K7 14 a train step and 6 a val batch),
+   ``eval`` (K1 4, K7 6 a batch), ``predict`` on the corpus's DICOM (K7 14)
+   and ``serve`` over the image directory with top-3, question dedup and
+   batches of 8 images x 16 questions (K1 4, K7 6 a batch, warmup included;
+   every image answered once); (7b) a
    reference-layout state_dict of a seeded ``vqa_rad_lstm`` (the converter's
    key rule run backwards) through ``cli convert``, then
    ``Predictor.from_checkpoint`` of the workdir against the seeded model on
@@ -174,13 +187,13 @@ Phases, each fatal on failure:
    btia_tpu_torch.cli bench`` as a subprocess at its defaults
    (``streaming_vitl``, 16 x 128, 20 steps x 3 windows), its JSON line, then
    the bench's ``run`` in this process on ``streaming_vitl`` (K1 20, K2 1,
-   K3 24 a step) and ``vqa_rad_lstm`` (K1 4 a step), each ``step_ms`` beside
+   K3 24, K7 74 a step) and ``vqa_rad_lstm`` (K1 4, K7 6 a step), each ``step_ms`` beside
    phases 4's and 6's; (7d) one ``vqa_med_full`` train step at batch 64 and
    dropout 0.1 without and with ``model.remat`` (same weights, batch and
    step generator): equal losses, gradients within 1e-6 of the largest (or
    the plain step's own rerun spread), the peak memory of each, and the
-   remat step's launches (K1 28, K3 25, K4 20: the backward recomputes the
-   8 BTIA sites and the 12 ViT-B blocks); (7e) the profiling hooks around
+   remat step's launches (K1 28, K3 25, K4 20, K7 111: the backward
+   recomputes the 8 BTIA sites and the 12 ViT-B blocks); (7e) the profiling hooks around
    the bench's serve step of ``vqa_rad_lstm`` (K1 4 a step): ``Timer.span``
    on CUDA events against the host clock, ``fetch``, ``memory_stats`` and a
    ``trace`` that holds the card's kernels;
@@ -192,22 +205,31 @@ Phases, each fatal on failure:
    full-width ``streaming_vitl`` under its registered mesh (world 2 ->
    data 1, model 2) through ``make_sharded_serve_fn`` at 4 images x 64
    questions, the same seeded weights as a one-process step on the card:
-   logits within a tenth of the largest, K1 20 / K2 1 / K3 24 a rank (every
-   site on the rank's 6 or 8 heads), the bytes all-reduced a step equal to
+   logits within a tenth of the largest, K1 20 / K2 1 / K3 24 / K7 86 a
+   rank (every site on the rank's 6 or 8 heads; BERT's 12 post-LNs act on
+   the model group's sum, outside K1), the bytes all-reduced a step equal to
    ``p8_reckoned_bytes``, each rank's peak memory and step time beside the
    one-process step's; (8b) ``Predictor(mesh=)`` on that model, a 1-image
    ``predict`` and ``predict_batch`` against a one-process Predictor; (8d)
    the same model with ``model.int8_ffn`` under the same mesh, fc2 on K8's
    row-parallel road: logits within a tenth of the largest of the
-   one-process int8 step's, K1 20 / K2 1 / K3 24 / K8 90 a rank, the bytes
-   all-reduced equal to ``p8_reckoned_bytes``' int8 reckoning; (8c)
-   one data-parallel (2, 1) ``vqa_rad_lstm`` train step at 128 rows (64 a
-   rank), bf16 and fp32, against the one-process step at 128 within
-   ``P8_TRAIN_BOUNDS`` (K1 4 / K4 4 a rank in bf16).
+   one-process int8 step's, K1 20 / K2 1 / K3 24 / K7 86 / K8 90 a rank,
+   the bytes all-reduced equal to ``p8_reckoned_bytes``' int8 reckoning;
+   (8e) one tensor-parallel train step of ``streaming_vitl`` under the same
+   mesh, at its registered widths with its depth cut to 2 ViT blocks, 2
+   BERT layers and 2 BTIA layers, bf16, dropout 0, on 8 images x 8
+   questions, against the one-process step on the card: the loss, the
+   global gradient norm and every parameter after the step within
+   ``P8E_BOUNDS``, K1 6 / K2 1 / K3 2 / K4 7 / K7 27 a rank (``P8E_COUNTS``),
+   each rank's peak memory; (8c) one data-parallel (2, 1) ``vqa_rad_lstm``
+   train step at 128 rows (64 a rank), bf16 and fp32, against the
+   one-process step at 128 within ``P8_TRAIN_BOUNDS`` (K1 4 / K4 4 / K7 14
+   a rank in bf16).
 
 With ``--profile`` it also runs one serve step, one int8 serve step, one
-train step and one ``vqa_rad_lstm`` serve step under ``torch.profiler``
-and prints the device time by kernel and the device's idle share.
+train step, one ``vqa_rad_lstm`` serve step and one ``vqa_rad_lstm``
+``Trainer`` call under ``torch.profiler`` and prints the device time by
+kernel and by kind of PyTorch kernel, and the device's idle share.
 
 It prints a ``summary`` line, a ``kernels`` JSON line of the eight kernel
 entries, the two CUDA-core kernels and the wide-head kernel (``launches``
@@ -217,7 +239,8 @@ train step and eval forward, the serve steps and train runs of phases 6
 and 6b, the fp32 forwards of phase 6c and the CLI commands, the converted
 checkpoint's forward, the bench runs, the remat train step and the
 profiled serve steps of phase 7, and each rank's serve step, Predictor
-calls and train steps of phase 8;
+calls and train steps of phase 8; K7's count is its two entries,
+``layernorm`` and ``layernorm_fast``, together;
 ``launches_by_path`` splits it), the total run time, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``. It exits non-zero, and prints no
 result, when no CUDA device is present or the package is missing.
@@ -229,6 +252,7 @@ import contextlib
 import copy
 import ctypes
 import json
+import math
 import re
 import subprocess
 import sys
@@ -247,10 +271,16 @@ B_IMG, N_Q, SEQ, N_IMG_TOK = 16, 128, 32, 50  # serving-step shape
 TIMED_STEPS = 5
 B_TRAIN, N_VIT_B = 64, 197  # vqa_med_full: train batch, ViT-B/16 tokens
 REPEATS, TIMED_TRAIN_STEPS = 10, 5
-# Launches (K1, K2, K3, K4) of one vqa_med_full step. Train: 12 BERT + 8 BTIA
-# K1 sites, 12 ViT blocks + the AD head's 2048 x 229 attention on K3 (score
-# tiles above 32768), and K4 in the backward of each K1 site (batch 64).
-TRAIN_COUNTS, EVAL_COUNTS = [20, 0, 13, 20, 0, 0, 0, 0], [20, 0, 13, 0, 0, 0, 0, 0]
+# Launches (K1, K2, K3, K4, K7) of one vqa_med_full step. Train: 12 BERT + 8
+# BTIA K1 sites, 12 ViT blocks + the AD head's 2048 x 229 attention on K3
+# (score tiles above 32768), and K4 in the backward of each K1 site (batch
+# 64). K7 (every standalone LayerNorm, ``layernorm``): the forward's 63 (ViT
+# 2 x 12 + 1, img_ln, BERT's embedding LN and 12 ln_mlp, at train time also
+# its 12 post-LNs, txt_ln, BTIA's 8, the unfused AD head's kv LN, ln_mlp and
+# ln_out) and 16 more in the backward, whose recompute of each BTIA site
+# runs its q and kv LNs (at dropout 0 the post-LNs run in K1's chain and
+# again in the backward's recompute: 79 too); an eval forward 51.
+TRAIN_COUNTS, EVAL_COUNTS = [20, 0, 13, 20, 0, 0, 79, 0], [20, 0, 13, 0, 0, 0, 51, 0]
 # model.num_heads of a 768-wide model that give K1-K4 their wider tiles:
 # head widths 128, 192 and 256.
 WIDE_HEADS = (6, 4, 3)
@@ -271,15 +301,18 @@ INT8_SITES = (
 # K8 at a K above 4096, where its row quantization takes its two-pass
 # kernel (no FFN of a registered config is that wide): held like the eight.
 INT8_WIDE_K = ("wide_k", 4096, 8192, 1024, "gelu_tanh", 0)
-SERVE_COUNTS, INT8_COUNTS = [20, 1, 24, 0, 0, 0, 0, 0], [20, 1, 24, 0, 0, 0, 0, 90]
+# K7 74 a serve step: its standalone LayerNorms (SERVE_LN_CENSUS).
+SERVE_COUNTS, INT8_COUNTS = [20, 1, 24, 0, 0, 0, 74, 0], [20, 1, 24, 0, 0, 0, 74, 90]
 # One Predictor call (one image, a bucket of at most 32 questions): every
 # K1/K2 site is under the batch floor of 64 and takes the unfused road (its
 # short attention on the plain road, under K4's floor too); ViT-L keeps K3.
-PREDICT_COUNTS = [0, 0, 24, 0, 0, 0, 0, 0]
+# K7 103: the serve step's 74, the 12 BERT post-LNs, the q and kv LNs of the
+# 8 BTIA sites and the AD head's kv LN, which the unfused sites run alone.
+PREDICT_COUNTS = [0, 0, 24, 0, 0, 0, 103, 0]
 # pathvqa_vit (phase 5c): 12 BERT + 4 BTIA K1 sites, 12 ViT blocks + the AD
 # head's 256 x 229 attention (above 32768: unfused, K3), K4 in the backward
-# of each K1 site.
-PATHVQA_TRAIN_COUNTS, PATHVQA_EVAL_COUNTS = [16, 0, 13, 16, 0, 0, 0, 0], [16, 0, 13, 0, 0, 0, 0, 0]
+# of each K1 site; K7 as vqa_med_full's with 2 BTIA layers (59 + 8; 47).
+PATHVQA_TRAIN_COUNTS, PATHVQA_EVAL_COUNTS = [16, 0, 13, 16, 0, 0, 67, 0], [16, 0, 13, 0, 0, 0, 47, 0]
 # K1/K2's projection GEMM at the serve step's shapes: (name, M, K, N, rows
 # the residual repeats over (0: none), launches per serve step). Text rows
 # 2048 x 32, BTIA image rows 2048 x 50, the AD head's 2048 x 82 kv rows and
@@ -334,8 +367,15 @@ K5_WIDTHS = (8, 40, 64, 96, 100, 128, 136, 192, 200, 256)
 K6_WIDTHS = (16, 32, 48, 80, 100, 112, 128, 136, 192, 256)
 # Counts are listed K1..K8 (KERNELS). The serve step with the fused sites
 # disabled: each K1/K2 site's unfused road sends its short attention
-# (2048 rows, D = 64) to K4: 12 BERT + 8 BTIA + 1 AD head; ViT keeps K3.
-NO_FUSED_COUNTS = [0, 0, 24, 21, 0, 0, 0, 0]
+# (2048 rows, D = 64) to K4: 12 BERT + 8 BTIA + 1 AD head; ViT keeps K3;
+# K7 103, as a Predictor call's. Under set_attention_impl("xla") no
+# attention kernel runs, and the LayerNorms the same 103.
+NO_FUSED_COUNTS = [0, 0, 24, 21, 0, 0, 103, 0]
+XLA_COUNTS = [0, 0, 0, 0, 0, 0, 103, 0]
+# The serve step with the models' LayerNorms on the plain formula
+# (``plain_layernorms``: the road before they reached K7), for the before /
+# after comparison within one run.
+PLAIN_LN_SERVE_COUNTS = SERVE_COUNTS[:6] + [0, 0]
 # K4 at those 21 launches' shapes (name, Sq, Sk, masked): 12 BERT sites
 # 32 <- 32, 4 BTIA img <- txt 50 <- 32 and 4 txt <- img 32 <- 50 (dense),
 # the AD head's 64 answer queries over 82 tokens.
@@ -359,7 +399,7 @@ K7_SHAPES = (("vit_l", B_IMG * 577, 1024), ("btia_image", B_IMG * N_Q * N_IMG_TO
 # bicross_attention(impl="pallas") and bicross_bshd on K6; layernorm_fast at
 # the four K7 shapes in bf16 and at ViT-L's in f32.
 OPS_COUNTS = [0, 0, 0, 0, 3, 2, 5, 0]
-# Standalone LayerNorms (the plain formula) of one bf16 serve step, by
+# Standalone LayerNorms (each one K7 launch) of one bf16 serve step, by
 # (rows, width): ViT-L's 24 x 2 + final; BERT's embedding LN and 12 ln_mlp,
 # txt_ln and BTIA's 4 ln_txt2 on the 2048 x 32 text tokens; img_ln on the
 # 16 x 50 pooled tokens; BTIA's 4 ln_img2; the AD head's ln_mlp and ln_out.
@@ -411,26 +451,35 @@ NEW_KERNELS = ("simt_attention", "gemm_f32", "wide_attention")
 # Phase 6, vqa_rad_lstm (ResNet-50, bi-LSTM, 2 BTIA layers at 8 heads of
 # 64, mlp head), bf16: K1 at its 4 BTIA sites (49 image tokens, 32 text) a
 # forward; in training K4 in the backward of each. Counts K1..K8 and then
-# NEW_KERNELS: the two CUDA-core kernels and the wide-head kernel.
-LSTM_SERVE_COUNTS = [4, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]
-LSTM_TRAIN_STEP_COUNTS = [4, 0, 0, 4, 0, 0, 0, 0, 0, 0, 0]
+# NEW_KERNELS: the two CUDA-core kernels and the wide-head kernel. K7: img_ln,
+# txt_ln and BTIA's 4 a forward; a train step 8 more in the backward (the
+# recompute of each BTIA site's q and kv LNs); a Predictor request (under
+# the batch floor: the sites unfused) 14, the sites' 8 LNs outside K1.
+LSTM_SERVE_COUNTS = [4, 0, 0, 0, 0, 0, 6, 0, 0, 0, 0]
+LSTM_TRAIN_STEP_COUNTS = [4, 0, 0, 4, 0, 0, 14, 0, 0, 0, 0]
+LSTM_PREDICT_COUNTS = [0, 0, 0, 0, 0, 0, 14, 0, 0, 0, 0]
 # Phase 6b, slake_bert (ResNet-50, BERT-base, 2 BTIA layers at 12 heads of
-# 64, mlp head): 12 BERT + 4 BTIA K1 sites.
-SLAKE_SERVE_COUNTS = [16, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]
-SLAKE_TRAIN_COUNTS = [16, 0, 0, 16, 0, 0, 0, 0, 0, 0, 0]
+# 64, mlp head): 12 BERT + 4 BTIA K1 sites. K7: img_ln, BERT's 13, txt_ln
+# and BTIA's 4 a forward; a train step adds BERT's 12 post-LNs (dropout
+# outside K1) and 8 in the backward.
+SLAKE_SERVE_COUNTS = [16, 0, 0, 0, 0, 0, 19, 0, 0, 0, 0]
+SLAKE_TRAIN_COUNTS = [16, 0, 0, 16, 0, 0, 39, 0, 0, 0, 0]
 # Phase 6c, the fp32 policy: vqa_rad_lstm's eval forward at batch 64 (4 K1
 # sites, each 3 f32 GEMMs and one CUDA-core core); streaming_vitl's serve
 # step of 2 images x 32 questions (20 K1 sites, K2, 24 ViT-L blocks on K3,
 # all on the CUDA-core attention: 45; 60 + 2 f32 GEMMs); tiny_test none.
-F32_LSTM_COUNTS = [4, 0, 0, 0, 0, 0, 0, 0, 4, 12, 0]
-F32_VITL_COUNTS = [20, 1, 24, 0, 0, 0, 0, 0, 45, 62, 0]
-F32_TINY_COUNTS = [0] * 11
+# K7 as the bf16 forwards' (6, 74); tiny_test's train step at 4 rows and
+# its two Predictor forwards of 3 questions, all under the batch floor: 8
+# each (img_ln, txt_ln, its BTIA layer's 2 and its unfused sites' 4).
+F32_LSTM_COUNTS = [4, 0, 0, 0, 0, 0, 6, 0, 4, 12, 0]
+F32_VITL_COUNTS = [20, 1, 24, 0, 0, 0, 74, 0, 45, 62, 0]
+F32_TINY_COUNTS = [0, 0, 0, 0, 0, 0, 24, 0, 0, 0, 0]
 # Phase 5d, vqa_med_full with model.num_heads=2 (BTIA and the AD head at
 # head width 384; BERT and ViT-B at 12 heads of 64): a train step's 8 BTIA
 # K1 sites, the AD head's K3 call and the 8 K4 calls of those sites'
 # backward run on the wide-head kernel (17); an eval forward 8 + 1.
 WIDE_KERNEL_HEADS = 2
-WIDE_KERNEL_COUNTS = ([20, 0, 13, 20, 0, 0, 0, 0, 0, 0, 17], [20, 0, 13, 0, 0, 0, 0, 0, 0, 0, 9])
+WIDE_KERNEL_COUNTS = ([20, 0, 13, 20, 0, 0, 79, 0, 0, 0, 17], [20, 0, 13, 0, 0, 0, 51, 0, 0, 0, 9])
 # Phase 7, the user's entry points on the card. The CLI on vqa_rad_lstm
 # (bf16, 2 BTIA layers): K1 at its 4 BTIA sites a forward of 64 rows or
 # more, K4 in the backward of each in a train step. `serve` runs batches of
@@ -447,8 +496,16 @@ CLI_QUESTIONS = ("is the lung normal", "is there a fracture", "is the heart enla
 BENCH_STEP_COUNTS = {"streaming_vitl": SERVE_COUNTS + [0, 0, 0], "vqa_rad_lstm": LSTM_SERVE_COUNTS}
 # A vqa_med_full train step with model.remat: the plain step's launches
 # (TRAIN_COUNTS) and the recompute's, in the backward pass, of the 8 BTIA K1
-# sites and the 12 ViT-B blocks' K3 calls; the AD head is not recomputed.
-REMAT_COUNTS = [28, 0, 25, 20, 0, 0, 0, 0, 0, 0, 0]
+# sites and the 12 ViT-B blocks' K3 calls and LayerNorms (K7 79 + 24 + 8);
+# the AD head is not recomputed.
+REMAT_COUNTS = [28, 0, 25, 20, 0, 0, 111, 0, 0, 0, 0]
+# The steps' ms before the models' LayerNorms reached K7: this script's runs
+# on the tree before that change (H100 80GB HBM3, 700 W; PERF.md section 5),
+# logged beside this run's for the record. The comparison that counts is
+# within one run: each step again under plain_layernorms().
+BEFORE_K7_MS = {"serve": (133.82, 135.62, 134.28), "int8_serve": (108.30, 109.52, 109.27),
+           "train": (218.04, 256.87, 221.57), "vqa_rad_lstm_serve": (37.2, 44.0),
+           "vqa_rad_lstm_train_step": (291.0, 398.0)}
 
 
 T0 = time.perf_counter()
@@ -1288,8 +1345,9 @@ def ops_api_phase(torch, dev, counters):
     counts = [f.launches for f in counters]
     log("phase 2b: the ops API's main-path run launched "
         + ", ".join(f"{k} {c}" for k, c in zip(KERNELS, counts)))
-    if counts != OPS_COUNTS:
-        raise AssertionError(f"ops API launch counts {counts} != {OPS_COUNTS}")
+    if counts != OPS_COUNTS or N.layernorm.launches != 0:
+        raise AssertionError(f"ops API launch counts {counts} != {OPS_COUNTS}, or the models' layernorm "
+                             f"launched K7 {N.layernorm.launches} times")
     shapes = {"k5_vitl": q5.shape, "k5_switch": q5.shape, "k5_head": qh.shape,
               "k6_pooled": (pooled[0].shape, pooled[3].shape),
               "k6_long": (long_bshd[0].shape, long_bshd[3].shape),
@@ -1348,12 +1406,23 @@ def ops_api_phase(torch, dev, counters):
     )
     for name, (x, sc, bi) in ln_in.items():
         rows[f"k7_{name}"] = check_layernorm(torch, name, x, sc, bi)
-    # K7's block-per-row kernel (1024 < D <= 4096), at widths no main path
-    # has: the largest it takes and a ragged one.
-    for M, D in ((4096, 4096), (3000, 1500)):
+    # K7's block-per-row kernel (1024 < D <= 4096) and its two-read kernel
+    # (D > 4096, any width), at widths no main path has: the largest the
+    # first takes, a ragged one, and 6144 and 8192; at 8192 also in place
+    # (as K1's post-LN writes), against the twin within one bf16 step.
+    for M, D in ((4096, 4096), (3000, 1500), (2048, 6144), (2048, 8192)):
         x = (torch.randn(M, D, generator=g, device=dev) * 2 + 0.5).to(bf)
         sc, bi = 1 + 0.2 * torch.randn(D, generator=g, device=dev), 0.1 * torch.randn(D, generator=g, device=dev)
         rows[f"k7_wide_{D}"] = check_layernorm(torch, f"wide {D}", x, sc, bi, iters=5)
+    y = x.clone()
+    N._layernorm_cuda(y, sc, bi, 1e-6, out=y)
+    ref = N._ln_exact(x, sc, bi, 1e-6).float()
+    step = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
+    off = int(((y.float() - ref).abs() > step + 1e-5 * ref.abs().max()).sum())
+    rows["k7_wide_8192"]["in_place_elements_off"] = off
+    log(f"  K7 wide 8192 in place: {off} elements beyond one bf16 step of the twin")
+    if off:
+        raise AssertionError(f"K7 in place at width 8192: {off} elements disagree with the twin")
     # K6 at widths of every template (D 16..256; the main paths run 64; D 136
     # to 256 through bicross_attention(impl="pallas"), which took only D <= 128
     # before the short-sequence kernel) at a small masked shape on strided
@@ -1412,16 +1481,20 @@ def ops_api_phase(torch, dev, counters):
     return rows, counts
 
 
-def layernorm_census(torch, dev, step, counters):
-    """The standalone LayerNorms (the plain formula, ``ops/norms.py:
-    layernorm``) that one bf16 serve step runs, by (rows, width); then K7,
-    the plain formula and ``F.layer_norm`` timed at each shape, summed over
-    the step's count (what routing the model's LayerNorms through K7 would
-    change; the reference keeps them on the plain formula)."""
+def layernorm_road(torch, step):
+    """One serve step, ``step(0)``, with its standalone LayerNorms counted by
+    (rows, width) at their callers (``layernorm`` in the model's modules),
+    ``layernorm``'s and ``layernorm_fast``'s K7 launches read around it, and
+    the plain formula's calls on CUDA tensors counted (``_ln_exact``, in
+    ``ops/norms.py`` and as ``fused_attn`` holds it for K1/K2's twins).
+    Returns (census, dtypes, model launches, ops-API launches, plain calls
+    on the card)."""
     from btia_tpu_torch.models import bert, layers
+    from btia_tpu_torch.ops import fused_attn as FA
+    from btia_tpu_torch.ops import norms as N
 
-    census, dtypes = {}, set()
-    real = layers.layernorm
+    census, dtypes, plain = {}, set(), [0]
+    real, real_exact = N.layernorm, N._ln_exact
 
     def spy(x, *a, **kw):
         key = (x.numel() // x.shape[-1], x.shape[-1])
@@ -1429,16 +1502,49 @@ def layernorm_census(torch, dev, step, counters):
         dtypes.add(str(x.dtype).removeprefix("torch."))
         return real(x, *a, **kw)
 
-    layers.layernorm = bert.layernorm = spy
+    def exact(x, *a):
+        plain[0] += int(x.is_cuda)
+        return real_exact(x, *a)
+
+    mods = (layers, bert, FA)
+    for m in mods:
+        m.layernorm = spy
+    N._ln_exact = FA._ln_exact = exact
+    before = N.layernorm.launches, N.layernorm_fast.launches
     try:
         step(0)
+        torch.cuda.synchronize()
     finally:
-        layers.layernorm = bert.layernorm = real
+        for m in mods:
+            m.layernorm = real
+        N._ln_exact = FA._ln_exact = real_exact
+    return (census, dtypes, N.layernorm.launches - before[0], N.layernorm_fast.launches - before[1], plain[0])
+
+
+def check_layernorm_road(torch, step, what):
+    """``layernorm_road`` held: the census SERVE_LN_CENSUS, each LayerNorm one
+    K7 launch through ``layernorm`` (none through ``layernorm_fast``), and the
+    plain formula never on a CUDA tensor."""
+    census, dtypes, launches, fast, plain = layernorm_road(torch, step)
     n = sum(census.values())
-    log(f"phase 4: one bf16 serve step runs {n} standalone LayerNorms ({sorted(dtypes)}): "
-        + ", ".join(f"{c} x ({m}, {d})" for (m, d), c in sorted(census.items())))
-    if census != SERVE_LN_CENSUS:
-        raise AssertionError(f"LayerNorm census {census} != {SERVE_LN_CENSUS}")
+    log(f"phase 4: one {what} runs {n} standalone LayerNorms ({sorted(dtypes)}): "
+        + ", ".join(f"{c} x ({m}, {d})" for (m, d), c in sorted(census.items()))
+        + f"; K7 launches through layernorm {launches}, layernorm_fast {fast}; the plain formula on a CUDA "
+          f"tensor {plain} times")
+    if census != SERVE_LN_CENSUS or (launches, fast, plain) != (n, 0, 0):
+        raise AssertionError(f"{what}: LayerNorm census {census} (want {SERVE_LN_CENSUS}), K7 launches "
+                             f"{launches} / {fast}, plain formula on the card {plain}: each LayerNorm must "
+                             f"launch K7 once")
+    return census, dtypes
+
+
+def layernorm_census(torch, dev, step, counters):
+    """The standalone LayerNorms that one bf16 serve step runs, by (rows,
+    width), each on K7 (``check_layernorm_road``); then K7, the plain formula
+    and ``F.layer_norm`` timed at each shape, summed over the step's count
+    (what the route to K7 saves against the plain formula)."""
+    census, dtypes = check_layernorm_road(torch, step, "bf16 serve step")
+    n = sum(census.values())
     g = torch.Generator(device=dev).manual_seed(5)
     launches = [f.launches for f in counters]
     per_shape = {}
@@ -1482,10 +1588,11 @@ def switch_step(torch, step, counters, expected, what):
 
 def routing_switches_phase(torch, dev, smi, model, host_imgs, host_qids, serve_step, counters):
     """Phase 4, switches: the bf16 serve step under set_attention_impl("xla")
-    (the plain road, K1-K8 launch 0 times) and under disable_fused() (K1, K2
-    0; K3 24 and K4 21 from the unfused sites' routing), each timed, and
-    each step's logits against the default step's within a tenth of the
-    largest logit."""
+    (no attention kernel: XLA_COUNTS), under disable_fused() (K1, K2 0; K3 24
+    and K4 21 from the unfused sites' routing) and with the models'
+    LayerNorms on the plain formula (``plain_layernorms``, the road before
+    this step's 74 reached K7), each timed, and each step's logits against
+    the default step's within a tenth of the largest logit."""
     import btia_tpu_torch.ops as O
 
     @torch.inference_mode()
@@ -1497,15 +1604,12 @@ def routing_switches_phase(torch, dev, smi, model, host_imgs, host_qids, serve_s
     base = logits()
     scale = base.abs().max().item()
     res = {}
-    for what, expected in (("set_attention_impl('xla')", [0] * 8), ("disable_fused()", NO_FUSED_COUNTS)):
-        xla = what.startswith("set")
-        O.set_attention_impl("xla" if xla else "auto")
-        try:
-            with contextlib.nullcontext() if xla else O.disable_fused():
-                counts, ms = switch_step(torch, serve_step, counters, expected, what)
-                err = (logits() - base).abs().max().item()
-        finally:
-            O.set_attention_impl("auto")
+    for what, expected, road in (("set_attention_impl('xla')", XLA_COUNTS, lambda: attention_impl("xla")),
+                                 ("disable_fused()", NO_FUSED_COUNTS, O.disable_fused),
+                                 ("plain LayerNorms", PLAIN_LN_SERVE_COUNTS, plain_layernorms)):
+        with road():
+            counts, ms = switch_step(torch, serve_step, counters, expected, what)
+            err = (logits() - base).abs().max().item()
         res[what] = {"ms_per_step": ms, "pairs_per_s": B_IMG * N_Q / (ms / 1e3),
                      "launches": dict(zip(KERNELS, counts)), "logits_max_abs_err_vs_default": err,
                      "max_logit": scale}
@@ -1517,9 +1621,9 @@ def routing_switches_phase(torch, dev, smi, model, host_imgs, host_qids, serve_s
     return res
 
 
-_PORTED = ("gemm_bias_ws_kernel", "ln_warp_kernel", "ln_block_kernel", "flash_ws_kernel", "flash_attn_kernel",
-           "short_flash_kernel", "quant_rows_kernel", "quant_rows_loop_kernel", "int8_gemm_kernel", "attn_simt_kernel",
-           "gemm_f32_kernel")
+_PORTED = ("gemm_bias_ws_kernel", "ln_warp_kernel", "ln_block_kernel", "ln_wide_kernel", "flash_ws_kernel",
+           "flash_attn_kernel", "short_flash_kernel", "quant_rows_kernel", "quant_rows_loop_kernel", "int8_gemm_kernel",
+           "attn_simt_kernel", "gemm_f32_kernel")
 
 
 def profile_step(torch, step, smi, what="serve_step"):
@@ -1554,7 +1658,17 @@ def profile_step(torch, step, smi, what="serve_step"):
         else:
             groups["other"] += ms
     busy = sum(groups.values())
-    top = sorted(kernels, key=lambda r: -r[2])[:15]
+    # The rest by kind of PyTorch kernel (the plain elementwise and reduction
+    # passes, copies, cuDNN), by substrings of their names.
+    kinds = {"elementwise": ("elementwise",), "reduce": ("reduce_kernel",), "copy": ("copy", "memcpy", "memset", "cat"),
+             "cudnn": ("cudnn", "conv", "bn_")}
+    rest = {k: 0.0 for k in (*kinds, "else")}
+    for name, _, ms in kernels:
+        low = name.lower()
+        if any(p in name for p in _PORTED) or any(p in low for p in ("gemm", "xmma", "cutlass", "nvjet")):
+            continue
+        rest[next((k for k, subs in kinds.items() if any(x in low for x in subs)), "else")] += ms
+    top = sorted(kernels, key=lambda r: -r[2])[:20]
     # A template kernel's name reads "void int8_gemm_kernel<...>(...)", one
     # in an anonymous namespace "void (anonymous namespace)::...".
     own = lambda p, n: n.removeprefix("void ").removeprefix("(anonymous namespace)::").startswith((p + "(", p + "<"))
@@ -1562,11 +1676,34 @@ def profile_step(torch, step, smi, what="serve_step"):
                   sum(ms for n, _, ms in kernels if own(p, n))] for p in _PORTED}
     log(json.dumps({"profile": {
         "step": what, "step_wall_ms": wall_ms, "device_busy_ms": busy,
-        "idle_share": max(0.0, 1.0 - busy / wall_ms), "by_group_ms": groups,
+        "idle_share": max(0.0, 1.0 - busy / wall_ms), "by_group_ms": groups, "other_by_kind_ms": rest,
         "ported_launches_ms": ported,
-        "top_kernels": [{"name": n[:90], "count": c, "ms": ms} for n, c, ms in top],
+        "top_kernels": [{"name": n.removeprefix("void ").removeprefix("at::native::")[:200], "count": c, "ms": ms}
+                        for n, c, ms in top],
         "card": smi,
     }}))
+
+
+class _K7Launches:
+    """K7's count: the launches of its two entries, ``layernorm`` (the
+    models' LayerNorms) and ``layernorm_fast`` (the ops API), which keep a
+    count each. Setting it (0 before a run; a count read before comparison
+    launches, after them) sets ``layernorm_fast``'s and clears
+    ``layernorm``'s, so that it reads back what was set."""
+
+    __name__ = "layernorm"
+
+    @property
+    def launches(self) -> int:
+        from btia_tpu_torch.ops import norms as N
+
+        return N.layernorm.launches + N.layernorm_fast.launches
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        from btia_tpu_torch.ops import norms as N
+
+        N.layernorm.launches, N.layernorm_fast.launches = 0, n
 
 
 def launch_counters():
@@ -1574,12 +1711,66 @@ def launch_counters():
     from btia_tpu_torch.ops import attention as A
     from btia_tpu_torch.ops import bicross as BX
     from btia_tpu_torch.ops import fused_attn as FA
-    from btia_tpu_torch.ops import norms as N
     from btia_tpu_torch.ops.quant import int8_matmul_fused
 
     return (FA.fused_dense_attention, FA.fused_static_q_attention, A.bshd_flash_attention,
-            A.fanout_attention, A.mha_bhsd_attention, BX.bicross_bhsd_attention, N.layernorm_fast,
+            A.fanout_attention, A.mha_bhsd_attention, BX.bicross_bhsd_attention, _K7Launches(),
             int8_matmul_fused)
+
+
+@contextlib.contextmanager
+def plain_layernorms():
+    """The models' LayerNorms on the plain formula (``_ln_exact``, the road
+    before they reached K7): each caller's ``layernorm`` replaced for the
+    body. Only for a before / after comparison within one run."""
+    from btia_tpu_torch.models import bert, layers
+    from btia_tpu_torch.ops import fused_attn as FA
+    from btia_tpu_torch.ops import norms as N
+
+    mods = (layers, bert, FA)
+    real = [m.layernorm for m in mods]
+    for m in mods:
+        m.layernorm = lambda x, scale, bias, eps=1e-6, fast=False: N._ln_exact(x, scale, bias, eps)
+    try:
+        yield
+    finally:
+        for m, r in zip(mods, real):
+            m.layernorm = r
+
+
+@contextlib.contextmanager
+def attention_impl(impl):
+    import btia_tpu_torch.ops as O
+
+    O.set_attention_impl(impl)
+    try:
+        yield
+    finally:
+        O.set_attention_impl("auto")
+
+
+def timed_ms(torch, fn, n):
+    """ms a call of fn() over n calls after one warm call, host clock, ending
+    in a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / n
+
+
+def k7_vs_plain_ms(torch, fn, n):
+    """ms a call of fn() with the LayerNorms on K7 and on the plain formula
+    (``plain_layernorms``), timed in turns, K7, plain, plain, K7, each turn
+    ``timed_ms`` of n calls: a host-bound step drifts within a run by more
+    than its two roads differ."""
+    turns = {"k7": [], "plain": []}
+    for road in ("k7", "plain", "plain", "k7"):
+        with plain_layernorms() if road == "plain" else contextlib.nullcontext():
+            turns[road].append(timed_ms(torch, fn, n))
+    return {road: sum(t) / len(t) for road, t in turns.items()} | {"turns": turns}
 
 
 def _zero(counters) -> None:
@@ -1653,6 +1844,19 @@ def train_phase(torch, dev, smi, counters):
         peak = torch.cuda.max_memory_allocated() / 2**30
         if "--profile" in sys.argv[1:]:
             profile_step(torch, lambda: trainer.train_step(state, batch), smi, "train_step")
+        # The same steps on K7's LayerNorms and on the plain formula (the
+        # road before K7), in turns, and an eval forward's logits on both.
+        ab = k7_vs_plain_ms(torch, lambda: trainer.train_step(state, batch), TIMED_TRAIN_STEPS)
+        with torch.inference_mode():
+            logits = trainer.model(batch["images"], batch["question_ids"], train=False)
+            with plain_layernorms():
+                ln_err = (trainer.model(batch["images"], batch["question_ids"], train=False) - logits).abs().max()
+        plain_ln = {"ms_per_step": ab["plain"], "k7_ms_per_step": ab["k7"], "turns": ab["turns"],
+                    "eval_logits_max_abs_err_vs_k7": ln_err.item(), "max_logit": logits.abs().max().item()}
+        log(f"  train step in turns: {ab['k7']:.2f} ms on K7's LayerNorms, {ab['plain']:.2f} ms on the plain "
+            f"formula (before K7: {BEFORE_K7_MS['train']}); eval logits K7 vs plain {json.dumps(plain_ln)}")
+        if not plain_ln["eval_logits_max_abs_err_vs_k7"] <= 0.1 * plain_ln["max_logit"]:
+            raise AssertionError(f"vqa_med_full: logits on K7 and on the plain LayerNorms disagree: {plain_ln}")
 
         # The test split at the eval batch of 128.
         torch.cuda.synchronize()
@@ -1676,7 +1880,8 @@ def train_phase(torch, dev, smi, counters):
             "config": "vqa_med_full", "batch": B_TRAIN, "steps": TIMED_TRAIN_STEPS,
             "ms_per_step": step_ms, "examples_per_s": B_TRAIN / (step_ms / 1e3),
             "peak_mem_gib": peak, "losses_repeated_batch": losses, "fit": row, "eval": metrics,
-            "launches": dict(zip(KERNELS, counts)), "card": smi,
+            "launches": dict(zip(KERNELS, counts)), "plain_layernorms": plain_ln,
+            "before_k7_ms_per_step": BEFORE_K7_MS["train"], "card": smi,
         }
         del trainer, state, snapshot, batch
     torch.cuda.empty_cache()
@@ -1927,9 +2132,11 @@ def serve_step_fn(torch, dev, model, host_imgs, host_qids, limit):
 def int8_serve_phase(torch, dev, smi, bf16_model, host_imgs, host_qids, counters):
     """Phase 4b: full-width streaming_vitl with int8_ffn, the same seeded
     weights as the bf16 model: one 16 x 128 step with every counter set to
-    0 just before and read just after (K1 20, K2 1, K3 24, K8 90, the others 0),
+    0 just before and read just after (K1 20, K2 1, K3 24, K7 74, K8 90, the
+    others 0), its LayerNorms held as phase 4's (``check_layernorm_road``),
     timed steps (which must prepare no weight again: ``prepare_once.builds``
-    unchanged), logits against the same model on the CPU, and top-1
+    unchanged), the step on the plain LayerNorms timed and its logits
+    against K7's, logits against the same model on the CPU, and top-1
     agreement with the bf16 model (reported, not held)."""
     import numpy as np
 
@@ -1954,6 +2161,7 @@ def int8_serve_phase(torch, dev, smi, bf16_model, host_imgs, host_qids, counters
         raise AssertionError(f"int8 serve-step launch counts {counts} != {INT8_COUNTS}")
     if vals.shape != (B_IMG, N_Q, 5) or not np.isfinite(vals).all():
         raise AssertionError("int8 serve step: bad top-k")
+    check_layernorm_road(torch, step, "int8 serve step")
     # The first step prepared every weight (K8's 90 int8 weights among them);
     # the timed steps prepare nothing again.
     builds = FA.prepare_once.builds
@@ -1972,9 +2180,15 @@ def int8_serve_phase(torch, dev, smi, bf16_model, host_imgs, host_qids, counters
     if "--profile" in sys.argv[1:]:
         profile_step(torch, lambda: step(0), smi, "int8_serve_step")
 
+    # The same step with the LayerNorms on the plain formula, the road before
+    # K7: timed, and its logits against the default's.
+    ab = k7_vs_plain_ms(torch, lambda: step(0), TIMED_STEPS)
     with torch.inference_mode():
         imgs, qids = torch.from_numpy(host_imgs[0]).to(dev), torch.from_numpy(host_qids[0]).to(dev)
-        top8 = argmax_real(model.answer_questions(model.encode_image(imgs), qids), limit)
+        logits8 = model.answer_questions(model.encode_image(imgs), qids)
+        with plain_layernorms():
+            ln_err = (model.answer_questions(model.encode_image(imgs), qids) - logits8).abs().max().item()
+        top8 = argmax_real(logits8, limit)
         top16 = argmax_real(bf16_model.answer_questions(bf16_model.encode_image(imgs), qids), limit)
         agree = (top8 == top16).float().mean().item()
         # The same int8 model on the CPU (plain twins) as the reference.
@@ -1990,9 +2204,14 @@ def int8_serve_phase(torch, dev, smi, bf16_model, host_imgs, host_qids, counters
         "peak_mem_gib": peak, "launches": dict(zip(KERNELS, counts)),
         "weight_sets_prepared_in_timed_steps": rebuilt,
         "top1_agreement_with_bf16": agree, "card_vs_cpu_max_abs_err": err,
-        "card_vs_cpu_max_logit": scale, "card": smi,
+        "card_vs_cpu_max_logit": scale,
+        "plain_layernorms": {"ms_per_step": ab["plain"], "k7_ms_per_step": ab["k7"], "turns": ab["turns"],
+                             "logits_max_abs_err_vs_k7": ln_err, "max_logit": logits8.abs().max().item()},
+        "before_k7_ms_per_step": BEFORE_K7_MS["int8_serve"], "card": smi,
     }
     log(json.dumps({"int8_serve_step": res}))
+    if not ln_err <= 0.1 * res["plain_layernorms"]["max_logit"]:
+        raise AssertionError(f"int8: logits on K7 and on the plain LayerNorms differ by {ln_err}")
     # As phase 3: bf16 roundings differ between the kernels and the twins
     # in every layer, and a rounding can move an int8 quantization step.
     if not err <= 0.1 * scale:
@@ -2637,6 +2856,19 @@ def _serve_phase(torch, dev, smi, model, cfg, vocab, qids_fn, counters, expected
                     "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
         if "--profile" in sys.argv[1:]:
             profile_step(torch, lambda: step(0), smi, f"{what}_serve_step")
+        # The same step with the LayerNorms on the plain formula (the road
+        # before K7), timed, and its logits against K7's.
+        fwd = lambda: model.answer_questions(model.encode_image(torch.from_numpy(host_imgs[0]).to(dev)),
+                                             torch.from_numpy(host_qids[0]).to(dev))
+        with torch.inference_mode():
+            logits = fwd()
+            with plain_layernorms():
+                ln_err = (fwd() - logits).abs().max().item()
+        ab = k7_vs_plain_ms(torch, lambda: step(0), TIMED_STEPS)
+        res["plain_layernorms"] = {"ms_per_step": ab["plain"], "k7_ms_per_step": ab["k7"], "turns": ab["turns"],
+                                   "logits_max_abs_err_vs_k7": ln_err, "max_logit": logits.abs().max().item()}
+        if not ln_err <= 0.1 * res["plain_layernorms"]["max_logit"]:
+            raise AssertionError(f"{what}: logits on K7 and on the plain LayerNorms differ by {ln_err}")
     img = torch.from_numpy(host_imgs[0][:1])
     ids = torch.from_numpy(host_qids[0][:1, :64])
     res["card_vs_cpu_max_abs_err"], res["card_vs_cpu_max_logit"] = _card_vs_cpu(
@@ -2668,7 +2900,8 @@ def vqa_rad_lstm_phase(torch, dev, smi, counters):
     """Phase 6: full-width vqa_rad_lstm (ResNet-50 at 224, bi-LSTM 512,
     hidden 512, 8 heads of 64, 2 BTIA layers, mlp head over 512 answers),
     bf16, seeded random weights: the 16 x 128 serve step (K1 at its 4 BTIA
-    sites), timed; a few Predictor requests (buckets of at most 8: no K1);
+    sites), timed, also on the plain LayerNorms; a few Predictor requests
+    (buckets of at most 8: no K1, K7 14 each);
     one call of its registered 8 scanned train steps at batch 64 through
     Trainer on a synthetic VQA-RAD corpus (K1 4 and K4 4 a step; finite
     losses, BatchNorm statistics moved), one step against the CPU; one eval
@@ -2704,8 +2937,8 @@ def vqa_rad_lstm_phase(torch, dev, smi, counters):
             raise AssertionError(f"vqa_rad_lstm Predictor returned {got}")
     counts = _counts(counters)
     log(f"  Predictor: three requests of 1, 3 and 8 questions launched {counts}")
-    if any(counts):
-        raise AssertionError(f"vqa_rad_lstm Predictor buckets launched kernels: {counts}")
+    if counts != [3 * c for c in LSTM_PREDICT_COUNTS]:
+        raise AssertionError(f"vqa_rad_lstm Predictor buckets launched {counts}, not 3 x {LSTM_PREDICT_COUNTS}")
     out["predictor_launches"] = counts
     del pred, model
     torch.cuda.empty_cache()
@@ -2734,9 +2967,17 @@ def vqa_rad_lstm_phase(torch, dev, smi, counters):
         if counts != expected or not np.all(np.isfinite(losses)) or not moved > 0:
             raise AssertionError(f"vqa_rad_lstm train call: counts {counts} != {expected}, losses {losses}, "
                                  f"BN moved {moved}")
+        # Calls on K7's LayerNorms and on the plain formula (the road before
+        # K7), in turns.
+        ab = k7_vs_plain_ms(torch, lambda: trainer.train_step_scan(trainer.state, chunk), 1)
+        if "--profile" in sys.argv[1:]:
+            profile_step(torch, lambda: trainer.train_step_scan(trainer.state, chunk), smi,
+                         f"vqa_rad_lstm_trainer_call_of_{K}_steps")
         out["train_call"] = {"steps": K, "batch": int(chunk["images"].shape[1]), "seconds": call_s,
                              "ms_per_step": 1e3 * call_s / K, "losses": losses, "bn_stem_mean_moved": moved,
-                             "launches": dict(zip(KERNELS + NEW_KERNELS, counts))}
+                             "launches": dict(zip(KERNELS + NEW_KERNELS, counts)),
+                             "k7_vs_plain_layernorms_ms_per_step": [ab["k7"] / K, ab["plain"] / K],
+                             "before_k7_ms_per_step": BEFORE_K7_MS["vqa_rad_lstm_train_step"]}
         out["eval"] = _eval_vs_cpu(torch, dev, trainer.model, batch_to_device(batches[0], dev), counters,
                                    LSTM_SERVE_COUNTS, "vqa_rad_lstm")
         del trainer, chunk
@@ -2951,10 +3192,9 @@ def cli_phase(torch, dev, smi, counters, overrides=()):
     serve on full-width vqa_rad_lstm over a synthetic VQA-RAD corpus, in
     this process, every counter set to 0 just before each command and read
     just after: train K1 4 a train step and an eval batch, K4 4 a train
-    step; eval K1 4 a batch; predict (one question: under the batch floor)
-    none; serve K1 4 a batch (warmup included), K4 0."""
-    import math
-
+    step, K7 14 a train step and 6 a val batch; eval K1 4 and K7 6 a batch;
+    predict (under the batch floor) K7 14 only; serve K1 4 and K7 6 a batch
+    (warmup included), K4 0."""
     import numpy as np
 
     from btia_tpu_torch.cli import _parse_overrides
@@ -2972,9 +3212,11 @@ def cli_phase(torch, dev, smi, counters, overrides=()):
         steps, val_b, test_b = data.steps("train"), data.steps("val"), data.steps("test")
         if steps < 2:
             raise AssertionError(f"the CLI corpus fills {steps} train step(s) of vqa_rad_lstm, not 2")
+        # K7 as phase 6's: 14 a train step, 6 a val or test batch, 14 for
+        # the predict request (under the batch floor).
         expect = {
-            "train": [4 * (steps + val_b), 0, 0, 4 * steps] + [0] * 7,
-            "eval": [4 * test_b] + [0] * 10, "predict": [0] * 11,
+            "train": [4 * (steps + val_b), 0, 0, 4 * steps, 0, 0, 14 * steps + 6 * val_b] + [0] * 4,
+            "eval": [4 * test_b] + [0] * 5 + [6 * test_b] + [0] * 4, "predict": LSTM_PREDICT_COUNTS,
         }
         cmds = {
             "train": ["train", "--config", "vqa_rad_lstm", "--workdir", work,
@@ -3014,7 +3256,7 @@ def cli_phase(torch, dev, smi, counters, overrides=()):
                 out[name]["rows"] = rows
         images = [p for p in (root / "images").iterdir() if p.suffix.lower() in (".jpg", ".dcm", ".png")]
         batches = 1 + math.ceil(len(images) / CLI_SERVE_BATCH)
-        expect = [4 * batches] + [0] * 10
+        expect = [4 * batches] + [0] * 5 + [6 * batches] + [0] * 4
         torch.cuda.synchronize()
         _zero(counters)
         t0 = time.perf_counter()
@@ -3272,13 +3514,15 @@ P8_BACKEND = "gloo"
 P8_CAVEAT = ("two ranks time-share one H100 and all-reduce through the host (gloo): not a multi-GPU "
              "figure")
 # Per rank of streaming_vitl's (1, 2) mesh at 4 x 64: BERT's 12 and BTIA's
-# 8 K1 sites, the AD head's K2 and ViT-L's 24 blocks on K3 (8 of 16 heads).
-P8_SERVE_COUNTS = [20, 1, 24, 0, 0, 0, 0, 0, 0, 0, 0]
+# 8 K1 sites, the AD head's K2 and ViT-L's 24 blocks on K3 (8 of 16 heads);
+# K7 the serve step's 74 and BERT's 12 post-LNs, which act on the model
+# group's sum, outside K1's chain.
+P8_SERVE_COUNTS = [20, 1, 24, 0, 0, 0, 86, 0, 0, 0, 0]
 # ... and with int8 FFNs: K8 on each of the 45 Mlps' two products a rank.
-P8_INT8_COUNTS = [20, 1, 24, 0, 0, 0, 0, 90, 0, 0, 0]
+P8_INT8_COUNTS = [20, 1, 24, 0, 0, 0, 86, 90, 0, 0, 0]
 # Per rank of the (2, 1) vqa_rad_lstm step at 64 rows: 4 K1 sites, K4 in
-# the backward of each.
-P8_TRAIN_COUNTS = [4, 0, 0, 4, 0, 0, 0, 0, 0, 0, 0]
+# the backward of each; K7 as phase 6's train step.
+P8_TRAIN_COUNTS = [4, 0, 0, 4, 0, 0, 14, 0, 0, 0, 0]
 P8_BATCH = 128
 # 8c's bounds, DP step against the one-process step, phase 6's for the card
 # against the CPU on batch statistics (``_step_check``): bf16 on the loss,
@@ -3449,6 +3693,148 @@ def p8_train_steps(torch, dev, mesh=None):
     return {"bf16": p8_train_step(torch, dev, mesh, True), "fp32": p8_train_step(torch, dev, mesh, False)}
 
 
+# 8e: one tensor-parallel train step of streaming_vitl under its registered
+# mesh (world 2 -> data 1, model 2) at its registered widths (ViT-L/336 at
+# 1024 with 16 heads, BERT-base at 768 with 12, BTIA at 768 with 12, the AD
+# head of 64 queries over 2048 answers), depth cut to P8E_DEPTH, bf16,
+# dropout 0, no warmup, on a global batch of P8E_IMAGES images x
+# P8E_QUESTIONS questions (64 pairs: every K1 / K2 site at the batch floor,
+# so on its shard), against the one-process step on the same batch.
+P8E_DEPTH = {"vit": 2, "bert": 2, "btia": 2}
+P8E_IMAGES, P8E_QUESTIONS = 8, 8
+# A rank's launches: K1 at BERT's 2 and BTIA's 4 sites, K2 at the AD head,
+# K3 at the 2 ViT blocks (577 tokens: unfused), K4 in the backward of each
+# K1 site and of K2 (its recompute's short attention at 64 rows); K7 the
+# forward's 18 standalone LayerNorms (ViT 2 x 2 + 1, img_ln, BERT's embedding
+# LN, 2 ln_mlp and 2 post-LNs on the model group's sum, txt_ln, BTIA's 4, the
+# head's 2) and 9 in the backward (the recompute of the BTIA sites' q and kv
+# LNs and of K2's kv LN). One process: the same 27, BERT's post-LNs in K1's
+# chain and in its backward's recompute.
+P8E_COUNTS = [6, 1, 2, 7, 0, 0, 27, 0, 0, 0, 0]
+# Bounds as 8c's bf16 ones (P8_TRAIN_BOUNDS): the loss, the global gradient
+# norm (its squares summed over the model group), and every parameter after
+# the step within 2.5 learning rates of the one-process one (the first Adam
+# step moves an element by at most one; a gradient whose sign a bf16
+# rounding flips, by two).
+P8E_BOUNDS = {"loss_rel": 0.01, "grad_norm_rel": 0.02, "param_max_abs_diff_over_lr": 2.5}
+
+
+@contextlib.contextmanager
+def _vit_depth(depth):
+    """ViT-L/336 built with `depth` blocks, its widths as registered."""
+    import dataclasses
+
+    from btia_tpu_torch.models.vit import VIT_SPECS
+
+    spec = VIT_SPECS["vit_l336"]
+    VIT_SPECS["vit_l336"] = dataclasses.replace(spec, depth=depth)
+    try:
+        yield
+    finally:
+        VIT_SPECS["vit_l336"] = spec
+
+
+def p8e_config():
+    from btia_tpu_torch.configs import get_config
+
+    return get_config("streaming_vitl", **{"model.dropout": 0.0, "train.warmup_steps": 0,
+                                           "model.bert_layers": P8E_DEPTH["bert"],
+                                           "model.btia_layers": P8E_DEPTH["btia"]})
+
+
+def _p8e_batch(torch, cfg):
+    """P8E_IMAGES images, each paired with P8E_QUESTIONS questions."""
+    import numpy as np
+
+    rng = np.random.RandomState(14)
+    n = P8E_IMAGES * P8E_QUESTIONS
+    images = rng.randint(0, 256, (P8E_IMAGES, cfg.model.image_size, cfg.model.image_size, 3)).astype(np.uint8)
+    return {"images": torch.from_numpy(np.repeat(images, P8E_QUESTIONS, axis=0)),
+            "question_ids": torch.from_numpy(_lstm_qids(rng, (n,), cfg.model.bert_vocab_size)),
+            "answer_ids": torch.from_numpy(rng.randint(1, cfg.model.answer_vocab_size, n)),
+            "valid": torch.ones(n, dtype=torch.bool)}
+
+
+def p8e_train_step(torch, dev, mesh=None):
+    """One streaming_vitl train step of 8e (``p8e_config``, ViT depth cut to
+    P8E_DEPTH) on this rank's shard under `mesh`, or in one process. Returns
+    the launch counts, the metrics, the parameters after the step (gathered
+    over the model group), the step's time and peak memory, and a second
+    (warm) step's time."""
+    from btia_tpu_torch.models.model import build_model
+    from btia_tpu_torch.parallel.sharding import shard_batch
+    from btia_tpu_torch.train.steps import create_state, make_train_step
+
+    counters = launch_counters() + new_counters()
+    cfg = p8e_config()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    with _vit_depth(P8E_DEPTH["vit"]):
+        model = build_model(cfg.model, device=dev, seed=2)
+    state = create_state(model, cfg, steps_per_epoch=10, mesh=mesh)
+    step = make_train_step(model, cfg, mesh)
+    batch = _p8e_batch(torch, cfg)
+    if mesh is not None:
+        batch = shard_batch(batch, mesh)
+    batch = {k: v.to(dev) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero(counters)
+    t0 = time.perf_counter()
+    _, m = step(state, batch)
+    torch.cuda.synchronize()
+    out = {"counts": _counts(counters), "seconds": time.perf_counter() - t0,
+           "peak_gib": (torch.cuda.max_memory_allocated() - held) / 2**30,
+           "metrics": {k: float(v) for k, v in m.items()},
+           "params": {k: v.float().cpu() for k, v in state.state_dict()["params"].items()},
+           "local_param_gib": sum(p.numel() * p.element_size() for p in model.parameters()) / 2**30,
+           "lr": cfg.train.lr, "rows": int(batch["images"].shape[0])}
+    t0 = time.perf_counter()
+    step(state, batch)
+    torch.cuda.synchronize()
+    out["warm_seconds"] = time.perf_counter() - t0
+    del model, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_train_phase(torch, dev, smi, tmp):
+    """8e: the tensor-parallel train step against the one-process step (see
+    P8E_DEPTH ... P8E_BOUNDS)."""
+    one = p8e_train_step(torch, dev)
+    t0 = time.perf_counter()
+    ranks = _p8_spawn(torch, "tp_train", tmp)
+    res = {"config": "streaming_vitl", "depth": P8E_DEPTH, "pairs": P8E_IMAGES * P8E_QUESTIONS,
+           "mesh": ranks[0]["mesh"], "ranks_wall_s": time.perf_counter() - t0,
+           "one_process": {k: one[k] for k in ("seconds", "warm_seconds", "peak_gib", "metrics", "local_param_gib")},
+           "ranks": [], "card": smi}
+    res["one_process"]["counts"] = dict(zip(KERNELS + NEW_KERNELS, one["counts"]))
+    w = one["metrics"]
+    for r, o in enumerate(ranks):
+        m = o["metrics"]
+        row = {"rank": r, "rows": o["rows"], "counts": dict(zip(KERNELS + NEW_KERNELS, o["counts"])),
+               "metrics": m, "seconds": o["seconds"], "warm_seconds": o["warm_seconds"], "peak_gib": o["peak_gib"],
+               "local_param_gib": o["local_param_gib"],
+               "loss_rel": abs(m["loss"] - w["loss"]) / abs(w["loss"]),
+               "grad_norm_rel": abs(m["grad_norm"] - w["grad_norm"]) / w["grad_norm"],
+               "param_max_abs_diff_over_lr": max((o["params"][n] - one["params"][n]).abs().max().item()
+                                                 for n in one["params"]) / one["lr"],
+               "same_parameter_names": sorted(o["params"]) == sorted(one["params"])}
+        res["ranks"].append(row)
+        log(f"  8e rank {r} ({o['rows']} rows): {json.dumps(row)}")
+        bad = {k: row[k] for k, bound in P8E_BOUNDS.items() if not row[k] <= bound}
+        if bad or not row["same_parameter_names"] or not all(map(math.isfinite, m.values())):
+            raise AssertionError(f"phase 8e rank {r}: the TP step disagrees with the one-process step past "
+                                 f"{P8E_BOUNDS}: {bad} (names equal: {row['same_parameter_names']}, metrics {m})")
+        if o["counts"] != P8E_COUNTS or one["counts"] != P8E_COUNTS:
+            raise AssertionError(f"phase 8e: launch counts {o['counts']} / one process {one['counts']} != "
+                                 f"{P8E_COUNTS}")
+    log(f"  8e one process: {one['seconds']:.3f} s (warm {one['warm_seconds']:.3f}), peak {one['peak_gib']:.2f} "
+        f"GiB; ranks warm {[round(r['warm_seconds'], 3) for r in res['ranks']]} s, peak "
+        f"{[round(r['peak_gib'], 2) for r in res['ranks']]} GiB ({P8_CAVEAT})")
+    return res
+
+
 def phase8_rank(argv) -> int:
     """A rank of phase 8 (``chip_smoke.py --phase8-rank WHICH RANK WORLD
     PORT DIR``): joins the gloo group on the card, runs its part and saves
@@ -3470,10 +3856,10 @@ def phase8_rank(argv) -> int:
     maybe_initialize(f"127.0.0.1:{port}", world, rank, backend=P8_BACKEND, timeout_s=P8_GLOO_TIMEOUT_S)
     local_rank()
     dev = torch.device("cuda", torch.cuda.current_device())
-    if which == "serve":  # streaming_vitl's registered mesh: data -1, model 2
+    if which in ("serve", "tp_train"):  # streaming_vitl's registered mesh: data -1, model 2
         mc = get_config("streaming_vitl").mesh
         mesh = make_mesh(MeshConfig(mc.data, mc.model))
-        out = _p8_rank_serve(torch, dev, mesh, tmp)
+        out = _p8_rank_serve(torch, dev, mesh, tmp) if which == "serve" else p8e_train_step(torch, dev, mesh)
     else:
         mesh = make_mesh(MeshConfig(data=-1, model=1))
         out = p8_train_steps(torch, dev, mesh)
@@ -3531,13 +3917,15 @@ def mesh_phase(torch, dev, smi):
     that model, predict_batch / predict against one-process Predictor's.
     8d: the same seeded weights with int8 FFNs under the same mesh (in the
     same ranks, after 8b) against the one-process int8 step on the card:
-    logits within a tenth of the largest, K1 20 / K2 1 / K3 24 / K8 90 a
-    rank, the bytes all-reduced a step equal to ``p8_reckoned_bytes``.
+    logits within a tenth of the largest, K1 20 / K2 1 / K3 24 / K7 86 / K8
+    90 a rank, the bytes all-reduced a step equal to ``p8_reckoned_bytes``.
+    8e: one TP train step of streaming_vitl at registered widths, depth cut
+    (``tp_train_phase``).
     8c: one DP (2, 1) vqa_rad_lstm train step at a global batch of 128 (64 a
     rank) against the one-process step at 128, at dropout 0, bf16 and fp32:
     loss, global norm, the applied gradients and BatchNorm statistics within
     phase 6's bounds (``P8_TRAIN_BOUNDS``), every parameter within 2.5
-    learning rates of the one-process one; bf16 K1 4 / K4 4 a rank, fp32 the
+    learning rates of the one-process one; bf16 K1 4 / K4 4 / K7 14 a rank, fp32 the
     one-process step's counts (K1 and K4 on the CUDA-core kernels)."""
     import numpy as np
 
@@ -3646,6 +4034,8 @@ def mesh_phase(torch, dev, smi):
             if reduced["bytes"] != reckoned8:
                 raise AssertionError(f"phase 8d rank {r}: all-reduced {reduced['bytes']} B != reckoned {reckoned8}")
         res["int8"] = int8
+        # 8e: the TP train step.
+        res["tp_train"] = tp_train_phase(torch, dev, smi, tmp)
         # 8c: the DP train step.
         one = p8_train_steps(torch, dev)
         t0 = time.perf_counter()
@@ -3688,6 +4078,125 @@ def mesh_phase(torch, dev, smi):
     res["train"] = train
     log(json.dumps({"mesh_phase": res}))
     return res
+
+
+# ---------------------------------------------------------------------------
+# --train-mesh: training over the (data, model) mesh on several cards.
+
+# (config, ranks, mesh overrides): vqa_med_full under its registered mesh
+# (data -1, model 1: data-parallel over the ranks) on 1, 2 and 4 cards;
+# streaming_vitl under its registered mesh (data -1, model 2) on 4 cards,
+# (2, 2), and on one card with its model axis cut to 1.
+TM_RUNS = (("vqa_med_full", 1, ()), ("vqa_med_full", 2, ()), ("vqa_med_full", 4, ()),
+           ("streaming_vitl", 1, ("mesh.model=1",)), ("streaming_vitl", 4, ()))
+# Each run: one epoch of its registered batch (64 pairs) on a synthetic
+# corpus of about TM_STEPS steps, a step at a time and each step's loss
+# logged (dropout 0, the registered warmup cut to 2 steps, one checkpoint
+# kept); its time a step is the median gap between the logged steps after
+# the first TM_WARM.
+TM_STEPS, TM_WARM = 12, 2
+TM_SETS = ("train.epochs=1", "train.steps_per_call=1", "train.log_every=1", "model.dropout=0.0",
+           "train.warmup_steps=2", "train.keep_checkpoints=1")
+TM_RUN_TIMEOUT_S = 600
+
+
+def _tm_run(config, ranks, sets, data_dir, work, log_dir):
+    """One ``cli train`` run: in this process's interpreter on one card, or
+    under ``torch.distributed.run`` with NCCL, one card a rank, its output
+    in ``log_dir`` (the tail raised if it fails). Returns its train rows, its
+    epoch row (``metrics.jsonl``) and its wall time."""
+    import socket
+
+    cli = ["-m", "btia_tpu_torch.cli", "train", "--config", config, "--workdir", str(work),
+           *[a for x in (f"data.data_dir={data_dir}", *TM_SETS, *sets) for a in ("--set", x)]]
+    if ranks > 1:
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", str(ranks),
+               "--master-addr", "127.0.0.1", "--master-port", str(port), *cli]
+    else:
+        cmd = [sys.executable, *cli]
+    t0 = time.perf_counter()
+    with open(log_dir / f"{config}_{ranks}.log", "w") as f:
+        proc = subprocess.run(cmd, cwd=REPO, stdout=f, stderr=subprocess.STDOUT, timeout=TM_RUN_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tail = (log_dir / f"{config}_{ranks}.log").read_text()[-3000:]
+        raise AssertionError(f"cli train {config} on {ranks} card(s) exited {proc.returncode}:\n{tail}")
+    rows = [json.loads(ln) for ln in (work / "metrics.jsonl").read_text().splitlines()]
+    steps = [r for r in rows if r.get("split") == "train"]
+    epoch = [r for r in rows if r.get("split") == "epoch"]
+    if not steps or len(epoch) != 1:
+        raise AssertionError(f"cli train {config} on {ranks} card(s): no step or epoch rows in {work}")
+    return steps, epoch[0], wall
+
+
+def train_mesh_main() -> int:
+    """``python3 chip_smoke.py --train-mesh``: ``cli train`` under
+    ``torch.distributed.run`` (NCCL, one card a rank) for each of TM_RUNS
+    that the host's cards allow, against the same run on one card: ms a
+    step, examples/s a card, the peak memory of rank 0's card (the Trainer's
+    epoch row), and each step's loss against one card's. Prints a JSON line
+    a run, then ``{"train_mesh": ...}``; on one card, the one-card runs
+    only."""
+    import statistics
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --train-mesh: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    from btia_tpu_torch.cli import _parse_overrides as _parse_sets
+    from btia_tpu_torch.configs import get_config
+    from btia_tpu_torch.data.synthetic import generate_synthetic_dataset, generate_synthetic_vqa_med
+    from btia_tpu_torch.ops import _native
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    cards = torch.cuda.device_count()
+    log(f"train-mesh: {cards} cards: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    # Built once here; the ranks find the library and only load it.
+    log(f"train-mesh: built the kernels in {_native.timed_build():.1f} s")
+    out = {"cards": smi, "runs": []}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tm_") as tmp:
+        tmp = Path(tmp)
+        # By dataset: VQA-Med 2 training pairs an image; VQA-RAD 4 an image,
+        # about 3/4 of them for training.
+        data = {"vqa_med": generate_synthetic_vqa_med(tmp / "vqa_med", num_images=32 * TM_STEPS),
+                "vqa_rad": tmp / "vqa_rad"}
+        generate_synthetic_dataset(data["vqa_rad"], num_images=22 * TM_STEPS, qa_per_image=4)
+        one = {}
+        for config, ranks, sets in TM_RUNS:
+            if ranks > cards:
+                log(f"train-mesh: {config} on {ranks} cards skipped: {cards} on this host")
+                continue
+            cfg = get_config(config, **_parse_sets(sets))
+            steps, epoch, wall = _tm_run(config, ranks, sets, data[cfg.data.dataset], tmp / f"{config}_{ranks}",
+                                         tmp)
+            ts = [r["ts"] for r in steps]
+            gaps = [b - a for a, b in zip(ts, ts[1:])][TM_WARM:]
+            ms = 1e3 * statistics.median(gaps) if gaps else float("nan")
+            batch = cfg.train.batch_size
+            run = {"config": config, "ranks": ranks, "sets": list(sets), "steps": len(steps),
+                   "ms_per_step": ms, "examples_per_s_per_card": batch / (ms / 1e3) / ranks,
+                   "epoch_examples_per_s": epoch["examples_per_sec"], "peak_mem_gib_rank0": epoch.get("peak_mem_gib"),
+                   "losses": [r["loss"] for r in steps], "grad_norms": [r["grad_norm"] for r in steps],
+                   "val_accuracy": epoch.get("val_accuracy"), "wall_s": wall}
+            if ranks == 1:
+                one[config] = run
+            elif config in one:
+                ref = one[config]
+                n = min(len(ref["losses"]), len(run["losses"]))
+                run["loss_rel_vs_one_card"] = [abs(a - b) / abs(b) for a, b in zip(run["losses"][:n], ref["losses"][:n])]
+                run["ms_per_step_vs_one_card"] = ms / ref["ms_per_step"]
+                run["examples_per_s_per_card_vs_one_card"] = (run["examples_per_s_per_card"]
+                                                              / ref["examples_per_s_per_card"])
+            log(json.dumps({"train_mesh_run": run}))
+            out["runs"].append(run)
+    log(json.dumps({"train_mesh": out}))
+    return 0
 
 
 def main() -> int:
@@ -3840,7 +4349,7 @@ def main() -> int:
             "prepared_weight_sets": len(FA._PREPARED), "prepared_weights_mb": FA.prepared_bytes() / 1e6,
             "weight_sets_prepared_in_timed_steps": FA.prepare_once.builds - builds,
             "core_tensor_maps_in_timed_steps": core_maps,
-            "card": smi,
+            "before_k7_ms_per_step": BEFORE_K7_MS["serve"], "card": smi,
         }
     }))
     switches = routing_switches_phase(torch, dev, smi, model, host_imgs, host_qids, serve_step, counters)
@@ -3912,6 +4421,8 @@ def main() -> int:
            for r in mesh["train"][p]["ranks"]},
         **{f"mesh_dp_train_{p}_one_process": dict(zip(KERNELS + NEW_KERNELS, mesh["train"][p]["one_process"]["counts"]))
            for p in ("bf16", "fp32")},
+        **{f"mesh_tp_train_rank{r['rank']}": r["counts"] for r in mesh["tp_train"]["ranks"]},
+        "mesh_tp_train_one_process": mesh["tp_train"]["one_process"]["counts"],
     }
     by_path = [{"serve_step": a, "int8_serve_step": c, "train_step": b, "ops_api": d,
                 **{p: v[k] for p, v in new_paths.items()}}
@@ -3947,7 +4458,7 @@ def main() -> int:
          "btia_tpu/ops/attention.py:160", 4, rows["k5_vitl"], ("k5_vitl", "k5_head"), "K5_backward"),
         ("bicross_bhsd_attention", "btia_tpu_torch/csrc/bicross.cu",
          "btia_tpu/ops/bicross.py:87", 5, rows["k6_pooled"], ("k6_pooled", "k6_long"), "K6_backward"),
-        ("layernorm_fast", "btia_tpu_torch/csrc/layernorm.cu", "btia_tpu/ops/norms.py:30", 6,
+        ("layernorm", "btia_tpu_torch/csrc/layernorm.cu", "btia_tpu/ops/norms.py:30", 6,
          rows["k7_head"], tuple(f"k7_{n}" for n, _, _ in K7_SHAPES) + ("k7_vit_l_f32",), "K7_backward"),
     ]
     kernels = []
@@ -3961,6 +4472,8 @@ def main() -> int:
             e["sites"] = {s: rows[s] for s in sites}
         kernels.append(e)
     kernels[6]["serve_step_layernorms"] = ln_census
+    kernels[6]["entries"] = "layernorm (the models' LayerNorms) and layernorm_fast (the ops API), counted together"
+    kernels[6]["wide_rows"] = {D: rows[f"k7_wide_{D}"] for D in (1500, 4096, 6144, 8192)}
     # K1/K2's projection GEMM, alone at the serve shapes (both launch it),
     # and their attention core alone on the short-sequence kernel.
     kernels[0]["projection_gemm"] = {"sites": gemm_rows, "per_step": gemm_step, "edges": edges["gemm"]}
@@ -4033,6 +4546,19 @@ def main() -> int:
         "serve_ms_by_switch": {w: v["ms_per_step"] for w, v in switches.items()},
         "serve_layernorms": [ln_census["standalone_layernorms"], ln_census["k7_ms_per_step"],
                              ln_census["plain_ms_per_step"]],
+        # Each step's ms on K7's LayerNorms and, in the same run, on the plain
+        # formula (the road before), with the logits' largest change.
+        "k7_vs_plain_layernorms_ms": {
+            "serve": [step_ms, switches["plain LayerNorms"]["ms_per_step"],
+                      switches["plain LayerNorms"]["logits_max_abs_err_vs_default"]],
+            **{name: [r["plain_layernorms"]["k7_ms_per_step"], r["plain_layernorms"]["ms_per_step"],
+                      r["plain_layernorms"][err]]
+               for name, r, err in (("int8_serve", int8_res, "logits_max_abs_err_vs_k7"),
+                                    ("train", train["train_step"], "eval_logits_max_abs_err_vs_k7"),
+                                    ("vqa_rad_lstm_serve", lstm["serve_step"], "logits_max_abs_err_vs_k7"))},
+            "vqa_rad_lstm_train_step": lstm["train_call"]["k7_vs_plain_layernorms_ms_per_step"],
+        },
+        "before_k7_ms": BEFORE_K7_MS,
         "stream_pairs_per_s": {m: v["pairs_per_s"] for m, v in stream.items()},
         "stream_p50_p99_ms": {m: [v["latency"]["p50_ms"], v["latency"]["p99_ms"]] for m, v in stream.items()},
         "cli_bench": benches["cli_bench"]["stdout"],
@@ -4049,6 +4575,9 @@ def main() -> int:
                                 mesh["serve"]["one_process_peak_gib"]],
         "mesh_all_reduced_bytes": [[r["all_reduced_bytes"] for r in mesh["serve"]["ranks"]],
                                    mesh["serve"]["reckoned_bytes_per_step"]],
+        "mesh_tp_train": [{k: r[k] for k in ("loss_rel", "grad_norm_rel", "param_max_abs_diff_over_lr", "peak_gib",
+                                             "warm_seconds")} for r in mesh["tp_train"]["ranks"]]
+        + [{k: mesh["tp_train"]["one_process"][k] for k in ("peak_gib", "warm_seconds")}],
         "mesh_dp_train": {p: [{k: r[k] for k in ("loss_rel", "grad_norm_rel", "grad_rel_l2_rest",
                                                  "grad_rel_l2_encoder", "bn_stats_rel_l2",
                                                  "param_max_abs_diff_over_lr")} for r in mesh["train"][p]["ranks"]]
@@ -4067,4 +4596,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase8-rank"]:
         sys.exit(phase8_rank(sys.argv[2:]))
+    if sys.argv[1:2] == ["--train-mesh"]:
+        sys.exit(train_mesh_main())
     sys.exit(main())

@@ -25,7 +25,9 @@ def _inputs(rng, M, D):
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
-@pytest.mark.parametrize("D", [64, 768, 1024])
+# 4097, 6144 and 8192: rows wider than the 4096 a block of registers holds,
+# which K7 reads twice (any width, as the TPU kernel).
+@pytest.mark.parametrize("D", [64, 768, 1024, 4097, 6144, 8192])
 def test_k7_twin_matches_pallas(D, dtype):
     jdt, tdt, atol = DTYPES[dtype]
     rng = np.random.RandomState(D)
@@ -80,8 +82,9 @@ def test_layernorm_ignores_fast_as_the_reference(fast):
 @pytest.mark.parametrize("mixed", [True, False], ids=["bf16", "fp32"])
 def test_layernorm_module_passes_fast_as_the_reference(mixed, monkeypatch):
     """The model's LayerNorm passes fast = (compute dtype is bf16), as
-    btia_tpu/models/layers.py:260-261 does, and reaches no kernel: the
-    model's LayerNorms stay on the plain formula."""
+    btia_tpu/models/layers.py:260-261 does, and routes by device through
+    ``layernorm``'s own entry: on a CPU tensor the plain formula, bit for
+    bit, with no launch counted (on a CUDA tensor K7)."""
     from btia_tpu_torch.core.dtypes import DTypePolicy
     from btia_tpu_torch.models import layers
 
@@ -95,8 +98,12 @@ def test_layernorm_module_passes_fast_as_the_reference(mixed, monkeypatch):
     with torch.no_grad():
         ln.scale.fill_(1.0)
         ln.bias.zero_()
-    out = ln(torch.randn(4, 32))
-    assert seen == [mixed] and routed == [] and out.dtype == cd
+    x = torch.randn(4, 32)
+    before = N.layernorm.launches
+    out = ln(x)
+    assert seen == [mixed] and routed == ["layernorm"] and out.dtype == cd
+    assert N.layernorm.launches == before
+    assert torch.equal(out, N._ln_exact(x, ln.scale, ln.bias, ln.eps).to(cd))
 
 
 def test_k7_entry_has_no_fallback():

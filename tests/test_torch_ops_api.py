@@ -397,7 +397,8 @@ def test_switches_route_a_small_model_to_the_plain_road(road, small_model, monke
     if road == "xla":
         A.set_attention_impl("xla")
         out, entries = _forward_recording(monkeypatch, model, images, qids)
-        assert entries == []
+        # No attention entry: only the LayerNorms' own (K7 on the card).
+        assert set(entries) == {"layernorm"}
     else:
         with FA.disable_fused():
             out, entries = _forward_recording(monkeypatch, model, images, qids)
