@@ -59,9 +59,18 @@ Phases, each fatal on failure:
    transposed views, at a batch of 1 and with a broadcast batch; K6 at
    D = 16 to 256 on strided views (above 128 through ``bicross_attention(
    impl="pallas")``) and its fully masked row against the mean of V; K7's
-   block-per-row kernel at small shapes and its two-read kernel at widths
-   6144 and 8192 (at 8192 also in place); each Function's backward against
-   autograd through its twin;
+   row kernels at small shapes and its two-read kernel at widths 6144 and
+   8192 (in place at 8192, at the text rows' 768 and at the ragged 1500);
+   K7's backward kernel (``layernorm_backward``) against ``_ln_exact_vjp``
+   at ``K7_BWD_SHAPES`` and on constant rows (the rounded variance 0, the
+   clamp at its bound), bf16 and f32 (dx within one bf16 step, or 1e-5 of
+   its row's largest; dscale and dbias within 1e-4 of their largest; two
+   calls bitwise equal), timed beside the twin and
+   ``native_layer_norm_backward``; and on f32 rows whose rounded variance
+   is negative (the clamp cuts: ``check_layernorm_bwd_clamp``) against the
+   clamped closed form on the kernel's own statistics and against the twin
+   where the twin's variance rounds negative too; each Function's backward
+   against autograd through its twin;
 2c. the f32 and wide-head kernels: the CUDA-core attention of
    ``csrc/attn_simt.cu`` through each entry's CUDA half in f32 (K1's core at
    ``vqa_rad_lstm``'s 64 x 49 <- 32 and 32 <- 49, K2's 2048 x 64 <- 82 with
@@ -117,7 +126,8 @@ Phases, each fatal on failure:
    its val evaluation and checkpoint, ten steps on one repeated batch (the
    loss must be finite and fall), one of them with every counter set to 0
    just before and read just after (K1 = 20, K3 = 13, K4 = 20, K7 = 79,
-   the others 0: K4 runs in the backward of every K1 site), a timed run of
+   K7's backward 79, the others 0: K4 runs in the backward of every K1
+   site; the plain LayerNorm formula never on the card), a timed run of
    steps, the same steps on the plain LayerNorms and an eval forward's
    logits on both roads, the test evaluation at batch 128 (K1 = 20, K3 =
    13, K4 = 0, K7 = 51), a checkpoint restore round trip, and one step's
@@ -232,7 +242,8 @@ train step, one ``vqa_rad_lstm`` serve step and one ``vqa_rad_lstm``
 kernel and by kind of PyTorch kernel, and the device's idle share.
 
 It prints a ``summary`` line, a ``kernels`` JSON line of the eight kernel
-entries, the two CUDA-core kernels and the wide-head kernel (``launches``
+entries, K7's backward kernel, the two CUDA-core kernels and the wide-head
+kernel, each launched on a main path or the run fails (``launches``
 is a kernel's count summed over the main-path runs: the serve step, the
 int8 serve step, the train step, the ops API run of phase 2b, phase 5d's
 train step and eval forward, the serve steps and train runs of phases 6
@@ -240,7 +251,8 @@ and 6b, the fp32 forwards of phase 6c and the CLI commands, the converted
 checkpoint's forward, the bench runs, the remat train step and the
 profiled serve steps of phase 7, and each rank's serve step, Predictor
 calls and train steps of phase 8; K7's count is its two entries,
-``layernorm`` and ``layernorm_fast``, together;
+``layernorm`` and ``layernorm_fast``, together; its backward kernel has a
+line of its own, ``layernorm_backward``, counted in every train step;
 ``launches_by_path`` splits it), the total run time, the card's name and
 power limit, and as its last line ``{"ok": true, "device": {...}}``. It exits non-zero, and prints no
 result, when no CUDA device is present or the package is missing.
@@ -279,8 +291,10 @@ REPEATS, TIMED_TRAIN_STEPS = 10, 5
 # its 12 post-LNs, txt_ln, BTIA's 8, the unfused AD head's kv LN, ln_mlp and
 # ln_out) and 16 more in the backward, whose recompute of each BTIA site
 # runs its q and kv LNs (at dropout 0 the post-LNs run in K1's chain and
-# again in the backward's recompute: 79 too); an eval forward 51.
-TRAIN_COUNTS, EVAL_COUNTS = [20, 0, 13, 20, 0, 0, 79, 0], [20, 0, 13, 0, 0, 0, 51, 0]
+# again in the backward's recompute: 79 too); an eval forward 51. K7's
+# backward kernel (the ninth count, ``layernorm_backward``): one launch for
+# each of those 79, forward and recompute alike, none in an eval forward.
+TRAIN_COUNTS, EVAL_COUNTS = [20, 0, 13, 20, 0, 0, 79, 0, 79], [20, 0, 13, 0, 0, 0, 51, 0, 0]
 # model.num_heads of a 768-wide model that give K1-K4 their wider tiles:
 # head widths 128, 192 and 256.
 WIDE_HEADS = (6, 4, 3)
@@ -302,17 +316,18 @@ INT8_SITES = (
 # kernel (no FFN of a registered config is that wide): held like the eight.
 INT8_WIDE_K = ("wide_k", 4096, 8192, 1024, "gelu_tanh", 0)
 # K7 74 a serve step: its standalone LayerNorms (SERVE_LN_CENSUS).
-SERVE_COUNTS, INT8_COUNTS = [20, 1, 24, 0, 0, 0, 74, 0], [20, 1, 24, 0, 0, 0, 74, 90]
+SERVE_COUNTS, INT8_COUNTS = [20, 1, 24, 0, 0, 0, 74, 0, 0], [20, 1, 24, 0, 0, 0, 74, 90, 0]
 # One Predictor call (one image, a bucket of at most 32 questions): every
 # K1/K2 site is under the batch floor of 64 and takes the unfused road (its
 # short attention on the plain road, under K4's floor too); ViT-L keeps K3.
 # K7 103: the serve step's 74, the 12 BERT post-LNs, the q and kv LNs of the
 # 8 BTIA sites and the AD head's kv LN, which the unfused sites run alone.
-PREDICT_COUNTS = [0, 0, 24, 0, 0, 0, 103, 0]
+PREDICT_COUNTS = [0, 0, 24, 0, 0, 0, 103, 0, 0]
 # pathvqa_vit (phase 5c): 12 BERT + 4 BTIA K1 sites, 12 ViT blocks + the AD
 # head's 256 x 229 attention (above 32768: unfused, K3), K4 in the backward
-# of each K1 site; K7 as vqa_med_full's with 2 BTIA layers (59 + 8; 47).
-PATHVQA_TRAIN_COUNTS, PATHVQA_EVAL_COUNTS = [16, 0, 13, 16, 0, 0, 67, 0], [16, 0, 13, 0, 0, 0, 47, 0]
+# of each K1 site; K7 as vqa_med_full's with 2 BTIA layers (59 + 8; 47), a
+# backward launch for each of the train step's 67.
+PATHVQA_TRAIN_COUNTS, PATHVQA_EVAL_COUNTS = [16, 0, 13, 16, 0, 0, 67, 0, 67], [16, 0, 13, 0, 0, 0, 47, 0, 0]
 # K1/K2's projection GEMM at the serve step's shapes: (name, M, K, N, rows
 # the residual repeats over (0: none), launches per serve step). Text rows
 # 2048 x 32, BTIA image rows 2048 x 50, the AD head's 2048 x 82 kv rows and
@@ -370,18 +385,19 @@ K6_WIDTHS = (16, 32, 48, 80, 100, 112, 128, 136, 192, 256)
 # (2048 rows, D = 64) to K4: 12 BERT + 8 BTIA + 1 AD head; ViT keeps K3;
 # K7 103, as a Predictor call's. Under set_attention_impl("xla") no
 # attention kernel runs, and the LayerNorms the same 103.
-NO_FUSED_COUNTS = [0, 0, 24, 21, 0, 0, 103, 0]
-XLA_COUNTS = [0, 0, 0, 0, 0, 0, 103, 0]
+NO_FUSED_COUNTS = [0, 0, 24, 21, 0, 0, 103, 0, 0]
+XLA_COUNTS = [0, 0, 0, 0, 0, 0, 103, 0, 0]
 # The serve step with the models' LayerNorms on the plain formula
 # (``plain_layernorms``: the road before they reached K7), for the before /
 # after comparison within one run.
-PLAIN_LN_SERVE_COUNTS = SERVE_COUNTS[:6] + [0, 0]
+PLAIN_LN_SERVE_COUNTS = SERVE_COUNTS[:6] + [0, 0, 0]
 # K4 at those 21 launches' shapes (name, Sq, Sk, masked): 12 BERT sites
 # 32 <- 32, 4 BTIA img <- txt 50 <- 32 and 4 txt <- img 32 <- 50 (dense),
 # the AD head's 64 answer queries over 82 tokens.
 K4_SERVE_SHAPES = (("k4_serve_bert", SEQ, SEQ, True), ("k4_serve_i2t", N_IMG_TOK, SEQ, True),
                    ("k4_serve_t2i", SEQ, N_IMG_TOK, False), ("k4_serve_head", 64, N_IMG_TOK + SEQ, True))
-KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
+# K1..K8, then K7's backward kernel (``layernorm_backward``, csrc/layernorm.cu).
+KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K7_bwd")
 # Phase 2b, the ops API at full width, on registered configs' shapes: K5 at
 # ViT-L/336 self-attention (mha(impl="pallas")) and at the AD head of
 # vqa_med_full with model.num_heads=8 (D = 96: 2048 answer queries over
@@ -394,11 +410,24 @@ K6_POOLED = (B_IMG * N_Q, 12, N_IMG_TOK, SEQ, 64)  # (B, H, Ni, Nt, D)
 K6_LONG = (B_IMG, 12, 577, 64, 64)
 K7_SHAPES = (("vit_l", B_IMG * 577, 1024), ("btia_image", B_IMG * N_Q * N_IMG_TOK, 768),
              ("text", B_IMG * N_Q * SEQ, 768), ("head", B_IMG * N_Q * 64, 768))
+# K7's backward kernel (phase 2b), (name, rows, width): ViT-B's LayerNorms in
+# a vqa_med_full train step (64 x 197 tokens), BERT's (64 x 32), ViT-L's at the
+# serve batch (16 x 577: the width of phase 8e's streaming_vitl train step and
+# of --train-mesh, two warps a bf16 row), vqa_rad_lstm's image and text rows
+# at its width of 512 (64 x 49, 64 x 32), a ragged width and a row past the
+# register kernels; each in bf16 and f32, and BERT's shape again with
+# constant rows, where the variance's clamp sits at its bound.
+K7_BWD_SHAPES = (("vit_b", B_TRAIN * N_VIT_B, 768), ("bert", B_TRAIN * SEQ, 768), ("vit_l", B_IMG * 577, 1024),
+                 ("lstm_image", B_TRAIN * 49, 512), ("lstm_text", B_TRAIN * SEQ, 512),
+                 ("ragged", 3000, 1500), ("wide", 2048, 8192))
+# f32 widths of check_layernorm_bwd_clamp: one warp a row (768), two (1024),
+# one element a lane (the ragged 1500) and the two-read kernel (8192).
+K7_CLAMP_WIDTHS = (768, 1024, 1500, 8192)
 # The phase's main-path run: mha(impl="pallas"), mha() under
 # set_attention_impl("pallas") and mha_bshd at D = 96 on K5;
 # bicross_attention(impl="pallas") and bicross_bshd on K6; layernorm_fast at
 # the four K7 shapes in bf16 and at ViT-L's in f32.
-OPS_COUNTS = [0, 0, 0, 0, 3, 2, 5, 0]
+OPS_COUNTS = [0, 0, 0, 0, 3, 2, 5, 0, 0]
 # Standalone LayerNorms (each one K7 launch) of one bf16 serve step, by
 # (rows, width): ViT-L's 24 x 2 + final; BERT's embedding LN and 12 ln_mlp,
 # txt_ln and BTIA's 4 ln_txt2 on the 2048 x 32 text tokens; img_ln on the
@@ -453,33 +482,36 @@ NEW_KERNELS = ("simt_attention", "gemm_f32", "wide_attention")
 # forward; in training K4 in the backward of each. Counts K1..K8 and then
 # NEW_KERNELS: the two CUDA-core kernels and the wide-head kernel. K7: img_ln,
 # txt_ln and BTIA's 4 a forward; a train step 8 more in the backward (the
-# recompute of each BTIA site's q and kv LNs); a Predictor request (under
-# the batch floor: the sites unfused) 14, the sites' 8 LNs outside K1.
-LSTM_SERVE_COUNTS = [4, 0, 0, 0, 0, 0, 6, 0, 0, 0, 0]
-LSTM_TRAIN_STEP_COUNTS = [4, 0, 0, 4, 0, 0, 14, 0, 0, 0, 0]
-LSTM_PREDICT_COUNTS = [0, 0, 0, 0, 0, 0, 14, 0, 0, 0, 0]
+# recompute of each BTIA site's q and kv LNs), and K7's backward kernel once
+# for each of the 14; a Predictor request (under the batch floor: the sites
+# unfused) 14, the sites' 8 LNs outside K1.
+LSTM_SERVE_COUNTS = [4, 0, 0, 0, 0, 0, 6, 0, 0, 0, 0, 0]
+LSTM_TRAIN_STEP_COUNTS = [4, 0, 0, 4, 0, 0, 14, 0, 14, 0, 0, 0]
+LSTM_PREDICT_COUNTS = [0, 0, 0, 0, 0, 0, 14, 0, 0, 0, 0, 0]
 # Phase 6b, slake_bert (ResNet-50, BERT-base, 2 BTIA layers at 12 heads of
 # 64, mlp head): 12 BERT + 4 BTIA K1 sites. K7: img_ln, BERT's 13, txt_ln
 # and BTIA's 4 a forward; a train step adds BERT's 12 post-LNs (dropout
-# outside K1) and 8 in the backward.
-SLAKE_SERVE_COUNTS = [16, 0, 0, 0, 0, 0, 19, 0, 0, 0, 0]
-SLAKE_TRAIN_COUNTS = [16, 0, 0, 16, 0, 0, 39, 0, 0, 0, 0]
+# outside K1) and 8 in the backward; K7's backward kernel once for each of
+# the 39.
+SLAKE_SERVE_COUNTS = [16, 0, 0, 0, 0, 0, 19, 0, 0, 0, 0, 0]
+SLAKE_TRAIN_COUNTS = [16, 0, 0, 16, 0, 0, 39, 0, 39, 0, 0, 0]
 # Phase 6c, the fp32 policy: vqa_rad_lstm's eval forward at batch 64 (4 K1
 # sites, each 3 f32 GEMMs and one CUDA-core core); streaming_vitl's serve
 # step of 2 images x 32 questions (20 K1 sites, K2, 24 ViT-L blocks on K3,
 # all on the CUDA-core attention: 45; 60 + 2 f32 GEMMs); tiny_test none.
 # K7 as the bf16 forwards' (6, 74); tiny_test's train step at 4 rows and
 # its two Predictor forwards of 3 questions, all under the batch floor: 8
-# each (img_ln, txt_ln, its BTIA layer's 2 and its unfused sites' 4).
-F32_LSTM_COUNTS = [4, 0, 0, 0, 0, 0, 6, 0, 4, 12, 0]
-F32_VITL_COUNTS = [20, 1, 24, 0, 0, 0, 74, 0, 45, 62, 0]
-F32_TINY_COUNTS = [0, 0, 0, 0, 0, 0, 24, 0, 0, 0, 0]
+# each (img_ln, txt_ln, its BTIA layer's 2 and its unfused sites' 4), and
+# the train step's 8 backward launches.
+F32_LSTM_COUNTS = [4, 0, 0, 0, 0, 0, 6, 0, 0, 4, 12, 0]
+F32_VITL_COUNTS = [20, 1, 24, 0, 0, 0, 74, 0, 0, 45, 62, 0]
+F32_TINY_COUNTS = [0, 0, 0, 0, 0, 0, 24, 0, 8, 0, 0, 0]
 # Phase 5d, vqa_med_full with model.num_heads=2 (BTIA and the AD head at
 # head width 384; BERT and ViT-B at 12 heads of 64): a train step's 8 BTIA
 # K1 sites, the AD head's K3 call and the 8 K4 calls of those sites'
 # backward run on the wide-head kernel (17); an eval forward 8 + 1.
 WIDE_KERNEL_HEADS = 2
-WIDE_KERNEL_COUNTS = ([20, 0, 13, 20, 0, 0, 79, 0, 0, 0, 17], [20, 0, 13, 0, 0, 0, 51, 0, 0, 0, 9])
+WIDE_KERNEL_COUNTS = ([20, 0, 13, 20, 0, 0, 79, 0, 79, 0, 0, 17], [20, 0, 13, 0, 0, 0, 51, 0, 0, 0, 0, 9])
 # Phase 7, the user's entry points on the card. The CLI on vqa_rad_lstm
 # (bf16, 2 BTIA layers): K1 at its 4 BTIA sites a forward of 64 rows or
 # more, K4 in the backward of each in a train step. `serve` runs batches of
@@ -497,8 +529,9 @@ BENCH_STEP_COUNTS = {"streaming_vitl": SERVE_COUNTS + [0, 0, 0], "vqa_rad_lstm":
 # A vqa_med_full train step with model.remat: the plain step's launches
 # (TRAIN_COUNTS) and the recompute's, in the backward pass, of the 8 BTIA K1
 # sites and the 12 ViT-B blocks' K3 calls and LayerNorms (K7 79 + 24 + 8);
-# the AD head is not recomputed.
-REMAT_COUNTS = [28, 0, 25, 20, 0, 0, 111, 0, 0, 0, 0]
+# the AD head is not recomputed. K7's backward kernel 79: the recompute's
+# graph feeds the forward's nodes, one backward each.
+REMAT_COUNTS = [28, 0, 25, 20, 0, 0, 111, 0, 79, 0, 0, 0]
 # The steps' ms before the models' LayerNorms reached K7: this script's runs
 # on the tree before that change (H100 80GB HBM3, 700 W; PERF.md section 5),
 # logged beside this run's for the record. The comparison that counts is
@@ -1250,10 +1283,12 @@ def check_layernorm(torch, name, x, scale, bias, eps=1e-6, iters=20):
     one bf16 step at its magnitude, in f32 within 1e-5 of the largest
     magnitude, and in bf16 too within that (an output near 0, where the
     bias cancels, whose f32 value differs by a rounding before the cast).
-    Times the kernel, the twin and ``F.layer_norm`` (timing only: its
-    variance is the two-pass one), with the bound (bytes)."""
+    Times the kernel (through its wrapper, and its C entry alone), the twin
+    and ``F.layer_norm`` (timing only: its variance is the two-pass one),
+    with the bound (bytes)."""
     import torch.nn.functional as F
 
+    from btia_tpu_torch.ops import _native
     from btia_tpu_torch.ops import norms as N
 
     out = N.layernorm_fast(x, scale, bias, eps)
@@ -1278,12 +1313,78 @@ def check_layernorm(torch, name, x, scale, bias, eps=1e-6, iters=20):
         "plain_ms": cuda_time_ms(lambda: N._ln_exact(x, scale, bias, eps), max(2, iters // 4)),
         "library_ms": cuda_time_ms(lambda: F.layer_norm(x, (D,), ws, wb, eps), iters),
     }
+    y, sc, bi, lib, st = torch.empty_like(x), scale.float().contiguous(), bias.float().contiguous(), _native.lib(), \
+        torch.cuda.current_stream().cuda_stream
+    row["c_entry_ms"] = cuda_time_ms(lambda: lib.btia_layernorm(
+        x.data_ptr(), y.data_ptr(), sc.data_ptr(), bi.data_ptr(), x.numel() // D, D, eps, int(x.dtype == torch.float32),
+        st), iters)
     row["bound_ms"], row["bound_by"] = bound_ms(8 * x.numel(), 2 * nbytes(x) + nbytes(scale, bias))
     log(f"  K7 {name} {tuple(x.shape)} {row['dtype']}: err {row['max_abs_err']:.4g}, {bad} elements "
-        f"beyond the limit; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+        f"beyond the limit; kernel {row['ms']:.4f} ms (C entry {row['c_entry_ms']:.4f}), plain {row['plain_ms']:.4f} ms, "
         f"F.layer_norm {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     if bad:
         raise AssertionError(f"K7 {name}: {bad} elements disagree with the plain twin")
+    return row
+
+
+def check_layernorm_bwd(torch, name, x, scale, bias, g, eps=1e-6, iters=20):
+    """K7's backward kernel (``layernorm_backward``'s CUDA half) against its
+    plain twin (``_ln_exact_vjp``, the vjp of ``_ln_exact``): dx within one
+    bf16 step at each element's magnitude plus 1e-5 of its row's largest
+    (f32: within 1e-5 of the row's largest; a row where the variance's clamp
+    binds has dx of order 1 / sqrt(eps), which would hide the other rows);
+    dscale and dbias within 1e-4 of their largest magnitude; a second call
+    equal to the first bit for bit. Times the kernel (through its wrapper),
+    the twin and ``torch.ops.aten.native_layer_norm_backward`` (timing only,
+    on the row statistics of ``native_layer_norm``, its variance the
+    two-pass one), with the bound: x and g read, dx written, scale read,
+    dscale and dbias written, against ~20 f32 operations an element on the
+    CUDA cores. The kernel also through its C entry alone."""
+    from btia_tpu_torch.ops import _native
+    from btia_tpu_torch.ops import norms as N
+
+    got = N._layernorm_bwd_cuda(x, scale, bias, g, eps)
+    again = N._layernorm_bwd_cuda(x, scale, bias, g, eps)
+    ref = N._ln_exact_vjp(x, scale, bias, g, eps)
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(t.float()).all()) for t in got):
+        raise AssertionError(f"K7 backward {name}: kernel output is not finite")
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    dx, rx = got[0].float(), ref[0].float()
+    diff = (dx - rx).abs()
+    floor = 1e-5 * rx.abs().amax(-1, keepdim=True)
+    lim = floor + bf16_steps(torch, rx) if x.dtype == torch.bfloat16 else floor
+    bad = int((diff > lim).sum())
+    perr = [(a - b).abs().max().item() for a, b in zip(got[1:], ref[1:])]
+    ptol = [1e-4 * b.abs().max().item() for b in ref[1:]]
+    D = x.shape[-1]
+    w, b = scale.to(x.dtype), bias.to(x.dtype)
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x, (D,), w, b, eps)
+    lib = lambda: torch.ops.aten.native_layer_norm_backward(g, x, (D,), mean, rstd, w, b, [True, True, True])
+    row = {
+        "shape": list(x.shape), "dtype": str(x.dtype).removeprefix("torch."),
+        "max_abs_err": diff.max().item(), "elements_off": bad, "dscale_dbias_err": perr, "dscale_dbias_tol": ptol,
+        "two_calls_bitwise_equal": bitwise,
+        "ms": cuda_time_ms(lambda: N._layernorm_bwd_cuda(x, scale, bias, g, eps), iters),
+        "plain_ms": cuda_time_ms(lambda: N._ln_exact_vjp(x, scale, bias, g, eps), max(2, iters // 4)),
+        "library_ms": cuda_time_ms(lib, iters),
+    }
+    M, elem = x.numel() // D, int(x.dtype == torch.float32)
+    sc, lib, st = scale.float().contiguous(), _native.lib(), torch.cuda.current_stream().cuda_stream
+    outs = [torch.empty_like(x), torch.empty(D, device=x.device), torch.empty(D, device=x.device)]
+    rows = lib.btia_layernorm_bwd_parts(x.data_ptr(), g.data_ptr(), sc.data_ptr(), outs[0].data_ptr(), M, D, elem)
+    outs.append(torch.empty(rows, 2 * D, device=x.device))
+    row["c_entry_ms"] = cuda_time_ms(lambda: lib.btia_layernorm_bwd(
+        x.data_ptr(), g.data_ptr(), sc.data_ptr(), *(t.data_ptr() for t in outs), rows, M, D, eps, elem, st), iters)
+    row["bound_ms"], row["bound_by"] = bound_ms(20 * x.numel(), 3 * nbytes(x) + 12 * D, PEAK_F32_SIMT)
+    log(f"  K7 backward {name} {tuple(x.shape)} {row['dtype']}: dx err {row['max_abs_err']:.4g}, {bad} elements "
+        f"beyond the limit; dscale / dbias err {perr[0]:.3g} / {perr[1]:.3g} (tol {ptol[0]:.3g} / {ptol[1]:.3g}); "
+        f"two calls bitwise equal {bitwise}; kernel {row['ms']:.4f} ms (C entry {row['c_entry_ms']:.4f}), "
+        f"plain {row['plain_ms']:.4f} ms, "
+        f"native_layer_norm_backward {row['library_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    if bad or not bitwise or any(e > t for e, t in zip(perr, ptol)):
+        raise AssertionError(f"K7 backward {name}: {bad} dx elements off, dscale / dbias err {perr} (tol {ptol}), "
+                             f"two calls bitwise equal: {bitwise}")
     return row
 
 
@@ -1414,15 +1515,37 @@ def ops_api_phase(torch, dev, counters):
         x = (torch.randn(M, D, generator=g, device=dev) * 2 + 0.5).to(bf)
         sc, bi = 1 + 0.2 * torch.randn(D, generator=g, device=dev), 0.1 * torch.randn(D, generator=g, device=dev)
         rows[f"k7_wide_{D}"] = check_layernorm(torch, f"wide {D}", x, sc, bi, iters=5)
-    y = x.clone()
-    N._layernorm_cuda(y, sc, bi, 1e-6, out=y)
-    ref = N._ln_exact(x, sc, bi, 1e-6).float()
-    step = torch.exp2(torch.floor(torch.log2(ref.abs().clamp_min(1e-30))) - 7)
-    off = int(((y.float() - ref).abs() > step + 1e-5 * ref.abs().max()).sum())
-    rows["k7_wide_8192"]["in_place_elements_off"] = off
-    log(f"  K7 wide 8192 in place: {off} elements beyond one bf16 step of the twin")
-    if off:
-        raise AssertionError(f"K7 in place at width 8192: {off} elements disagree with the twin")
+        if D == 1500:
+            ln_in["ragged_1500"] = (x, sc, bi)
+    # In place (as K1's post-LN writes) at 8192, at the text rows' 768 (the
+    # 16-byte road) and at the ragged 1500.
+    for key, (x, sc, bi) in (("k7_wide_8192", (x, sc, bi)), ("k7_text", ln_in["text"]),
+                             ("k7_wide_1500", ln_in["ragged_1500"])):
+        y = x.clone()
+        N._layernorm_cuda(y, sc, bi, 1e-6, out=y)
+        ref = N._ln_exact(x, sc, bi, 1e-6).float()
+        off = int(((y.float() - ref).abs() > bf16_steps(torch, ref) + 1e-5 * ref.abs().max()).sum())
+        rows[key]["in_place_elements_off"] = off
+        log(f"  K7 {key} {tuple(x.shape)} in place: {off} elements beyond one bf16 step of the twin")
+        if off:
+            raise AssertionError(f"K7 in place at {tuple(x.shape)}: {off} elements disagree with the twin")
+        del y, ref
+    # K7's backward kernel against its twin, in bf16 and f32, at K7_BWD_SHAPES
+    # and on BERT's shape with constant rows (0.5 and -2.0, whose sums are
+    # exact in any order: mean2 - mean^2 = 0, the clamp at its bound).
+    for name, M, D in K7_BWD_SHAPES + (("clamped", B_TRAIN * SEQ, 768),):
+        for dt in (bf, torch.float32):
+            x = (torch.randn(M, D, generator=g, device=dev) * 2 + 0.5).to(dt)
+            if name == "clamped":
+                x[:4], x[4:8] = 0.5, -2.0
+            sc, bi = 1 + 0.2 * torch.randn(D, generator=g, device=dev), 0.1 * torch.randn(D, generator=g, device=dev)
+            gr = torch.randn(M, D, generator=g, device=dev).to(dt)
+            key = f"k7_bwd_{name}" + ("" if dt == bf else "_f32")
+            rows[key] = check_layernorm_bwd(torch, f"{name}", x, sc, bi, gr, iters=5 if name == "wide" else 20)
+            del x, gr
+    # ... and on f32 rows whose rounded variance is negative: the clamp cuts.
+    for D in K7_CLAMP_WIDTHS:
+        rows[f"k7_clamp_bwd_{D}"] = check_layernorm_bwd_clamp(torch, g, D)
     # K6 at widths of every template (D 16..256; the main paths run 64; D 136
     # to 256 through bicross_attention(impl="pallas"), which took only D <= 128
     # before the short-sequence kernel) at a small masked shape on strided
@@ -1471,14 +1594,74 @@ def ops_api_phase(torch, dev, counters):
     rows["K6_backward"] = check_backward(
         torch, "K6", lambda *xs: O.bicross_attention(*xs, mp, impl="pallas"),
         lambda *xs: BX._bicross_plain(*xs, mp), pooled, gb)
-    # K7's backward is the vjp of _ln_exact, which is its twin: the same
-    # arithmetic, held to 1e-5 of each gradient's largest magnitude.
-    x, sc, bi = ln_in["vit_l"]
+    # K7's Function: its backward kernel through autograd against autograd
+    # through the twin, at ViT-L's f32 rows (bf16 is held above, element by
+    # element): each gradient within 1e-5 of its largest magnitude.
+    x, sc, bi = ln_in["vit_l_f32"]
     rows["K7_backward"] = check_backward(
         torch, "K7", lambda a, b, c: N.layernorm_fast(a, b, c, 1e-6),
         lambda a, b, c: N._ln_exact(a, b, c, 1e-6), [x, sc, bi], gb, tol_div=1e5)
     torch.cuda.empty_cache()
     return rows, counts
+
+
+def check_layernorm_bwd_clamp(torch, g, D, M=512, eps=1e-6):
+    """K7's backward kernel where the variance's clamp cuts (keep false), on
+    f32 rows of width D: 1000 + N(0, 0.1^2), whose variance (0.01) is below
+    the rounding of mean2 and mean^2 (both on a grid of 1/16 near 1e6), so
+    that mean2 - mean^2 rounds below 0, to 0 or above 0 by the order of the
+    sums, the kernel's and the twin's apart. The kernel's own x̂ = (x - mean)
+    * inv comes from its forward at scale 1 and bias 0 (the backward
+    recomputes the same statistics). A row whose inv is 1 / sqrt(eps) (|x̂|
+    up to ~400, not ~2: the rounded variance <= 0) must have dx equal to
+    one of two closed forms in f64 on that x̂, which differ by orders of
+    magnitude: inv * (gs - mean(gs)), the clamped rule (variance < 0), or
+    inv * (gs - mean(gs) - x̂ mean(gs x̂)) (variance 0, the clamp at its
+    bound passing the gradient), within 1e-5 of the row's largest (the
+    second, whose f32 sum of gs x̂ over ~400-sized terms dominates it, within
+    1e-4).
+    Fails unless every such row is one of them, at least 16 rows take the
+    clamped rule, those of them where the twin's own rounded variance is
+    negative too (at least 4) agree with the twin (``_ln_exact_vjp``)
+    within 1e-5 of the row's largest, dscale and dbias agree with sum(g x̂)
+    and sum(g) in f64 within 1e-4 of their largest, and a second call
+    equals the first bit for bit."""
+    from btia_tpu_torch.ops import norms as N
+
+    dev = torch.device("cuda", 0)
+    x = 1000 + 0.1 * torch.randn(M, D, generator=g, device=dev)
+    sc, bi = 1 + 0.2 * torch.randn(D, generator=g, device=dev), 0.1 * torch.randn(D, generator=g, device=dev)
+    gr = torch.randn(M, D, generator=g, device=dev)
+    xh = N._layernorm_cuda(x, torch.ones_like(sc), torch.zeros_like(bi), eps).double()
+    got = N._layernorm_bwd_cuda(x, sc, bi, gr, eps)
+    again = N._layernorm_bwd_cuda(x, sc, bi, gr, eps)
+    ref = N._ln_exact_vjp(x, sc, bi, gr, eps)
+    mean = x.mean(-1, keepdim=True)  # the twin's statistics, rounded as _ln_exact rounds them
+    twin_neg = ((x * x).mean(-1, keepdim=True) - mean * mean < 0)[:, 0]
+    bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+    cut = xh.abs().amax(-1) > 50  # inv = 1 / sqrt(eps)
+    gs, dx = gr.double() * sc.double(), got[0].double()
+    gs_c = gs - gs.mean(-1, keepdim=True)
+    clamped, full = eps ** -0.5 * gs_c, eps ** -0.5 * (gs_c - xh * (gs * xh).mean(-1, keepdim=True))
+    off = lambda a, b: (a - b).abs().amax(-1) / b.abs().amax(-1)
+    keep_false, keep_true = cut & (off(dx, clamped) <= 1e-5), cut & (off(dx, full) <= 1e-4)
+    stray = int((cut & ~keep_false & ~keep_true).sum())
+    both = keep_false & twin_neg
+    twin_err = off(dx[both], ref[0][both].double()).max().item() if bool(both.any()) else float("inf")
+    perr = [(a.double() - b).abs().max().item() for a, b in zip(got[1:], ((gr.double() * xh).sum(0), gr.double().sum(0)))]
+    ptol = [1e-4 * b.abs().max().item() for b in ((gr.double() * xh).sum(0), gr.double().sum(0))]
+    row = {"shape": [M, D], "dtype": "float32", "rows_variance_le_0": int(cut.sum()),
+           "rows_keep_false": int(keep_false.sum()), "rows_keep_true": int(keep_true.sum()), "rows_stray": stray,
+           "rows_against_twin": int(both.sum()), "twin_rel_err": twin_err, "dscale_dbias_err": perr,
+           "dscale_dbias_tol": ptol, "two_calls_bitwise_equal": bitwise}
+    log(f"  K7 backward clamp {M} x {D} f32: {row['rows_variance_le_0']} rows with the rounded variance <= 0, "
+        f"{row['rows_keep_false']} on the clamped rule, {row['rows_keep_true']} at the bound, {stray} neither; "
+        f"{row['rows_against_twin']} held against the twin (rel err {twin_err:.3g}); dscale / dbias err "
+        f"{perr[0]:.3g} / {perr[1]:.3g} (tol {ptol[0]:.3g} / {ptol[1]:.3g}); two calls bitwise equal {bitwise}")
+    if (stray or row["rows_keep_false"] < 16 or row["rows_against_twin"] < 4 or not twin_err <= 1e-5 or not bitwise
+            or any(e > t for e, t in zip(perr, ptol))):
+        raise AssertionError(f"K7 backward where the clamp cuts, D {D}: {row}")
+    return row
 
 
 def layernorm_road(torch, step):
@@ -1493,8 +1676,8 @@ def layernorm_road(torch, step):
     from btia_tpu_torch.ops import fused_attn as FA
     from btia_tpu_torch.ops import norms as N
 
-    census, dtypes, plain = {}, set(), [0]
-    real, real_exact = N.layernorm, N._ln_exact
+    census, dtypes = {}, set()
+    real = N.layernorm
 
     def spy(x, *a, **kw):
         key = (x.numel() // x.shape[-1], x.shape[-1])
@@ -1502,23 +1685,40 @@ def layernorm_road(torch, step):
         dtypes.add(str(x.dtype).removeprefix("torch."))
         return real(x, *a, **kw)
 
-    def exact(x, *a):
-        plain[0] += int(x.is_cuda)
-        return real_exact(x, *a)
-
     mods = (layers, bert, FA)
     for m in mods:
         m.layernorm = spy
-    N._ln_exact = FA._ln_exact = exact
     before = N.layernorm.launches, N.layernorm_fast.launches
     try:
-        step(0)
-        torch.cuda.synchronize()
+        with plain_formula_calls() as plain:
+            step(0)
+            torch.cuda.synchronize()
     finally:
         for m in mods:
             m.layernorm = real
-        N._ln_exact = FA._ln_exact = real_exact
     return (census, dtypes, N.layernorm.launches - before[0], N.layernorm_fast.launches - before[1], plain[0])
+
+
+@contextlib.contextmanager
+def plain_formula_calls():
+    """Counts the plain formula's calls on CUDA tensors in the body
+    (``_ln_exact`` in ``ops/norms.py``, where K7's backward twin calls it
+    too, and as ``fused_attn`` holds it for K1/K2's twins): yields a
+    one-element list."""
+    from btia_tpu_torch.ops import fused_attn as FA
+    from btia_tpu_torch.ops import norms as N
+
+    calls, real = [0], N._ln_exact
+
+    def exact(x, *a):
+        calls[0] += int(x.is_cuda)
+        return real(x, *a)
+
+    N._ln_exact = FA._ln_exact = exact
+    try:
+        yield calls
+    finally:
+        N._ln_exact = FA._ln_exact = real
 
 
 def check_layernorm_road(torch, step, what):
@@ -1552,12 +1752,14 @@ def layernorm_census(torch, dev, step, counters):
         x = (torch.randn(m, d, generator=g, device=dev) * 2 + 0.5).to(torch.bfloat16)
         sc, bi = 1 + 0.2 * torch.randn(d, generator=g, device=dev), 0.1 * torch.randn(d, generator=g, device=dev)
         row = check_layernorm(torch, f"serve {m} x {d}", x, sc, bi)
-        per_shape[f"{m}x{d}"] = {"count": c, **{k: row[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}}
+        per_shape[f"{m}x{d}"] = {"count": c, **{k: row[k] for k in ("ms", "c_entry_ms", "plain_ms", "library_ms",
+                                                                     "bound_ms")}}
     for f, before in zip(counters, launches):
         f.launches = before  # comparison launches are not main-path launches
     total = lambda key: sum(r["count"] * r[key] for r in per_shape.values())
     res = {"standalone_layernorms": n, "dtype": sorted(dtypes), "shapes": per_shape,
-           "k7_ms_per_step": total("ms"), "plain_ms_per_step": total("plain_ms"),
+           "k7_ms_per_step": total("ms"), "k7_c_entry_ms_per_step": total("c_entry_ms"),
+           "plain_ms_per_step": total("plain_ms"),
            "library_ms_per_step": total("library_ms"), "bound_ms_per_step": total("bound_ms")}
     log(json.dumps({"serve_step_layernorms": res}))
     return res
@@ -1621,7 +1823,8 @@ def routing_switches_phase(torch, dev, smi, model, host_imgs, host_qids, serve_s
     return res
 
 
-_PORTED = ("gemm_bias_ws_kernel", "ln_warp_kernel", "ln_block_kernel", "ln_wide_kernel", "flash_ws_kernel",
+_PORTED = ("gemm_bias_ws_kernel", "ln_rows_kernel", "ln_wide_kernel", "ln_bwd_rows_kernel", "ln_bwd_wide_kernel",
+           "ln_bwd_cols_kernel", "flash_ws_kernel",
            "flash_attn_kernel", "short_flash_kernel", "quant_rows_kernel", "quant_rows_loop_kernel", "int8_gemm_kernel",
            "attn_simt_kernel", "gemm_f32_kernel")
 
@@ -1707,15 +1910,17 @@ class _K7Launches:
 
 
 def launch_counters():
-    """The kernel entries' launch counters, K1..K8 (KERNELS)."""
+    """The kernel entries' launch counters, K1..K8 and K7's backward
+    (KERNELS)."""
     from btia_tpu_torch.ops import attention as A
     from btia_tpu_torch.ops import bicross as BX
     from btia_tpu_torch.ops import fused_attn as FA
+    from btia_tpu_torch.ops import norms as N
     from btia_tpu_torch.ops.quant import int8_matmul_fused
 
     return (FA.fused_dense_attention, FA.fused_static_q_attention, A.bshd_flash_attention,
             A.fanout_attention, A.mha_bhsd_attention, BX.bicross_bhsd_attention, _K7Launches(),
-            int8_matmul_fused)
+            int8_matmul_fused, N.layernorm_backward)
 
 
 @contextlib.contextmanager
@@ -1761,13 +1966,13 @@ def timed_ms(torch, fn, n):
     return 1e3 * (time.perf_counter() - t0) / n
 
 
-def k7_vs_plain_ms(torch, fn, n):
+def k7_vs_plain_ms(torch, fn, n, rounds=1):
     """ms a call of fn() with the LayerNorms on K7 and on the plain formula
-    (``plain_layernorms``), timed in turns, K7, plain, plain, K7, each turn
-    ``timed_ms`` of n calls: a host-bound step drifts within a run by more
-    than its two roads differ."""
+    (``plain_layernorms``), timed in turns, K7, plain, plain, K7 (a second
+    round: plain, K7, K7, plain), each turn ``timed_ms`` of n calls: a
+    host-bound step drifts within a run by more than its two roads differ."""
     turns = {"k7": [], "plain": []}
-    for road in ("k7", "plain", "plain", "k7"):
+    for road in ("k7", "plain", "plain", "k7", "plain", "k7", "k7", "plain")[:4 * rounds]:
         with plain_layernorms() if road == "plain" else contextlib.nullcontext():
             turns[road].append(timed_ms(torch, fn, n))
     return {road: sum(t) / len(t) for road, t in turns.items()} | {"turns": turns}
@@ -1821,17 +2026,20 @@ def train_phase(torch, dev, smi, counters):
             if i == 1:
                 torch.cuda.synchronize()
                 _zero(counters)
-            _, m = trainer.train_step(state, batch)
+            with plain_formula_calls() if i == 1 else contextlib.nullcontext([0]) as plain:
+                _, m = trainer.train_step(state, batch)
             losses.append(float(m["loss"]))
             if i == 1:
                 torch.cuda.synchronize()
-                counts = [f.launches for f in counters]
+                counts, plain_calls = [f.launches for f in counters], plain[0]
         log(f"  {REPEATS} steps on one batch of {B_TRAIN}: loss {[round(x, 4) for x in losses]}")
         if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
             raise AssertionError(f"the loss is not finite or does not fall: {losses}")
-        log("  one train step launched " + ", ".join(f"{k} {c}" for k, c in zip(KERNELS, counts)))
-        if counts != TRAIN_COUNTS:
-            raise AssertionError(f"train-step launch counts {counts} != {TRAIN_COUNTS}")
+        log("  one train step launched " + ", ".join(f"{k} {c}" for k, c in zip(KERNELS, counts))
+            + f"; the plain LayerNorm formula on a CUDA tensor {plain_calls} times")
+        if counts != TRAIN_COUNTS or plain_calls:
+            raise AssertionError(f"train-step launch counts {counts} != {TRAIN_COUNTS}, or the plain LayerNorm "
+                                 f"formula ran {plain_calls} times on the card")
         out["train_counts"] = counts
 
         torch.cuda.synchronize()
@@ -2810,7 +3018,7 @@ def _step_check(torch, dev, name, batch_fn, counters, expected, mixed, bn_runnin
             ok = ok and r["tf32_yardstick_grad_rel_l2_image_encoder"] > cap
     # Under fp32, K1 on its f32 chain (a core and 3 GEMMs a site), K4 in the
     # backward: each a CUDA-core attention launch.
-    want = expected if mixed else expected[:8] + [expected[0] + expected[3], 3 * expected[0], 0]
+    want = expected if mixed else expected[:len(KERNELS)] + [expected[0] + expected[3], 3 * expected[0], 0]
     policy = ("bf16" if mixed else "fp32") + ("_bn_running" if bn_running else "")
     log(f"  {name} card vs CPU train step, {policy}: {json.dumps(r)}")
     return policy, r, bool(ok and np.isfinite(r["loss_card"])), counts, want
@@ -2955,21 +3163,23 @@ def vqa_rad_lstm_phase(torch, dev, smi, counters):
         torch.cuda.synchronize()
         _zero(counters)
         t0 = time.perf_counter()
-        _, ms = trainer.train_step_scan(trainer.state, chunk)
-        torch.cuda.synchronize()
+        with plain_formula_calls() as plain:
+            _, ms = trainer.train_step_scan(trainer.state, chunk)
+            torch.cuda.synchronize()
         call_s = time.perf_counter() - t0
         counts = _counts(counters)
         losses = [float(x) for x in ms["loss"]]
         moved = (trainer.model.image_encoder.stem_bn.mean - bn_before).abs().max().item()
         expected = [K * c for c in LSTM_TRAIN_STEP_COUNTS]
         log(f"  one Trainer call of {K} scanned steps at batch {chunk['images'].shape[1]} in {call_s:.2f} s: "
-            f"losses {losses}, stem BatchNorm mean moved {moved:.4g}; launched {counts}")
-        if counts != expected or not np.all(np.isfinite(losses)) or not moved > 0:
+            f"losses {losses}, stem BatchNorm mean moved {moved:.4g}; launched {counts}; the plain LayerNorm "
+            f"formula on a CUDA tensor {plain[0]} times")
+        if counts != expected or not np.all(np.isfinite(losses)) or not moved > 0 or plain[0]:
             raise AssertionError(f"vqa_rad_lstm train call: counts {counts} != {expected}, losses {losses}, "
-                                 f"BN moved {moved}")
-        # Calls on K7's LayerNorms and on the plain formula (the road before
-        # K7), in turns.
-        ab = k7_vs_plain_ms(torch, lambda: trainer.train_step_scan(trainer.state, chunk), 1)
+                                 f"BN moved {moved}, the plain LayerNorm formula on the card {plain[0]} times")
+        # Calls on K7's LayerNorms (forward and backward kernels) and on the
+        # plain formula (the road before K7), in two rounds of turns.
+        ab = k7_vs_plain_ms(torch, lambda: trainer.train_step_scan(trainer.state, chunk), 1, rounds=2)
         if "--profile" in sys.argv[1:]:
             profile_step(torch, lambda: trainer.train_step_scan(trainer.state, chunk), smi,
                          f"vqa_rad_lstm_trainer_call_of_{K}_steps")
@@ -2977,6 +3187,7 @@ def vqa_rad_lstm_phase(torch, dev, smi, counters):
                              "ms_per_step": 1e3 * call_s / K, "losses": losses, "bn_stem_mean_moved": moved,
                              "launches": dict(zip(KERNELS + NEW_KERNELS, counts)),
                              "k7_vs_plain_layernorms_ms_per_step": [ab["k7"] / K, ab["plain"] / K],
+                             "k7_vs_plain_turns_ms_per_call": ab["turns"],
                              "before_k7_ms_per_step": BEFORE_K7_MS["vqa_rad_lstm_train_step"]}
         out["eval"] = _eval_vs_cpu(torch, dev, trainer.model, batch_to_device(batches[0], dev), counters,
                                    LSTM_SERVE_COUNTS, "vqa_rad_lstm")
@@ -3213,10 +3424,11 @@ def cli_phase(torch, dev, smi, counters, overrides=()):
         if steps < 2:
             raise AssertionError(f"the CLI corpus fills {steps} train step(s) of vqa_rad_lstm, not 2")
         # K7 as phase 6's: 14 a train step, 6 a val or test batch, 14 for
-        # the predict request (under the batch floor).
+        # the predict request (under the batch floor); its backward kernel
+        # 14 a train step.
         expect = {
-            "train": [4 * (steps + val_b), 0, 0, 4 * steps, 0, 0, 14 * steps + 6 * val_b] + [0] * 4,
-            "eval": [4 * test_b] + [0] * 5 + [6 * test_b] + [0] * 4, "predict": LSTM_PREDICT_COUNTS,
+            "train": [4 * (steps + val_b), 0, 0, 4 * steps, 0, 0, 14 * steps + 6 * val_b, 0, 14 * steps] + [0] * 3,
+            "eval": [4 * test_b] + [0] * 5 + [6 * test_b] + [0] * 5, "predict": LSTM_PREDICT_COUNTS,
         }
         cmds = {
             "train": ["train", "--config", "vqa_rad_lstm", "--workdir", work,
@@ -3256,7 +3468,7 @@ def cli_phase(torch, dev, smi, counters, overrides=()):
                 out[name]["rows"] = rows
         images = [p for p in (root / "images").iterdir() if p.suffix.lower() in (".jpg", ".dcm", ".png")]
         batches = 1 + math.ceil(len(images) / CLI_SERVE_BATCH)
-        expect = [4 * batches] + [0] * 5 + [6 * batches] + [0] * 4
+        expect = [4 * batches] + [0] * 5 + [6 * batches] + [0] * 5
         torch.cuda.synchronize()
         _zero(counters)
         t0 = time.perf_counter()
@@ -3517,12 +3729,12 @@ P8_CAVEAT = ("two ranks time-share one H100 and all-reduce through the host (glo
 # 8 K1 sites, the AD head's K2 and ViT-L's 24 blocks on K3 (8 of 16 heads);
 # K7 the serve step's 74 and BERT's 12 post-LNs, which act on the model
 # group's sum, outside K1's chain.
-P8_SERVE_COUNTS = [20, 1, 24, 0, 0, 0, 86, 0, 0, 0, 0]
+P8_SERVE_COUNTS = [20, 1, 24, 0, 0, 0, 86, 0, 0, 0, 0, 0]
 # ... and with int8 FFNs: K8 on each of the 45 Mlps' two products a rank.
-P8_INT8_COUNTS = [20, 1, 24, 0, 0, 0, 86, 90, 0, 0, 0]
+P8_INT8_COUNTS = [20, 1, 24, 0, 0, 0, 86, 90, 0, 0, 0, 0]
 # Per rank of the (2, 1) vqa_rad_lstm step at 64 rows: 4 K1 sites, K4 in
-# the backward of each; K7 as phase 6's train step.
-P8_TRAIN_COUNTS = [4, 0, 0, 4, 0, 0, 14, 0, 0, 0, 0]
+# the backward of each; K7 and its backward kernel as phase 6's train step.
+P8_TRAIN_COUNTS = [4, 0, 0, 4, 0, 0, 14, 0, 14, 0, 0, 0]
 P8_BATCH = 128
 # 8c's bounds, DP step against the one-process step, phase 6's for the card
 # against the CPU on batch statistics (``_step_check``): bf16 on the loss,
@@ -3709,8 +3921,9 @@ P8E_IMAGES, P8E_QUESTIONS = 8, 8
 # LN, 2 ln_mlp and 2 post-LNs on the model group's sum, txt_ln, BTIA's 4, the
 # head's 2) and 9 in the backward (the recompute of the BTIA sites' q and kv
 # LNs and of K2's kv LN). One process: the same 27, BERT's post-LNs in K1's
-# chain and in its backward's recompute.
-P8E_COUNTS = [6, 1, 2, 7, 0, 0, 27, 0, 0, 0, 0]
+# chain and in its backward's recompute. K7's backward kernel once for each
+# of the 27.
+P8E_COUNTS = [6, 1, 2, 7, 0, 0, 27, 0, 27, 0, 0, 0]
 # Bounds as 8c's bf16 ones (P8_TRAIN_BOUNDS): the loss, the global gradient
 # norm (its squares summed over the model group), and every parameter after
 # the step within 2.5 learning rates of the one-process one (the first Adam
@@ -4502,6 +4715,18 @@ def main() -> int:
         "bound_ms_per_step": sum(x["bound_ms"] * x["launches_per_step"] for x in int8_rows.values()),
         "sites": int8_rows,
     })
+    bwd_rows = {k: v for k, v in rows.items() if k.startswith("k7_bwd_")}
+    r = bwd_rows["k7_bwd_vit_b"]  # ViT-B's 12608 x 768 bf16 rows, 25 launches of a vqa_med_full train step
+    kernels.append({
+        "name": "layernorm_backward", "route": "cuda", "source": "btia_tpu_torch/csrc/layernorm.cu",
+        "replaces": "btia_tpu/ops/norms.py:98 (_layernorm_fast_bwd, the backward of K7's custom_vjp)",
+        "launches": sum(by_path[8].values()), "launches_by_path": by_path[8],
+        "max_abs_err": max(x["max_abs_err"] for x in bwd_rows.values()),
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"], "library": "torch.ops.aten.native_layer_norm_backward",
+        "sites": bwd_rows, "through_autograd": rows["K7_backward"],
+        "where_the_clamp_cuts": {k: v for k, v in rows.items() if k.startswith("k7_clamp_bwd_")},
+    })
     for name, rep, src, replaces, sites in (
         ("simt_attention", "k1_core_f32_i2t", "btia_tpu_torch/csrc/attn_simt.cu",
          "btia_tpu/ops/fused_attn.py:179, btia_tpu/ops/fused_attn.py:561, btia_tpu/ops/attention.py:563, "
@@ -4583,6 +4808,9 @@ def main() -> int:
                                                  "param_max_abs_diff_over_lr")} for r in mesh["train"][p]["ranks"]]
                           for p in ("bf16", "fp32")},
     }}))
+    idle = [k["name"] for k in kernels if not k["launches"]]
+    if idle:
+        raise AssertionError(f"kernels never launched on a main path: {idle}")
     log(f"total run time {time.perf_counter() - T0:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(smi)

@@ -7,7 +7,7 @@ another checkout's on one card, in turns.
     python3 compare_kernels.py runs/parent [groups]
 
 groups: a comma-separated subset of k3, k5, k4, k6, core, gemm, f32, wide,
-gemm_f32, k8 and f32_wrap (default: all).
+gemm_f32, k8, f32_wrap, k7 and k7_bwd (default: all).
 
 Builds both checkouts' kernel libraries (each from its own
 ``btia_tpu_torch/csrc``), then runs each kernel's C entry at the shapes of
@@ -55,7 +55,17 @@ last the 90 launches' sums weighted by ``launches_per_step``. The
 ``f32_wrap`` group times the f32 attention's wrappers (an entry's CUDA
 half, host code included) at phase 2c's f32 cases, each checkout's in a
 process of its own that imports that checkout's package, in turns
-(parent, this, this, parent). Inputs are
+(parent, this, this, parent). K7 (``k7``) runs each checkout's
+``btia_layernorm`` at the shapes of the serve step's standalone LayerNorms
+(``SERVE_LN_CENSUS``), at ViT-L's rows in f32, at the train shapes of
+``K7_BWD_SHAPES`` and at 6144, in turns with ``F.layer_norm`` (parent,
+this, library, library, this, parent), with the bound and the serve step's
+74 launches summed by the census. K7's backward (``k7_bwd``) runs this
+tree's ``btia_layernorm_bwd`` at ``K7_BWD_SHAPES`` in bf16 and f32 against
+the parent's backward, which has no kernel: the vjp of ``_ln_exact``
+(``_ln_exact_vjp``, eager PyTorch), with
+``torch.ops.aten.native_layer_norm_backward`` as the library call, in the
+same turns. Inputs are
 random from a seed; the card's name and power limit are printed first.
 Needs one CUDA card and ``nvcc``.
 """
@@ -100,7 +110,7 @@ def load_native(root: Path, name: str):
     return mod
 
 
-GROUPS = ("k3", "k5", "k4", "k6", "core", "gemm", "f32", "wide", "gemm_f32", "k8", "f32_wrap")
+GROUPS = ("k3", "k5", "k4", "k6", "core", "gemm", "f32", "wide", "gemm_f32", "k8", "f32_wrap", "k7", "k7_bwd")
 
 
 def wrapper_times(root: Path) -> int:
@@ -364,6 +374,10 @@ def main() -> int:
         compare_wrappers(torch, Path(sys.argv[1]).resolve())
     if "k8" in groups:
         compare_k8(torch, libs, time_ms, dev, g, stream)
+    if "k7" in groups:
+        compare_k7(torch, libs, turns, dev, g, stream)
+    if "k7_bwd" in groups:
+        compare_k7_bwd(torch, libs, time_ms, dev, g, stream)
 
     per_step = {}
     for name, M, K, N, rr, launches in (cs.GEMM_SITES + cs.GEMM_TRAIN_SITES) if "gemm" in groups else ():
@@ -526,6 +540,91 @@ def compare_f32_and_wide(torch, libs, turns, dev, g, stream, groups):
 
         turns(f"f32 GEMM {name} {M} x {K} -> {N} (block tile {GEMM_F32_TILES[gemm_f32_tile(M, N)]})", gemm)
         del a, w, b, res
+
+
+def _ln_inputs(torch, M, D, dt, dev, g):
+    x = (torch.randn(M, D, generator=g, device=dev) * 2 + 0.5).to(dt)
+    return x, 1 + 0.2 * torch.randn(D, generator=g, device=dev), 0.1 * torch.randn(D, generator=g, device=dev)
+
+
+def compare_k7(torch, libs, turns, dev, g, stream):
+    """K7's forward C entry, each checkout's, in turns with F.layer_norm (on
+    scale and bias in x's type): the serve step's LayerNorm shapes, ViT-L's
+    rows in f32, the train shapes and 6144; the serve step's sums weighted
+    by its census."""
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = [(f"serve {M} x {D}", M, D, bf, n) for (M, D), n in sorted(cs.SERVE_LN_CENSUS.items())]
+    cases += [("ViT-L f32", cs.B_IMG * 577, 1024, f32, 0)]
+    cases += [(f"train {n} {M} x {D}", M, D, bf, 0) for n, M, D in cs.K7_BWD_SHAPES] + [("wide 2048 x 6144", 2048, 6144, bf, 0)]
+    total = {"parent": 0.0, "this": 0.0, "library": 0.0, "bound": 0.0}
+    for name, M, D, dt, per_step in cases:
+        x, sc, bi = _ln_inputs(torch, M, D, dt, dev, g)
+        w, b = sc.to(dt), bi.to(dt)
+
+        def k7(lib, x=x, sc=sc, bi=bi, M=M, D=D, dt=dt):
+            y = torch.empty_like(x)
+            return (lambda: lib.btia_layernorm(x.data_ptr(), y.data_ptr(), sc.data_ptr(), bi.data_ptr(), M, D, 1e-6,
+                                               int(dt == f32), stream)), y
+
+        bound = (8 * x.numel(), 2 * x.numel() * x.element_size() + 8 * D)
+        times = turns(f"K7 {name} {str(dt).removeprefix('torch.')}", k7,
+                      lambda x=x, w=w, b=b, D=D: F.layer_norm(x, (D,), w, b, 1e-6), bound)
+        for who in ("parent", "this", "library"):
+            total[who] += per_step * min(times[who])
+        total["bound"] += per_step * cs.bound_ms(*bound)[0]
+        del x
+    print(f"K7 per serve step ({sum(cs.SERVE_LN_CENSUS.values())} launches, the better turn of each shape): "
+          f"parent {total['parent']:.4f} ms, this tree {total['this']:.4f} ms, F.layer_norm {total['library']:.4f} ms, "
+          f"bound {total['bound']:.4f} ms", flush=True)
+
+
+def compare_k7_bwd(torch, libs, time_ms, dev, g, stream):
+    """K7's backward at K7_BWD_SHAPES, bf16 and f32: this tree's C entry
+    (dx, dscale, dbias through its partial rows), the parent's backward (the
+    eager vjp of ``_ln_exact``: the parent has no backward kernel) and
+    ``native_layer_norm_backward`` in turns (parent, this, library, library,
+    this, parent), each line with the bound and this tree's largest
+    difference from the parent's gradients."""
+    import chip_smoke as cs
+    from btia_tpu_torch.ops import norms as N
+
+    for name, M, D in cs.K7_BWD_SHAPES:
+        for dt in (torch.bfloat16, torch.float32):
+            x, sc, bi = _ln_inputs(torch, M, D, dt, dev, g)
+            gr = torch.randn(M, D, generator=g, device=dev).to(dt)
+            dx, ds, db = torch.empty_like(x), torch.empty(D, device=dev), torch.empty(D, device=dev)
+            rows = libs["this"].btia_layernorm_bwd_parts(x.data_ptr(), gr.data_ptr(), sc.data_ptr(), dx.data_ptr(), M,
+                                                         D, int(dt == torch.float32))
+            part = torch.empty(rows, 2 * D, device=dev)
+            this = lambda: libs["this"].btia_layernorm_bwd(
+                x.data_ptr(), gr.data_ptr(), sc.data_ptr(), dx.data_ptr(), ds.data_ptr(), db.data_ptr(),
+                part.data_ptr(), rows, M, D, 1e-6, int(dt == torch.float32), stream)
+            parent = lambda: N._ln_exact_vjp(x, sc, bi, gr, 1e-6)
+            w, b = sc.to(dt), bi.to(dt)
+            _, mean, rstd = torch.ops.aten.native_layer_norm(x, (D,), w, b, 1e-6)
+            library = lambda: torch.ops.aten.native_layer_norm_backward(gr, x, (D,), mean, rstd, w, b,
+                                                                        [True, True, True])
+            if this() != 0:
+                raise RuntimeError(f"K7 backward {name}: CUDA error")
+            ref = parent()
+            torch.cuda.synchronize()
+            diff = [(a.float() - r.float()).abs().max().item() for a, r in zip((dx, ds, db), ref)]
+            times = {"parent": [], "this": [], "library": []}
+            for who in ("parent", "this", "library", "library", "this", "parent"):
+                times[who].append(time_ms({"parent": parent, "this": this, "library": library}[who],
+                                          5 if who == "parent" else 20))
+            b_ms, by = cs.bound_ms(20 * x.numel(), 3 * x.numel() * x.element_size() + 12 * D, cs.PEAK_F32_SIMT)
+            fmt = lambda k: [round(t, 4) for t in times[k]]
+            print(f"K7 backward {name} {M} x {D} {str(dt).removeprefix('torch.')}: parent (eager vjp) "
+                  f"{fmt('parent')} ms, this tree {fmt('this')} ms, native_layer_norm_backward {fmt('library')} ms, "
+                  f"bound {b_ms:.4f} ms ({by}; share this {b_ms / min(times['this']):.3f}, library "
+                  f"{b_ms / min(times['library']):.3f}); max |this - parent| dx / dscale / dbias "
+                  f"{' / '.join(f'{d:.3g}' for d in diff)}", flush=True)
+            del x, gr, dx, part, ref
 
 
 def compare_k8(torch, libs, time_ms, dev, g, stream):

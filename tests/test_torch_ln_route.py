@@ -20,7 +20,18 @@ under ``remat``, whose gradients equal autograd through the plain formula:
 K7's backward is the vjp of ``_ln_exact``.
 
 (c) K7's host code at widths 4,097, 6,144 and 8,192, above the 4,096 its
-register kernels hold, hands the stand-in the same arguments as at 768.
+register kernels hold, hands the stand-in the same arguments as at 768;
+its forward and backward host code at aligned (48, 768, 1,024) and ragged
+(1,500, 4,097) widths, in place, and with no gradient wanted for scale and
+bias, hands the C entries what they read, and their outputs are the
+twins', bit for bit.
+
+K7's backward (``layernorm_backward``, its own count) is forced with the
+forward: the stand-in's ``btia_layernorm_bwd`` computes the twin's vjp
+through the pointers it is handed. A LayerNorm's backward launches it once
+(BERT's post-LN and ln_mlp, ``_unfused_site`` as K1's recompute, a remat
+block, every LayerNorm of a small ``vqa_med_full`` train step), and the
+plain formula runs 0 times in forward or backward.
 """
 
 import numpy as np
@@ -146,8 +157,12 @@ class _K7Lib:
     computes the twin's arithmetic, records each call. Any other entry fails
     the test: the forced road is K7's alone."""
 
+    PARTS = 7  # the stand-in's wave: fewer blocks than most calls' rows
+
     def __init__(self):
         self.calls = []
+        self.bwd_calls = []
+        self.parts_calls = []
 
     def btia_layernorm(self, x, out, scale, bias, rows, D, eps, elem, stream):
         dt = (BF16, F32)[elem]
@@ -157,21 +172,52 @@ class _K7Lib:
         _view(out, dt, rows, D).copy_(y)
         return 0
 
+    def btia_layernorm_bwd_parts(self, x, g, scale, dx, rows, D, elem):
+        """The partial rows the backward's grid needs: here a wave of PARTS
+        blocks, no more than the rows."""
+        self.parts_calls.append({"rows": rows, "D": D, "dx": dx is not None, "elem": elem})
+        return min(rows, self.PARTS)
+
+    def btia_layernorm_bwd(self, x, g, scale, dx, dscale, dbias, part, part_rows, rows, D, eps, elem, stream):
+        """The vjp of the twin (``_ln_exact`` as this module imported it, not
+        the counted one) through the pointers; bias is not handed over, and
+        no gradient depends on it. dscale, dbias and the partial rows come
+        together, or not at all."""
+        dt = (BF16, F32)[elem]
+        params = dscale is not None
+        assert params == (dbias is not None) == (part is not None)
+        assert part_rows == (min(rows, self.PARTS) if params else 0)
+        self.bwd_calls.append({"dtype": dt, "rows": rows, "D": D, "eps": eps, "dx": dx is not None,
+                               "params": params, "part_rows": part_rows, "stream": stream})
+        leaves = [_view(x, dt, rows, D).clone().requires_grad_(dx is not None),
+                  _view(scale, F32, 1, D)[0].clone().requires_grad_(params),
+                  torch.zeros(D, requires_grad=params)]
+        with torch.enable_grad():
+            grads = iter(torch.autograd.grad(_ln_exact(*leaves, eps), [t for t in leaves if t.requires_grad],
+                                             _view(g, dt, rows, D)))
+        if dx is not None:
+            _view(dx, dt, rows, D).copy_(next(grads))
+        if params:
+            _view(dscale, F32, 1, D)[0].copy_(next(grads))
+            _view(dbias, F32, 1, D)[0].copy_(next(grads))
+        return 0
+
     def __getattr__(self, name):
         pytest.fail(f"{name} was called on the forced LayerNorm road")
 
 
 def _force_k7(monkeypatch):
-    """``layernorm``'s route takes its CUDA half for CPU tensors too, against
-    the stand-in; every other entry routes as before (its twin). Returns the
-    stand-in and a list that grows by one at each call of the plain
-    formula ``N._ln_exact``."""
+    """``layernorm``'s and ``layernorm_backward``'s routes take their CUDA
+    halves for CPU tensors too, against the stand-in; every other entry
+    routes as before (its twin). Returns the stand-in and a list that grows
+    by one at each call of the plain formula ``N._ln_exact``."""
     lib = _K7Lib()
     plain_calls = []
     real_route, real_exact = _native.route, N._ln_exact
+    forced = (N.layernorm, N.layernorm_backward)
 
     def route(entry, t, cuda_fn, plain_fn, *args):
-        if entry is not N.layernorm:
+        if entry not in forced:
             return real_route(entry, t, cuda_fn, plain_fn, *args)
         out = cuda_fn(*args)
         entry.launches += 1
@@ -255,11 +301,14 @@ def test_bert_train_time_post_ln_on_k7(dt, k7_forced):
     x = _rand(rng, 4, 9, 128, dt=dt).requires_grad_(True)
     mask = torch.ones(4, 9, dtype=torch.bool)
     drop = layers.Dropout(0.0, torch.Generator().manual_seed(0))  # train-time structure, no element dropped
-    before = N.layernorm.launches
+    before = N.layernorm.launches, N.layernorm_backward.launches
     out = layer(x, mask, drop, train=True)
-    assert N.layernorm.launches - before == 2 == len(lib.calls) and plain_calls == []
+    assert N.layernorm.launches - before[0] == 2 == len(lib.calls) and plain_calls == []
     g = _rand(rng, *out.shape, dt=dt)
     got = torch.autograd.grad(out, [x, *layer.parameters()], g)
+    # One backward launch a LayerNorm, every gradient wanted; no plain chain.
+    assert N.layernorm_backward.launches - before[1] == 2 == len(lib.bwd_calls) and plain_calls == []
+    assert all(c["dx"] and c["params"] and c["dtype"] == dt for c in lib.bwd_calls)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(bert, "layernorm", _plain_layernorm)
         mp.setattr(layers, "layernorm", _plain_layernorm)
@@ -307,6 +356,7 @@ def test_unfused_site_and_k1_backward_recompute_on_k7(dt, k7_forced):
     calls = len(lib.calls)
     got = grads()
     assert len(lib.calls) - calls == 3  # the recompute's q, kv and post LNs
+    assert len(lib.bwd_calls) == 3 and plain_calls == []  # and their backward, once each
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(FA, "layernorm", _plain_layernorm)
         want = grads()
@@ -330,6 +380,8 @@ def test_remat_block_recomputes_its_layernorms_on_k7(k7_forced):
     assert N.layernorm.launches - before == 2
     got = torch.autograd.grad(out, [x, *block.parameters()], g)
     assert N.layernorm.launches - before == 4 == len(lib.calls)
+    # The recompute's graph feeds the forward's nodes: one backward each.
+    assert len(lib.bwd_calls) == 2
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(layers, "layernorm", _plain_layernorm)
         want = torch.autograd.grad(block(x, None, True), [x, *block.parameters()], g)
@@ -360,3 +412,101 @@ def test_k7_host_code_at_wide_rows_as_at_768(D, dt, k7_forced):
     assert all(c["rows"] == 6 and c["dtype"] == dt for c in lib.calls)
     for got, want in outs.values():
         assert got.shape == want.shape and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dt", [F32, BF16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("D", [48, 768, 1024, 1500, 4097])
+def test_k7_forward_host_code_aligned_ragged_in_place(D, dt, k7_forced):
+    """The forward's host code at widths of 16-byte rows (48, 768, 1024) and
+    ragged ones (1500 in bf16, 4097): one call of the C entry with x's rows,
+    width, eps and type, f32 scale and bias (a bf16 scale converted), out of
+    place and in place (K1's post-LN), each the twin bit for bit."""
+    lib, _ = k7_forced
+    rng = np.random.RandomState(D)
+    x = _rand(rng, 3, 5, D, dt=dt, scale=2.0, shift=0.5)
+    sc, bi = _ln_params(rng, D)
+    want = _ln_exact(x, sc, bi, 1e-5)
+    got = N._layernorm_cuda(x, sc.to(BF16), bi, 1e-5)
+    assert torch.equal(got, _ln_exact(x, sc.to(BF16).float(), bi, 1e-5))
+    y = x.clone()
+    assert N._layernorm_cuda(y, sc, bi, 1e-5, out=y) is y and torch.equal(y, want)
+    assert [(c["rows"], c["D"], c["dtype"], c["in_place"]) for c in lib.calls] == [(15, D, dt, False),
+                                                                                 (15, D, dt, True)]
+    assert all(c["eps"] == pytest.approx(1e-5) for c in lib.calls)
+
+
+@pytest.mark.parametrize("dt", [F32, BF16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("D", [48, 768, 1500, 6144])
+@pytest.mark.parametrize("needs", [(True, True, True), (True, False, False), (False, True, True),
+                                   (True, True, False)], ids=["all", "dx", "params", "dscale"])
+def test_k7_backward_host_code(needs, D, dt, k7_forced):
+    """The backward's host code: one call of ``btia_layernorm_bwd`` with x
+    and g's rows (g made contiguous), x's type, null dx where x needs no
+    gradient, dscale, dbias and as many partial rows as
+    ``btia_layernorm_bwd_parts`` asks for x's rows, width and type where
+    scale or bias needs one (null and no query where neither does: no
+    column sums); the gradients the twin's (``_ln_exact_vjp``) bit for bit,
+    None where not wanted."""
+    lib, plain_calls = k7_forced
+    rng = np.random.RandomState(D + 7)
+    x = _rand(rng, 280, D, dt=dt, scale=2.0, shift=0.5)  # 2-D: the stand-in's dscale sums as the twin's
+    sc, bi = _ln_params(rng, D)
+    g = _rand(rng, D, 280, dt=dt).t()  # not contiguous
+    before = N.layernorm_backward.launches
+    got = N.layernorm_backward(x, sc, bi, g, 1e-6, needs)
+    want = N._ln_exact_vjp(x, sc, bi, g.contiguous(), 1e-6, needs)  # g's layout orders the twin's sums
+    assert N.layernorm_backward.launches - before == 1 and len(plain_calls) == 1  # the twin's, here
+    params = needs[1] or needs[2]
+    assert lib.bwd_calls == [{"dtype": dt, "rows": 280, "D": D, "eps": pytest.approx(1e-6), "dx": needs[0],
+                              "params": params, "part_rows": 7 if params else 0, "stream": 0}]
+    assert lib.parts_calls == ([{"rows": 280, "D": D, "dx": needs[0], "elem": int(dt == F32)}] if params else [])
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None) and (a is None or (a.dtype == b.dtype and torch.equal(a, b)))
+
+
+def test_k7_backward_host_code_no_rows(k7_forced):
+    """No rows: nothing is launched; dscale and dbias are zeros."""
+    lib, _ = k7_forced
+    x = torch.empty(0, 3, 64)
+    dx, ds, db = N.layernorm_backward(x, torch.ones(64), torch.zeros(64), torch.empty(0, 3, 64), 1e-6)
+    assert lib.bwd_calls == [] and dx.shape == x.shape
+    assert torch.equal(ds, torch.zeros(64)) and torch.equal(db, torch.zeros(64))
+
+
+def test_small_train_step_one_backward_launch_a_layernorm(k7_forced):
+    """One ``make_train_step`` step of a small ``vqa_med_full`` (vit_test, 2
+    BERT layers, one BTIA layer; fp32, dropout 0, batch 8: the sites take
+    the unfused road) with K7 forced: every LayerNorm of the step launches
+    the forward once and its backward once (the census of the forward's
+    calls), the plain formula never runs, and the step's loss and gradient
+    norm are the unforced step's."""
+    from btia_tpu_torch.train import steps as S
+
+    lib, plain_calls = k7_forced
+    over = {**VITL_SMALL, "model.mixed_precision": False, "model.dropout": 0.0, "train.warmup_steps": 2}
+    cfg = get_config("vqa_med_full", **{k: v for k, v in over.items() if k != "model.num_answer_queries"})
+    rng = np.random.RandomState(9)
+    images, qids = _inputs(rng, B=8, size=64, Q=1, L=32, vocab=500)
+    batch = {"images": images, "question_ids": qids[:, 0], "answer_ids": torch.from_numpy(rng.randint(0, 64, 8)),
+             "valid": torch.ones(8, dtype=torch.bool)}
+
+    def one_step():
+        model = build_model(cfg.model, device="cpu", seed=0)
+        state = S.create_state(model, cfg, steps_per_epoch=10)
+        _, met = S.make_train_step(model, cfg)(state, batch)
+        return met
+
+    before = N.layernorm.launches, N.layernorm_backward.launches
+    got = one_step()
+    fwd, bwd = N.layernorm.launches - before[0], N.layernorm_backward.launches - before[1]
+    m = cfg.model
+    # ViT 2 a block + the final, BERT's embedding LN and 2 ln_mlp + 2 train-time
+    # post-LNs, txt_ln, img_ln, the BTIA layer's 2 and its 2 sites' 4 (q and
+    # kv, unfused), the AD head's 3 (its site's kv LN, ln_mlp, ln_out).
+    assert fwd == bwd == len(lib.calls) == len(lib.bwd_calls) > 2 * m.bert_layers + 2 * m.btia_layers
+    assert all(c["dx"] or c["params"] for c in lib.bwd_calls) and plain_calls == []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(_native, "route", lambda e, t, c, p, *a: p(*a))
+        want = one_step()
+    for k in ("loss", "grad_norm"):
+        assert float(got[k]) == pytest.approx(float(want[k]), rel=1e-6, abs=1e-7)
