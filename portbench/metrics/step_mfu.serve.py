@@ -1,0 +1,11 @@
+"""Per-layer metric ``step_mfu.serve``."""
+
+
+def read(ctx):
+    """Model FLOPs of the pairs answered in the traced run's window before
+    the profiler started / those seconds / the bf16 peak, in %."""
+    if ctx.get("kind") != "serve" or "trace" not in ctx or not ctx["trace"].has_device:
+        return None
+    if ctx.get("mfu_seconds", 0) <= 0:
+        return None
+    return 100.0 * ctx["mfu_flops"] / ctx["mfu_seconds"] / ctx["peak_flops"]
