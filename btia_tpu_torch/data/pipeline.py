@@ -10,6 +10,10 @@ The single host core [SURVEY §7.3] must never starve the chip, so:
 
 Eval iterators pad the final batch and carry a validity mask so jit sees
 one static batch shape [SURVEY §3.2].
+
+While a profiler runs, the consumer's wait for each batch is a
+``btia.data.wait`` span (``utils/profiling.py::span``) on the consuming
+thread; the prefetch thread opens none.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import numpy as np
 from btia_tpu_torch.data.datasets import VQASample
 from btia_tpu_torch.data.image import load_ingest_image
 from btia_tpu_torch.data.vocab import AnswerVocab
+from btia_tpu_torch.utils.profiling import span
 
 
 class TextEncoder(Protocol):
@@ -100,7 +105,8 @@ def make_iterator(
     drop_last: bool = False,
     prefetch: int = 2,
 ) -> Iterator[Batch]:
-    """One epoch of batches, assembled on a background thread."""
+    """One epoch of batches, assembled on a background thread, or on the
+    consumer's thread with `prefetch` 0."""
     order = np.arange(len(samples))
     if shuffle:
         np.random.RandomState(seed).shuffle(order)
@@ -121,8 +127,13 @@ def make_iterator(
             )
 
     if prefetch <= 0:
-        yield from batches()
-        return
+        made = batches()
+        while True:
+            with span("btia.data.wait"):
+                b = next(made, None)
+            if b is None:
+                return
+            yield b
 
     q: "queue.Queue" = queue.Queue(maxsize=prefetch)
     _END = object()
@@ -142,7 +153,8 @@ def make_iterator(
     t = threading.Thread(target=worker, daemon=True)
     t.start()
     while True:
-        item = q.get()
+        with span("btia.data.wait"):
+            item = q.get()
         if item is _END:
             break
         if isinstance(item, BaseException):

@@ -11,6 +11,13 @@ still runs batch N, and ``drain`` copies a batch's results to the host once
 ``max_in_flight`` batches are queued: the host's batching and launching
 overlaps the device's compute, as JAX's async dispatch does in the
 reference.
+
+While a profiler runs, the serving thread marks its own time with spans
+(``utils/profiling.py::span``): ``btia.serve.wait`` (blocked on the decode
+queue), ``btia.serve.dispatch|<launch>`` (stacking, packing and the
+launches of one batch), ``btia.serve.drain|<launch>`` (the device-to-host
+copies of that batch's results) and ``btia.serve.deliver`` (each yield:
+the caller's time). The decode threads open none.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ import numpy as np
 
 from btia_tpu_torch.infer.predict import ImageLike, Predictor
 from btia_tpu_torch.ops.answers import real_limit, topk_real
+from btia_tpu_torch.utils.profiling import span
 
 
 class _DecodeError:
@@ -108,6 +116,9 @@ class StreamingServer:
         # Per-request enqueue->yield latency (seconds), a bounded window,
         # reset per serve().
         self.latencies: "deque[float]" = deque(maxlen=65536)
+        # Batches launched by this server: the key of a batch's dispatch
+        # and drain spans.
+        self.dispatches = 0
         # Launch-shape buckets: fixed [Q], or Q*2^i capped at q_max.
         if adaptive_q:
             cap = max(q_max or 2 * self.Q, self.Q)
@@ -257,12 +268,18 @@ class StreamingServer:
 
         done_workers = 0
         pending: List[Tuple[int, np.ndarray, np.ndarray, int, float]] = []
-        in_flight: List[Tuple[object, List[Tuple[int, int, int, float]]]] = []
+        in_flight: List[Tuple[object, List[Tuple[int, int, int, float]], int]] = []
         t0 = time.perf_counter()
         wall_base = self.wall_seconds
         BQ = self.B * self.q_cap
 
         def dispatch(items):
+            self.dispatches += 1
+            with span("btia.serve.dispatch", self.dispatches):
+                out, meta = launch(items)
+            in_flight.append((out, meta, self.dispatches))
+
+        def launch(items):
             # items: (request_idx, image, qids (q_cap, L), n, t_enq); idx -1
             # marks a tail/partial-batch padding slot. Launches only.
             imgs = np.stack([it[1] for it in items])
@@ -304,21 +321,22 @@ class StreamingServer:
             else:
                 out = self._plain_fwd(Qb)(imgs, qids[:, :Qb])
                 meta = [(it[0], it[3], 0, it[4]) for it in items]
-            in_flight.append((out, meta))
+            return out, meta
 
         def drain(block_all: bool = False):
             # Keep <= max_in_flight batches queued on the device; copying a
             # batch's results to the host waits for that batch only.
             while in_flight and (block_all or len(in_flight) >= self.max_in_flight):
-                out, meta = in_flight.pop(0)
+                out, meta, launched = in_flight.pop(0)
+                with span("btia.serve.drain", launched):
+                    host = out.cpu().numpy() if self.topk is None else [t.cpu().numpy() for t in out]
                 if self.topk is None:
-                    host = out.cpu().numpy()
                     if self.pack_pairs:
                         row = lambda i, n, off: host[off : off + n]
                     else:
                         row = lambda i, n, off: host[i]
                 else:
-                    vals, idxs = (t.cpu().numpy() for t in out)
+                    vals, idxs = host
                     if self.pack_pairs:
                         row = lambda i, n, off: (vals[off : off + n], idxs[off : off + n])
                     else:
@@ -331,7 +349,8 @@ class StreamingServer:
                     now = time.perf_counter()
                     self.wall_seconds = wall_base + now - t0
                     self.latencies.append(now - t_enq)
-                    yield idx, row(i, n, off), n
+                    with span("btia.serve.deliver"):
+                        yield idx, row(i, n, off), n
 
         def close_partial():
             # Ship a padded partial batch (max-wait expiry or stream tail).
@@ -346,7 +365,8 @@ class StreamingServer:
                 # max_wait, then ship the padded partial batch and drain it.
                 deadline = pending[0][4] + self.max_wait
                 try:
-                    item = q.get(timeout=max(0.0, deadline - time.perf_counter()))
+                    with span("btia.serve.wait"):
+                        item = q.get(timeout=max(0.0, deadline - time.perf_counter()))
                 except queue.Empty:
                     close_partial()
                     pending = []
@@ -356,12 +376,14 @@ class StreamingServer:
                 # Nothing pending but results in flight: if the stream
                 # stalls, flush them rather than sitting on finished work.
                 try:
-                    item = q.get(timeout=self.max_wait)
+                    with span("btia.serve.wait"):
+                        item = q.get(timeout=self.max_wait)
                 except queue.Empty:
                     yield from drain(block_all=True)
                     continue
             else:
-                item = q.get()
+                with span("btia.serve.wait"):
+                    item = q.get()
             if item is None:
                 done_workers += 1
                 continue

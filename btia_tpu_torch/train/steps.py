@@ -23,6 +23,14 @@ A step's dropout masks come from a ``torch.Generator`` seeded from
 (train.seed, step), the counterpart of ``fold_in(rng, step)``: a resumed run
 draws the masks the uninterrupted run drew.
 
+While a profiler runs, a train step marks its parts with spans on the
+calling thread (``utils/profiling.py::span``), keyed by the step's number:
+``btia.train.forward|<step>`` (the dropout generator, the forward and the
+loss), ``btia.train.backward|<step>`` (``loss.backward()``, which waits
+while autograd's device thread launches the backward) and
+``btia.train.optimizer|<step>`` (clipping, the data group's all-reduce,
+AdamW, clearing the gradients).
+
 Under a mesh (``mesh=``, ``parallel.make_mesh``) each rank is handed its
 own rows of the global batch (``parallel.shard_batch``) and holds its TP
 shards (``create_state`` places them), and the step runs inside
@@ -58,6 +66,7 @@ from btia_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
 from btia_tpu_torch.parallel.sharding import (
     gather_state_dict, gather_tensor, shard_batch, shard_params, shard_state_dict, shard_tensor, sharded_dim,
 )
+from btia_tpu_torch.utils.profiling import span
 
 _ENCODERS = ("image_encoder", "question_encoder")
 
@@ -243,13 +252,17 @@ def make_train_step(model: BTIAADNet, cfg: Config,
     stream = 0 if mesh is None or mesh.shape[DATA_AXIS] == 1 else mesh.index(DATA_AXIS) + 1
 
     def step(state: TrainState, batch: dict) -> Tuple[TrainState, dict]:
-        gen = dropout_generator(state.seed, state.step, state.device, stream)
+        n = state.step
         with fused_mesh(mesh):
-            logits = model(batch["images"], batch["question_ids"], train=True, generator=gen)
-            labels = batch["answer_ids"]
-            loss = cross_entropy(logits, labels, label_smoothing=ls)
-            loss.backward()
-        gnorm = state.optimizer.step()
+            with span("btia.train.forward", n):
+                gen = dropout_generator(state.seed, n, state.device, stream)
+                logits = model(batch["images"], batch["question_ids"], train=True, generator=gen)
+                labels = batch["answer_ids"]
+                loss = cross_entropy(logits, labels, label_smoothing=ls)
+            with span("btia.train.backward", n):
+                loss.backward()
+        with span("btia.train.optimizer", n):
+            gnorm = state.optimizer.step()
         acc = (logits.detach().argmax(-1) == labels).float().mean()
         state.step += 1
         return state, {"loss": _data_mean(loss.detach(), mesh), "accuracy": _data_mean(acc, mesh),

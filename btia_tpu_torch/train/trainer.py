@@ -46,6 +46,7 @@ from btia_tpu_torch.train.steps import (
     make_train_step_scan,
 )
 from btia_tpu_torch.utils.logging import MetricLogger
+from btia_tpu_torch.utils.profiling import span
 
 _FIELDS = ("images", "question_ids", "answer_ids", "valid")
 
@@ -59,19 +60,21 @@ def _tensor(a: np.ndarray, device) -> torch.Tensor:
 
 def batch_to_device(batch: Batch, device, mesh=None) -> dict:
     """A batch's tensors on the device; with a mesh, this rank's rows."""
-    arrays = {k: getattr(batch, k) for k in _FIELDS}
-    if mesh is not None:
-        arrays = shard_batch(arrays, mesh)
-    return {k: _tensor(a, device) for k, a in arrays.items()}
+    with span("btia.train.to_device"):
+        arrays = {k: getattr(batch, k) for k in _FIELDS}
+        if mesh is not None:
+            arrays = shard_batch(arrays, mesh)
+        return {k: _tensor(a, device) for k, a in arrays.items()}
 
 
 def chunk_to_device(batches: List[Batch], device, mesh=None) -> dict:
     """K batches stacked to (K, B, ...) tensors for the K-step call; with a
     mesh, this rank's rows of each."""
-    arrays = {k: np.stack([getattr(b, k) for b in batches]) for k in _FIELDS}
-    if mesh is not None:
-        arrays = shard_chunk(arrays, mesh)
-    return {k: _tensor(a, device) for k, a in arrays.items()}
+    with span("btia.train.to_device"):
+        arrays = {k: np.stack([getattr(b, k) for b in batches]) for k in _FIELDS}
+        if mesh is not None:
+            arrays = shard_chunk(arrays, mesh)
+        return {k: _tensor(a, device) for k, a in arrays.items()}
 
 
 class Trainer:

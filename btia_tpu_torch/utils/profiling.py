@@ -2,6 +2,9 @@
 
 * ``trace(logdir)``: a ``torch.profiler`` region that writes a Chrome /
   Perfetto trace (``chrome://tracing``, ui.perfetto.dev) into ``logdir``;
+* ``span(name, key)``: a named range of the program's own (``btia.*``) on
+  the profiler's clock while a profiler runs, and nothing but one flag's
+  read otherwise;
 * ``fetch(tree)``: copy every tensor leaf to the host, the real completion
   point of work launched on the card (PyTorch returns before the card
   finishes);
@@ -24,6 +27,7 @@ from pathlib import Path
 from typing import Iterator, Optional
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from btia_tpu_torch.core.device import resolve_device
 
@@ -41,6 +45,23 @@ def trace(logdir: str | Path = "runs/trace") -> Iterator[torch.profiler.profile]
     with torch.profiler.profile(activities=activities) as prof:
         yield prof
     prof.export_chrome_trace(str(logdir / f"trace_{time.time_ns()}.json"))
+
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, key=None):
+    """A range named `name` (``name|key`` with a `key`) around a block, on
+    the thread that runs it, while a profiler (``torch.profiler.profile``,
+    ``trace`` above) is active: ``with span("btia.serve.drain", n): ...``.
+    It lands in the Chrome trace as a ``user_annotation`` event on the
+    profiler's clock, the kernels' clock. With no profiler active it reads
+    one flag and returns a shared null context: no name is formatted, no
+    ``RecordFunction`` made and no clock read. A span open while a profiler
+    starts or stops (a generator suspended inside one) raises nothing."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return torch.profiler.record_function(name if key is None else f"{name}|{key}")
 
 
 def _leaves(tree) -> Iterator:
