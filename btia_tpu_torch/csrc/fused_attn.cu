@@ -43,10 +43,11 @@
 #include "short_flash.cuh"
 
 // ---------------------------------------------------------------------------
-// The projection GEMM: C[M, N] = bf16(A[M, K] @ W[K, N] + bias[N]), then,
-// with a residual, C = bf16(C + resid[row % resid_rows, N]). A, W, C and
-// resid row-major and packed; K % 8 == 0 and N % 8 == 0 (TMA's 16-byte row
-// rule); M ragged.
+// The projection GEMM: C[M, N] = bf16(act(A[M, K] @ W[K, N] + bias[N])),
+// then, with a residual, C = bf16(C + resid[row % resid_rows, N]). act is
+// none or the tanh-GELU (Dense's, models/layers.py, under an Mlp's fc1),
+// never with a residual. A, W, C and resid row-major and packed; K % 8 == 0
+// and N % 8 == 0 (TMA's 16-byte row rule); M ragged.
 //
 // A persistent, warp-specialised wgmma kernel (the second design; the first
 // ran one 128 x 128 tile a block, drained its products after every K chunk
@@ -69,16 +70,28 @@
 //   runs into the next tile while the consumers finish this one.
 // * The consumers keep one chunk's products in flight: chunk k is issued
 //   before chunk k - 1 is waited for (wgmma_wait<1>) and its stage released.
-// * The epilogue (bias in f32, the bf16 rounding, then the residual in
-//   bf16) writes 64 x 64 boxes in the 128-byte swizzle (conflict-free for
-//   wgmma's fragment layout) that leave by TMA store, which clips rows past
-//   M and columns past N: the consumers go on to the next tile's products
-//   while the stores drain. A residual whose rows repeat every multiple of
-//   64 (every site's: all rows, or K2's 64 answer queries) is loaded by the
-//   producer into a warpgroup's output boxes after the tile's last chunk,
-//   so the epilogue adds it from shared memory in place (TMA_RESID; a ring
-//   of three 48 KB stages then leaves room for the four boxes); any other
-//   is read by the consumers, 16 bytes a thread, loads issued first.
+// * The epilogue (bias in f32, the GELU in f32 where ACT is 1, the bf16
+//   rounding, then the residual in bf16) writes 64 x 64 boxes in the
+//   128-byte swizzle (conflict-free for wgmma's fragment layout) that leave
+//   by TMA store, which clips rows past M and columns past N: the consumers
+//   go on to the next tile's products while the stores drain. A residual
+//   whose rows repeat every multiple of 64 (every site's: all rows, or K2's
+//   64 answer queries) is loaded by the producer into a warpgroup's output
+//   boxes after the tile's last chunk, so the epilogue adds it from shared
+//   memory in place (TMA_RESID; a ring of three 48 KB stages then leaves
+//   room for the four boxes); any other is read by the consumers, 16 bytes
+//   a thread, loads issued first.
+// * The GELU (common.cuh:gelu_tanh, K8's) is two special-function
+//   operations an element, ex2 and the reciprocal: ~4,100 of a 128 x 256
+//   tile's cycles, against ~12,300 of products at K = 768, and the tensor
+//   cores idle while both warpgroups take it (an Mlp's fc1 at 1.15-1.2x
+//   torch.addmm without it, 0.72-0.75x addmm then F.gelu). What did not
+//   pay (compare_kernels.py mlp on the card): ping-pong consumers on
+//   128 x 128 tiles of their own, one warpgroup's epilogue under the
+//   other's products (0.92-1.03x this kernel at the four GELU sites across
+//   two cards: the 128 x 128 tile reads more from L2 per product), and the
+//   same over clusters of two blocks with W multicast (2.1-3x slower: each
+//   stage then waits for both blocks' releases, at cluster scope).
 // ---------------------------------------------------------------------------
 
 template <int BN, bool TMA_RESID>  // output tile columns: 256 or 128; the residual by TMA
@@ -100,7 +113,7 @@ struct PgLayout {
   static constexpr int CHUNKS = 64 * 64 / 8 / 128;    // 16-byte chunks of a box a consumer thread adds
 };
 
-template <int BN, bool TMA_RESID>
+template <int BN, bool TMA_RESID, int ACT>  // ACT: 0 none, 1 tanh-GELU (common.cuh:gelu_tanh)
 __global__ void __launch_bounds__(384, 1)
 gemm_bias_ws_kernel(const __grid_constant__ CUtensorMap amap, const __grid_constant__ CUtensorMap wmap,
                     const __grid_constant__ CUtensorMap cmap, const __grid_constant__ CUtensorMap rmap,
@@ -229,7 +242,7 @@ gemm_bias_ws_kernel(const __grid_constant__ CUtensorMap amap, const __grid_const
     fence_regs(acc);
     mbar_arrive_if(&empty[prev], lane == 0);
 
-    // Epilogue, a 64 x 64 box at a time: bf16(acc + bias), with the
+    // Epilogue, a 64 x 64 box at a time: bf16(act(acc + bias)), with the
     // residual added in bf16 (the twin's order), through shared memory, out
     // by TMA store.
     const int grow = bm + wg * 64;  // the warpgroup's first output row
@@ -264,7 +277,9 @@ gemm_bias_ws_kernel(const __grid_constant__ CUtensorMap amap, const __grid_const
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(box + swz_frag(r0 + 8 * h, jj, qd));
-          __nv_bfloat162 y = __floats2bfloat162_rn(acc[4 * j + 2 * h] + bi.x, acc[4 * j + 2 * h + 1] + bi.y);
+          float y0 = acc[4 * j + 2 * h] + bi.x, y1 = acc[4 * j + 2 * h + 1] + bi.y;
+          if constexpr (ACT == 1) y0 = gelu_tanh(y0), y1 = gelu_tanh(y1);
+          __nv_bfloat162 y = __floats2bfloat162_rn(y0, y1);
           if constexpr (TMA_RESID) {
             const float2 a = __bfloat1622float2(y), r = __bfloat1622float2(*p);
             y = __floats2bfloat162_rn(a.x + r.x, a.y + r.y);
@@ -309,12 +324,12 @@ gemm_bias_ws_kernel(const __grid_constant__ CUtensorMap amap, const __grid_const
 // Each entry returns cudaGetLastError() after its launch.
 // ---------------------------------------------------------------------------
 
-template <int BN, bool TMA_RESID>
+template <int BN, bool TMA_RESID, int ACT>
 static int launch_gemm(const CUtensorMap& am, const CUtensorMap& wm, const CUtensorMap& cm, const CUtensorMap& rm,
                        const void* bias, const void* resid, int resid_rows, int M, int N, int K, int grid,
                        cudaStream_t stream) {
   using L = PgLayout<BN, TMA_RESID>;
-  auto kernel = gemm_bias_ws_kernel<BN, TMA_RESID>;
+  auto kernel = gemm_bias_ws_kernel<BN, TMA_RESID, ACT>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int tiles_n = (N + BN - 1) / BN, tiles = ((M + L::BM - 1) / L::BM) * tiles_n;
@@ -326,13 +341,15 @@ static int launch_gemm(const CUtensorMap& am, const CUtensorMap& wm, const CUten
 
 // A: (M, K), W: (K, N), C: (M, N) bf16, resid: (resid_rows, N) bf16 or
 // null, each packed and 16-byte aligned; bias: (N,) f32. K % 8 == 0,
-// N % 8 == 0, M >= 1. tile: 0 for 128 x 256 output tiles, 1 for 128 x 128;
+// N % 8 == 0, M >= 1. act: 0 none, 1 the tanh-GELU after the bias (no
+// residual then). tile: 0 for 128 x 256 output tiles, 1 for 128 x 128;
 // grid: the persistent grid's blocks (ops/fused_attn.py:gemm_plan), at least
 // 1 (at most one a tile is launched). Returns 0, a CUDA error code, or
 // 1000 + the CUresult of encoding a tensor map.
 extern "C" int btia_gemm_bias(const void* A, const void* W, const void* bias, const void* resid, int resid_rows,
-                              void* C, int M, int N, int K, int tile, int grid, void* stream) {
-  if (K % 8 != 0 || N % 8 != 0 || M < 1 || resid_rows < 1 || (tile != 0 && tile != 1) || grid < 1)
+                              void* C, int M, int N, int K, int act, int tile, int grid, void* stream) {
+  if (K % 8 != 0 || N % 8 != 0 || M < 1 || resid_rows < 1 || (tile != 0 && tile != 1) || grid < 1 ||
+      (act != 0 && act != 1) || (act != 0 && resid != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const uint64_t adims[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(M)};
   const uint64_t wdims[2] = {static_cast<uint64_t>(N), static_cast<uint64_t>(K)};
@@ -353,10 +370,13 @@ extern "C" int btia_gemm_bias(const void* A, const void* W, const void* bias, co
   if (!tma_resid) rm = cm;  // not read
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tma_resid)
-    return tile == 0 ? launch_gemm<256, true>(am, wm, cm, rm, bias, resid, resid_rows, M, N, K, grid, s)
-                     : launch_gemm<128, true>(am, wm, cm, rm, bias, resid, resid_rows, M, N, K, grid, s);
-  return tile == 0 ? launch_gemm<256, false>(am, wm, cm, rm, bias, resid, resid_rows, M, N, K, grid, s)
-                   : launch_gemm<128, false>(am, wm, cm, rm, bias, resid, resid_rows, M, N, K, grid, s);
+    return tile == 0 ? launch_gemm<256, true, 0>(am, wm, cm, rm, bias, resid, resid_rows, M, N, K, grid, s)
+                     : launch_gemm<128, true, 0>(am, wm, cm, rm, bias, resid, resid_rows, M, N, K, grid, s);
+  if (act == 1)
+    return tile == 0 ? launch_gemm<256, false, 1>(am, wm, cm, rm, bias, resid, resid_rows, M, N, K, grid, s)
+                     : launch_gemm<128, false, 1>(am, wm, cm, rm, bias, resid, resid_rows, M, N, K, grid, s);
+  return tile == 0 ? launch_gemm<256, false, 0>(am, wm, cm, rm, bias, resid, resid_rows, M, N, K, grid, s)
+                   : launch_gemm<128, false, 0>(am, wm, cm, rm, bias, resid, resid_rows, M, N, K, grid, s);
 }
 
 // K1/K2's attention core: q (B, H, Sq, D), or with q_shared one

@@ -88,22 +88,6 @@
 #include "common.cuh"
 #include "hopper.cuh"
 
-__device__ __forceinline__ float ex2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// jax.nn.gelu(approximate=True) in f32: 0.5 y (1 + tanh(u)) = y / (1 +
-// exp(-2u)); exp(-2u) = 2^(-2 log2(e) u). Past |u| ~ 44 the exponential is 0
-// or inf and the quotient y or -0, the limits of the exact form.
-__device__ __forceinline__ float gelu_tanh(float y) {
-  constexpr float k = 0.7978845608028654f;                    // sqrt(2 / pi)
-  constexpr float c = -2.0f * 1.4426950408889634f * k;        // -2 log2(e) sqrt(2 / pi)
-  const float e = ex2_approx(c * (y + 0.044715f * y * y * y));
-  return __fdividef(y, 1.f + e);
-}
-
 __device__ __forceinline__ float dequant(int acc, float s, float w, float b, bool has_bias, int act) {
   float v = __fmul_rn(__fmul_rn(static_cast<float>(acc), s), w);
   if (has_bias) v = __fadd_rn(v, b);

@@ -17,7 +17,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from btia_tpu_torch.core.dtypes import DTypePolicy
-from btia_tpu_torch.ops.fused_attn import fused_dense_attention
+from btia_tpu_torch.ops.fused_attn import _gemm_cuda, fused_dense_attention, prepare_once
 from btia_tpu_torch.ops.norms import layernorm
 from btia_tpu_torch.ops.quant import apply_act, int8_matmul_nk, int8_matmul_row_parallel, int8_weight
 from btia_tpu_torch.parallel.collectives import copy_to_model, reduce_from_model
@@ -99,13 +99,26 @@ def _param(*shape, device) -> nn.Parameter:
 
 class Dense(nn.Module):
     """nn.Dense / QuantizableDense: rows flattened to 2-D. ``forward`` runs
-    the operands and the bias add in the compute dtype; ``reduce``, for a
-    row-parallel product under a model axis, sums the product over the
-    model group before the bias. ``int8`` runs the product through K8 with
-    ``act`` (None or ``"gelu_tanh"``) in its epilogue, on the fp32 kernel
-    quantized once per version of it (``int8_weight``): the reference
-    quantizes on every call (``layers.py:172-177``), which gives the same
-    int8 values and scales."""
+    the operands and the bias add in the compute dtype, then ``act`` (None
+    or ``"gelu_tanh"``); ``reduce``, for a row-parallel product under a
+    model axis, sums the product over the model group before the bias.
+
+    Where ``epilogue_takes`` holds (a bf16 CUDA input, no gradient wanted,
+    no ``reduce``, K and N multiples of 8) the product, the f32 bias and the
+    activation are one launch of the projection GEMM
+    (``ops/fused_attn.py::_gemm_cuda``, the bias and GELU in its epilogue,
+    one bf16 rounding) on the kernel cast to bf16 once per version of it
+    (``prepare_once``); every other call runs the chain (cast, matmul, bias
+    add, activation). ``Dense.epilogue_calls`` and ``Dense.chain_calls``
+    count the calls each way.
+
+    ``int8`` runs the product through K8 with ``act`` in its epilogue, on
+    the fp32 kernel quantized once per version of it (``int8_weight``): the
+    reference quantizes on every call (``layers.py:172-177``), which gives
+    the same int8 values and scales."""
+
+    epilogue_calls = 0
+    chain_calls = 0
 
     def __init__(self, in_dim: int, features: int, policy: DTypePolicy, device=None):
         super().__init__()
@@ -113,11 +126,28 @@ class Dense(nn.Module):
         self.kernel = _param(in_dim, features, device=device)
         self.bias = _param(features, device=device)
 
+    def epilogue_takes(self, x: torch.Tensor, reduce=None) -> bool:
+        """Whether a call on `x` runs on the epilogue GEMM: x on the card,
+        the bf16 compute dtype, no gradient wanted (grad mode off, or
+        neither x nor the parameters require one), no ``reduce``, and K and
+        N multiples of 8 (the kernel's TMA row rule)."""
+        K, N = self.kernel.shape
+        wants_grad = torch.is_grad_enabled() and (
+            x.requires_grad or self.kernel.requires_grad or self.bias.requires_grad)
+        return (x.is_cuda and self.policy.compute_dtype == torch.bfloat16 and not wants_grad and reduce is None
+                and K % 8 == 0 and N % 8 == 0)
+
     def forward(self, x: torch.Tensor, act: Optional[str] = None, reduce=None) -> torch.Tensor:
         cd = self.policy.compute_dtype
         x2 = x.reshape(-1, x.shape[-1]).to(cd)
-        y = torch.matmul(x2, self.kernel.to(cd))
-        y = apply_act((y if reduce is None else reduce(y)) + self.bias.to(cd), act)
+        if self.epilogue_takes(x2, reduce):
+            Dense.epilogue_calls += 1
+            w, = prepare_once((self.kernel,), ("cast", cd), lambda: (self.kernel.to(cd),))
+            y = _gemm_cuda(x2, w, self.bias, act=act)
+        else:
+            Dense.chain_calls += 1
+            y = torch.matmul(x2, self.kernel.to(cd))
+            y = apply_act((y if reduce is None else reduce(y)) + self.bias.to(cd), act)
         return y.reshape(*x.shape[:-1], self.kernel.shape[1])
 
     def int8(self, x: torch.Tensor, act: Optional[str] = None, x_amax=None, row_amax: bool = False,
@@ -212,9 +242,12 @@ class MultiHeadAttention(nn.Module):
 class Mlp(nn.Module):
     """fc1 -> GELU -> dropout -> fc2. GELU is exact (erf) under the fp32
     policy, the parity rail, and the tanh form under bf16
-    (``layers.py:221-225``). ``inner_dropout`` is the flax module's own
-    ``dropout`` field: set for the ViT blocks and the AD head, off in BERT
-    and BTIA, whose dropout sits outside the Mlp (``layers.py:239-240``).
+    (``layers.py:221-225``), which fc1 takes as its ``act``: in the
+    projection GEMM's epilogue where ``Dense.epilogue_takes`` holds, after
+    the bias add otherwise, as the chain always ran it. ``inner_dropout`` is
+    the flax module's own ``dropout`` field: set for the ViT blocks and the
+    AD head, off in BERT and BTIA, whose dropout sits outside the Mlp
+    (``layers.py:239-240``).
 
     Under ``policy.int8`` a deterministic forward (``train`` False) runs both
     products through K8 with the tanh-GELU in fc1's epilogue
@@ -248,6 +281,11 @@ class Mlp(nn.Module):
         if self.policy.int8 and not train:
             h, amax = self.fc1.int8(x, "gelu_tanh", row_amax=True)
             return self.fc2.int8(h, x_amax=amax, row_parallel=True)
-        exact = self.policy.compute_dtype == torch.float32
-        h = F.gelu(self.fc1(copy_to_model(x)), approximate="none" if exact else "tanh")
-        return self.fc2(maybe_drop(h, drop if self.inner_dropout else None), reduce=reduce_from_model)
+        if self.policy.compute_dtype == torch.float32:
+            h = F.gelu(self.fc1(copy_to_model(x)), approximate="none")
+        else:
+            h = self.fc1(copy_to_model(x), act="gelu_tanh")
+        # The sum over the model group only where there is one: without it
+        # fc2 may take the epilogue GEMM.
+        reduce = reduce_from_model if axis_size(MODEL_AXIS) > 1 else None
+        return self.fc2(maybe_drop(h, drop if self.inner_dropout else None), reduce=reduce)

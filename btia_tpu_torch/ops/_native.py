@@ -40,7 +40,7 @@ _SIGNATURES = {
     "btia_layernorm": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
     "btia_layernorm_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
     "btia_layernorm_bwd_parts": (_P, _P, _P, _P, _I, _I, _I),
-    "btia_gemm_bias": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P),
+    "btia_gemm_bias": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P),
     "btia_attn_core": (_P, _P, _P, _P, _I, _P, _LLP, _IP, _I, _I, _I, _I, _I, _I, _P),
     "btia_attn_core_map_stats": (_LLP,),
     "btia_flash_bshd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P),

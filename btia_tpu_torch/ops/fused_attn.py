@@ -331,7 +331,9 @@ def gemm_plan(M: int, N: int) -> tuple:
     than 128 x 128's: at every serve site (text 65,536 rows: 12 rounds
     against 24); 128 x 128 where the wide tile would leave SMs idle, as at
     the train sites (12,608 rows: 3 rounds of 297 wide tiles against 5 of
-    594)."""
+    594). The same at the serve step's Mlp products (``Dense``'s, with the
+    GELU in the epilogue at fc1): the wide tile everywhere but ViT-L's fc2
+    (9,232 rows to 1,024 columns), where both tiles take the same time."""
     def tiles(i):
         bm, bn = GEMM_TILES[i]
         return -(-M // bm) * -(-N // bn)
@@ -341,12 +343,23 @@ def gemm_plan(M: int, N: int) -> tuple:
     return tile, min(tiles(tile), H100_SMS)
 
 
-def _gemm_cuda(a2, w, b, resid=None, resid_rows=0):
-    """bf16(a2 @ w + b) (+ resid rows, repeating every resid_rows), on the
-    projection GEMM (``gemm_bias_ws_kernel``, tile and grid by
+# The activations the epilogues of the bf16 projection GEMM and of K8
+# (ops/quant.py) apply after the bias: the C entries' act argument is the
+# index.
+ACTS = (None, "gelu_tanh")
+
+
+def _gemm_cuda(a2, w, b, resid=None, resid_rows=0, act=None):
+    """bf16(act(a2 @ w + b)) (+ resid rows, repeating every resid_rows), on
+    the projection GEMM (``gemm_bias_ws_kernel``, tile and grid by
     ``gemm_plan``): TMA reads a2 (M, K) and w (K, N) as they lie and stores
-    the output, at 16-byte aligned addresses. f32 operands take
-    ``gemm_f32``."""
+    the output, at 16-byte aligned addresses; act (``ACTS``: None or
+    ``"gelu_tanh"``, Dense's under an Mlp's fc1) is taken in f32 before the
+    one bf16 rounding, and never with a residual. f32 operands take
+    ``gemm_f32``, which has no activation."""
+    if act not in ACTS or (act is not None and (resid is not None or a2.dtype == torch.float32)):
+        raise ValueError(f"bias GEMM kernel takes act in {ACTS} on bf16 operands without a residual, "
+                         f"got {act!r} on {a2.dtype}{' with a residual' if resid is not None else ''}")
     if a2.dtype == torch.float32:
         return gemm_f32(a2, w, b, resid, resid_rows)
     M, K = a2.shape
@@ -365,7 +378,7 @@ def _gemm_cuda(a2, w, b, resid=None, resid_rows=0):
         _native.lib().btia_gemm_bias(
             a2.data_ptr(), w.data_ptr(), b.data_ptr(),
             None if resid is None else resid.data_ptr(), max(resid_rows, 1),
-            out.data_ptr(), M, N, K, *gemm_plan(M, N), _native.stream(a2),
+            out.data_ptr(), M, N, K, ACTS.index(act), *gemm_plan(M, N), _native.stream(a2),
         ),
         "btia_gemm_bias",
     )

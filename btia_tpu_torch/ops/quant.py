@@ -31,11 +31,9 @@ import torch.nn.functional as F
 
 from btia_tpu_torch.ops import _native
 from btia_tpu_torch.ops.attention import H100_SMS
-from btia_tpu_torch.ops.fused_attn import prepare_once
+from btia_tpu_torch.ops.fused_attn import ACTS, prepare_once
 from btia_tpu_torch.parallel.collectives import all_reduce_, all_reduce_max_
 from btia_tpu_torch.parallel.mesh import MODEL_AXIS, axis_size
-
-ACTS = (None, "gelu_tanh")
 
 
 def apply_act(y: torch.Tensor, act: Optional[str]) -> torch.Tensor:

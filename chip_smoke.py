@@ -31,6 +31,11 @@ Phases, each fatal on failure:
    each ``vqa_med_full`` train shape, each
    element within one bf16 step of ``_proj_plain`` plus the residual's
    rounding, timed beside ``torch.addmm`` (the yardstick) and the bound;
+   the same GEMM with ``Dense``'s epilogue (the f32 bias, at fc1 the
+   tanh-GELU) at the eight Mlp products of the serve step (MLP_SITES)
+   against an f32 reference of the same function, timed beside
+   ``torch.addmm``, ``addmm`` then ``F.gelu`` and the chain ``Dense`` ran
+   before (``check_mlp_gemm``);
    then K3, K5 and the GEMM at the shapes a persistent schedule can get
    wrong (EDGE_ATTN, EDGE_GEMM: work-item and tile counts around one and two
    an SM, one row, M 1 / 127 / 129, every residual form) with the same
@@ -96,7 +101,8 @@ Phases, each fatal on failure:
 4. run the bench-shaped serve step (encode_image -> answer_questions ->
    top-k) with every launch counter set to 0 just before one step and read
    just after: K1 = 20, K2 = 1, K3 = 24, K7 = 74 (every standalone
-   LayerNorm), the others 0 launches; a second
+   LayerNorm), the others 0 launches, and ``Dense``'s calls 92 on the
+   epilogue GEMM and 1 on the chain (SERVE_DENSE_ROUTES); a second
    step prepares none of K1/K2's weights again (``prepare_once``); then
    time a few steps, counting the core's tensor-map cache hits; the same
    step under ``set_attention_impl("xla")`` (K7 = 103, the others 0), under
@@ -312,11 +318,20 @@ INT8_SITES = (
     ("head_fc1", B_IMG * N_Q * 64, 768, 1536, "gelu_tanh", 1),
     ("head_fc2", B_IMG * N_Q * 64, 1536, 768, None, 1),
 )
+# The same eight FFN products in bf16 (the serve step's 45 Mlps: ViT-L's 24,
+# BERT's 12, BTIA's 4 + 4, the AD head's), on the projection GEMM with the
+# bias, and at fc1 the tanh-GELU, in its epilogue: Dense's road on the card.
+MLP_SITES = INT8_SITES
 # K8 at a K above 4096, where its row quantization takes its two-pass
 # kernel (no FFN of a registered config is that wide): held like the eight.
 INT8_WIDE_K = ("wide_k", 4096, 8192, 1024, "gelu_tanh", 0)
 # K7 74 a serve step: its standalone LayerNorms (SERVE_LN_CENSUS).
 SERVE_COUNTS, INT8_COUNTS = [20, 1, 24, 0, 0, 0, 74, 0, 0], [20, 1, 24, 0, 0, 0, 74, 90, 0]
+# Dense calls of one bf16 serve step by route (``Dense.epilogue_calls``,
+# ``Dense.chain_calls``): 93 in all (ViT-L's patch embedding and 24 Mlps,
+# img_proj, txt_proj, BERT's 12 Mlps, BTIA's 4 x 2, the AD head's one); the
+# patch embedding's K = 588 is no multiple of 8, so it keeps the chain.
+SERVE_DENSE_ROUTES = (92, 1)
 # One Predictor call (one image, a bucket of at most 32 questions): every
 # K1/K2 site is under the batch floor of 64 and takes the unfused road (its
 # short attention on the plain road, under K4's floor too); ViT-L keeps K3.
@@ -981,6 +996,67 @@ def check_gemm(torch, dev):
         log(f"  GEMM per {path.replace('_', ' ')} ({per_step[path]['launches']} launches): kernel "
             f"{per_step[path]['ms']:.3f} ms, addmm {per_step[path]['library_ms']:.3f} ms, "
             f"bound {per_step[path]['bound_ms']:.3f} ms")
+    return rows, per_step
+
+
+def check_mlp_gemm(torch, dev):
+    """Phase 2, the projection GEMM with Dense's epilogue (``_gemm_cuda``
+    with the f32 bias, and at fc1 the tanh-GELU, in its epilogue) at the
+    bf16 serve step's Mlp products (MLP_SITES), against an f32 reference of
+    the same function on the same bf16 operands: each element within one
+    bf16 step at its magnitude, and a floor of 1e-6 of the largest value
+    for every 768 of K (the tensor cores' accumulation error grows with K).
+    Timed beside ``torch.addmm`` (the product and its bias: the yardstick),
+    ``addmm`` then ``F.gelu`` at fc1, the chain ``Dense`` ran before (the
+    f32 weight and bias cast to bf16, ``matmul``, the bias add, ``F.gelu``)
+    and the bound."""
+    import torch.nn.functional as F
+
+    from btia_tpu_torch.ops import fused_attn as FA
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    bf = torch.bfloat16
+    rows = {}
+    for name, M, K, N, act, per_step in MLP_SITES:
+        a = torch.randn(M, K, generator=g, device=dev).to(bf)
+        w32 = torch.randn(K, N, generator=g, device=dev) * K**-0.5
+        b = torch.randn(N, generator=g, device=dev) * 0.02
+        w, b_bf = w32.to(bf), b.to(bf)
+        kernel = lambda: FA._gemm_cuda(a, w, b, act=act)
+        gelu = (lambda y: F.gelu(y, approximate="tanh")) if act else (lambda y: y)
+        out = kernel().float()
+        ref = gelu(a.float() @ w.float() + b)
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"Mlp GEMM {name}: kernel output is not finite")
+        diff = (out - ref).abs()
+        bad = int((diff > bf16_steps(torch, ref) + 1e-6 * max(1.0, K / 768) * ref.abs().max()).sum())
+        row = {
+            "shape": [M, K, N], "act": act, "launches_per_step": per_step, "tile": FA.gemm_plan(M, N),
+            "max_abs_err": diff.max().item(), "elements_off": bad,
+            "ms": cuda_time_ms(kernel, 20),
+            "library_ms": cuda_time_ms(lambda: torch.addmm(b_bf, a, w), 20),
+            "library": "torch.addmm (matmul + bias)",
+            "library_act_ms": cuda_time_ms(lambda: gelu(torch.addmm(b_bf, a, w)), 20),
+            "chain_ms": cuda_time_ms(lambda: gelu(torch.matmul(a, w32.to(bf)) + b.to(bf)), 20),
+        }
+        row["bound_ms"], row["bound_by"] = bound_ms(2 * M * K * N, nbytes(a, w, b) + M * N * 2)
+        row["tflops"] = 2 * M * K * N / row["ms"] / 1e9
+        log(f"  Mlp GEMM {name} ({M} x {K} -> {N}{', GELU' if act else ''}): err {row['max_abs_err']:.4g}, "
+            f"{bad} elements beyond the limit; kernel {row['ms']:.4f} ms ({row['tflops']:.0f} TFLOP/s, "
+            f"{row['ms'] / row['library_ms']:.3f} of addmm), addmm {row['library_ms']:.4f} ms, addmm"
+            f"{' + GELU' if act else ''} {row['library_act_ms']:.4f} ms, the earlier chain {row['chain_ms']:.4f} ms, "
+            f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        if bad:
+            raise AssertionError(f"Mlp GEMM {name}: {bad} elements disagree with the f32 reference")
+        rows[name] = row
+        del a, w32, b, w, b_bf, out, ref, diff
+    torch.cuda.empty_cache()
+    per_step = {k: sum(x[k] * x["launches_per_step"] for x in rows.values())
+                for k in ("ms", "library_ms", "library_act_ms", "chain_ms", "bound_ms")}
+    per_step["launches"] = sum(x["launches_per_step"] for x in rows.values())
+    log(f"  Mlp GEMMs per serve step ({per_step['launches']} launches): kernel {per_step['ms']:.3f} ms, addmm "
+        f"{per_step['library_ms']:.3f} ms, addmm (+ GELU at fc1) {per_step['library_act_ms']:.3f} ms, the earlier "
+        f"chain {per_step['chain_ms']:.3f} ms, bound {per_step['bound_ms']:.3f} ms")
     return rows, per_step
 
 
@@ -4436,6 +4512,7 @@ def main() -> int:
     from btia_tpu_torch.data.vocab import AnswerVocab
     from btia_tpu_torch.data.wordpiece import WordPieceTokenizer
     from btia_tpu_torch.infer.predict import Predictor
+    from btia_tpu_torch.models.layers import Dense
     from btia_tpu_torch.models.model import build_model
     from btia_tpu_torch.ops import _native
     from btia_tpu_torch.ops import fused_attn as FA
@@ -4455,6 +4532,7 @@ def main() -> int:
     rows = check_kernels(torch, dev)
     core_rows, core_step = check_core(torch, dev)
     gemm_rows, gemm_step = check_gemm(torch, dev)
+    mlp_rows, mlp_step = check_mlp_gemm(torch, dev)
     edges = check_persistent_edges(torch, dev)
     int8_rows = check_int8_kernel(torch, dev)
     counters = launch_counters()
@@ -4521,12 +4599,17 @@ def main() -> int:
 
     torch.cuda.synchronize()
     _zero(counters)
+    dense_before = (Dense.epilogue_calls, Dense.chain_calls)
     vals, idx = serve_step(0)
     torch.cuda.synchronize()
     counts = [f.launches for f in counters]
-    log("phase 4: one serve step launched " + ", ".join(f"{k} {c}" for k, c in zip(KERNELS, counts)))
+    dense_routes = (Dense.epilogue_calls - dense_before[0], Dense.chain_calls - dense_before[1])
+    log("phase 4: one serve step launched " + ", ".join(f"{k} {c}" for k, c in zip(KERNELS, counts))
+        + f"; Dense calls on the epilogue GEMM {dense_routes[0]}, on the chain {dense_routes[1]}")
     if counts != SERVE_COUNTS:
         raise AssertionError(f"serve-step launch counts {counts} != {SERVE_COUNTS}")
+    if dense_routes != SERVE_DENSE_ROUTES:
+        raise AssertionError(f"serve-step Dense routes {dense_routes} != {SERVE_DENSE_ROUTES}")
     if vals.shape != (B_IMG, N_Q, 5) or not np.isfinite(vals).all():
         raise AssertionError("serve step: bad top-k")
     main_counts = counts
@@ -4689,7 +4772,8 @@ def main() -> int:
     kernels[6]["wide_rows"] = {D: rows[f"k7_wide_{D}"] for D in (1500, 4096, 6144, 8192)}
     # K1/K2's projection GEMM, alone at the serve shapes (both launch it),
     # and their attention core alone on the short-sequence kernel.
-    kernels[0]["projection_gemm"] = {"sites": gemm_rows, "per_step": gemm_step, "edges": edges["gemm"]}
+    kernels[0]["projection_gemm"] = {"sites": gemm_rows, "per_step": gemm_step, "edges": edges["gemm"],
+                                     "mlp_sites": mlp_rows, "mlp_per_step": mlp_step}
     kernels[2]["persistent_edges"] = edges["k3"]
     kernels[4]["persistent_edges"] = edges["k5"]
     for i, prefix in ((0, ("serve_bert", "serve_i2t", "serve_t2i", "train_")), (1, ("serve_k2",))):
@@ -4767,6 +4851,7 @@ def main() -> int:
         "wide_kernel_d384": [wide_kernel[768 // WIDE_KERNEL_HEADS][k] for k in ("eval_card_vs_cpu_max_abs_err",
                                                                                "eval_max_logit")],
         "gemm_ms_per_step": gemm_step,
+        "mlp_gemm_ms_per_step": mlp_step,
         "core_ms_per_step": core_step,
         "serve_ms_by_switch": {w: v["ms_per_step"] for w, v in switches.items()},
         "serve_layernorms": [ln_census["standalone_layernorms"], ln_census["k7_ms_per_step"],

@@ -6,8 +6,8 @@ another checkout's on one card, in turns.
     git archive <commit> btia_tpu_torch | tar -x -C runs/parent
     python3 compare_kernels.py runs/parent [groups]
 
-groups: a comma-separated subset of k3, k5, k4, k6, core, gemm, f32, wide,
-gemm_f32, k8, f32_wrap, k7 and k7_bwd (default: all).
+groups: a comma-separated subset of k3, k5, k4, k6, core, gemm, mlp, f32,
+wide, gemm_f32, k8, f32_wrap, k7 and k7_bwd (default: all).
 
 Builds both checkouts' kernel libraries (each from its own
 ``btia_tpu_torch/csrc``), then runs each kernel's C entry at the shapes of
@@ -16,7 +16,9 @@ tree, parent, and prints both pairs of times (CUDA events, ms a call) with
 the largest difference between the two outputs. K3 and K5 (at phase 2's and
 2b's shapes, ViT-L 16 x 577 through each entry) and the projection GEMM
 (at every site of ``GEMM_SITES`` and ``GEMM_TRAIN_SITES``, with the per-step
-sums weighted by launches) also time one PyTorch call of the same function
+sums weighted by launches; the ``mlp`` group: the same GEMM with ``Dense``'s
+epilogue at the serve step's Mlp products, ``compare_mlp``) also time one
+PyTorch call of the same function
 in the same turns (parent, this, library, library, this, parent): SDPA,
 and ``torch.addmm`` with the residual added; each line gives the bound
 (``chip_smoke.bound_ms``) and each time's share of it. K3's shapes are also
@@ -110,7 +112,8 @@ def load_native(root: Path, name: str):
     return mod
 
 
-GROUPS = ("k3", "k5", "k4", "k6", "core", "gemm", "f32", "wide", "gemm_f32", "k8", "f32_wrap", "k7", "k7_bwd")
+GROUPS = ("k3", "k5", "k4", "k6", "core", "gemm", "mlp", "f32", "wide", "gemm_f32", "k8", "f32_wrap", "k7",
+          "k7_bwd")
 
 
 def wrapper_times(root: Path) -> int:
@@ -374,6 +377,8 @@ def main() -> int:
         compare_wrappers(torch, Path(sys.argv[1]).resolve())
     if "k8" in groups:
         compare_k8(torch, libs, time_ms, dev, g, stream)
+    if "mlp" in groups:
+        compare_mlp(torch, libs, time_ms, dev, g, stream)
     if "k7" in groups:
         compare_k7(torch, libs, turns, dev, g, stream)
     if "k7_bwd" in groups:
@@ -393,7 +398,9 @@ def main() -> int:
                     o.data_ptr(), M, N, K)
             if len(lib.btia_gemm_bias.argtypes) == 10:  # the earlier C signature: one 128 x 128 tile a block
                 return (lambda: lib.btia_gemm_bias(*args, stream)), o
-            return (lambda: lib.btia_gemm_bias(*args, tile, grid, stream)), o
+            if len(lib.btia_gemm_bias.argtypes) == 12:  # the earlier C signature: no activation
+                return (lambda: lib.btia_gemm_bias(*args, tile, grid, stream)), o
+            return (lambda: lib.btia_gemm_bias(*args, 0, tile, grid, stream)), o
 
         b_bf = b.to(bf)
 
@@ -723,6 +730,109 @@ def compare_k8(torch, libs, time_ms, dev, g, stream):
           f"{total['parent']:.3f} ms, this tree {total['this']:.3f} ms; GEMM alone parent {total['parent_gemm']:.3f}, "
           f"this tree {total['this_gemm']:.3f}; this tree's model road {total['this_road']:.3f}; _int_mm "
           f"{total['int_mm']:.3f}; bf16 addmm {total['addmm']:.3f}; bound {total['bound']:.3f}", flush=True)
+
+
+
+def compare_mlp(torch, libs, time_ms, dev, g, stream):
+    """The projection GEMM with Dense's epilogue (the f32 bias, and at fc1
+    the tanh-GELU) at the bf16 serve step's eight Mlp products
+    (``chip_smoke.MLP_SITES``), this tree's C entry at gemm_plan's tile, in
+    turns with the parent's C entry where it has the function (fc2: no
+    activation; its output must equal this tree's bit for bit), with
+    ``torch.addmm`` (the product and its bias in one library call: the
+    yardstick), ``addmm`` then ``F.gelu`` at fc1, and the parent's chain as
+    ``Dense`` ran it (the f32 weight and bias cast to bf16, ``matmul``, the
+    broadcast bias add, ``F.gelu``): parent, this, addmm, addmm + GELU,
+    chain, chain, addmm + GELU, addmm, this, parent. Then this tree's entry
+    at each tile the shape admits (the plan's check). Each line gives the
+    bound and each time's share of it, and this tree's time over addmm's;
+    the last the 90 launches' sums weighted by ``launches_per_step``."""
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+    from btia_tpu_torch.ops.attention import H100_SMS
+    from btia_tpu_torch.ops.fused_attn import GEMM_TILES, gemm_plan
+
+    bf = torch.bfloat16
+    names = ("parent", "this", "addmm", "addmm_gelu", "chain")
+    total = {k: 0.0 for k in ("this", "addmm", "addmm_gelu", "chain", "bound")}
+    launches = 0
+    for name, M, K, N, act, per_step in cs.MLP_SITES:
+        x = torch.randn(M, K, generator=g, device=dev).to(bf)
+        w32 = torch.randn(K, N, generator=g, device=dev) * K**-0.5
+        b = torch.randn(N, generator=g, device=dev) * 0.02
+        w, b_bf = w32.to(bf), b.to(bf)
+        tile, grid = gemm_plan(M, N)
+        act_i = 1 if act else 0
+
+        def entry(lib, tile=tile, grid=grid):
+            y = torch.empty(M, N, dtype=bf, device=dev)
+            args = (x.data_ptr(), w.data_ptr(), b.data_ptr(), None, 1, y.data_ptr(), M, N, K)
+            if len(lib.btia_gemm_bias.argtypes) == 12:  # the parent's C signature: no activation
+                return (lambda: lib.btia_gemm_bias(*args, tile, grid, stream)), y
+            return (lambda: lib.btia_gemm_bias(*args, act_i, tile, grid, stream)), y
+
+        def chain():
+            y = torch.matmul(x, w32.to(bf)) + b.to(bf)
+            return F.gelu(y, approximate="tanh") if act else y
+
+        yard = {"addmm": lambda: torch.addmm(b_bf, x, w), "chain": chain,
+                "addmm_gelu": lambda: F.gelu(torch.addmm(b_bf, x, w), approximate="tanh")}
+        order = ("parent", "this", "addmm", "addmm_gelu", "chain", "chain", "addmm_gelu", "addmm", "this", "parent")
+        times = {k: [] for k in names}
+        outs = {}
+        for who in order:
+            if who == "parent" and act:
+                continue  # the parent's entry has no activation: its road is the chain
+            if who == "addmm_gelu" and not act:
+                continue
+            if who in yard:
+                times[who].append(time_ms(yard[who], 10))
+                continue
+            launch, out = entry(libs[who])
+            code = launch()
+            torch.cuda.synchronize()
+            if code != 0:
+                raise RuntimeError(f"Mlp {name}: the {who} GEMM returned CUDA error {code}")
+            outs[who] = out
+            times[who].append(time_ms(launch, 10))
+        ref = x.float() @ w.float() + b
+        ref = F.gelu(ref, approximate="tanh") if act else ref
+        floor = 1e-6 * ref.abs().max()
+        steps = ((outs["this"].float() - ref).abs() / (cs.bf16_steps(torch, ref) + floor)).max().item()
+        same = "" if act else f", bits equal to the parent's: {torch.equal(outs['this'], outs['parent'])}"
+        b_ms, by = cs.bound_ms(2 * M * K * N, 2 * (x.numel() + w.numel() + M * N) + 4 * N)
+        best = {k: min(v) for k, v in times.items() if v}
+        fmt = lambda k: [round(t, 4) for t in times[k]]
+        print(f"Mlp {name} {M} x {K} -> {N}{', GELU' if act else ''} (tile {GEMM_TILES[tile]}, grid {grid}): "
+              f"this tree {fmt('this')} ms" + (f", parent {fmt('parent')}" if not act else "")
+              + f", addmm {fmt('addmm')}" + (f", addmm + GELU {fmt('addmm_gelu')}" if act else "")
+              + f", parent's chain {fmt('chain')}; this / addmm {best['this'] / best['addmm']:.3f}; bound "
+              f"{b_ms:.4f} ms ({by}; share this {b_ms / best['this']:.3f}, addmm {b_ms / best['addmm']:.3f}); "
+              f"largest |this - f32 reference| {steps:.2f} (bf16 steps + 1e-6 of the largest){same}", flush=True)
+        # this tree's entry at each tile the shape admits, in turns (t0, t1, t1, t0)
+        forms = (0, 1) if N % 256 == 0 else (1,)
+        by_tile, diff = {t: [] for t in forms}, {}
+        for t in forms + forms[::-1]:
+            tiles = -(-M // GEMM_TILES[t][0]) * -(-N // GEMM_TILES[t][1])
+            launch, y = entry(libs["this"], t, min(tiles, H100_SMS))
+            code = launch()
+            torch.cuda.synchronize()
+            if code != 0:
+                raise RuntimeError(f"Mlp {name}: this tree's GEMM at tile {t} returned CUDA error {code}")
+            diff[t] = (y.float() - outs["this"].float()).abs().max().item()
+            by_tile[t].append(round(time_ms(launch, 10), 4))
+        print("  by tile: " + ", ".join(f"{t} {GEMM_TILES[t]} {v} ms (max |y - planned| {diff[t]:.3g})"
+                                       for t, v in by_tile.items()), flush=True)
+        for k in ("this", "addmm", "addmm_gelu", "chain"):
+            total[k] += per_step * best.get(k, best["addmm"])  # addmm + GELU: addmm at fc2
+        total["bound"] += per_step * b_ms
+        launches += per_step
+        del x, w32, b, w, b_bf, outs, ref
+        torch.cuda.empty_cache()
+    print(f"Mlp products per serve step ({launches} launches, the better turn of each site): this tree "
+          f"{total['this']:.3f} ms, addmm {total['addmm']:.3f}, addmm + GELU at fc1 {total['addmm_gelu']:.3f}, "
+          f"the parent's chain {total['chain']:.3f}; bound {total['bound']:.3f}", flush=True)
 
 
 if __name__ == "__main__":

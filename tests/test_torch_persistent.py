@@ -18,6 +18,12 @@ twin: attention within 1/32 of the largest magnitude (the chip's bound: the
 kernel rounds the probabilities after sums taken in another order), the
 GEMM within one bf16 step an element. The kernels' own arithmetic is held
 to the twins on the card (``chip_smoke.py`` phase 2).
+
+``Dense``'s route (``models/layers.py``): the calls that take the GEMM with
+the bias and GELU in its epilogue, through the same stand-in, and the ones
+that keep the chain, with its counters. The tests marked ``chip`` run the
+GEMM itself at the serve step's Mlp and K1/K2 sites and skip without a card
+(``python -m pytest --noconftest -m chip tests/test_torch_persistent.py``).
 """
 
 import ctypes
@@ -25,6 +31,7 @@ import ctypes
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from btia_tpu_torch.ops import _native
 from btia_tpu_torch.ops import attention as A
@@ -202,10 +209,10 @@ class _StandIn:
                         grid)
         return 0
 
-    def btia_gemm_bias(self, a, w, bias, resid, resid_rows, c, M, N, K, tile, grid, stream):
-        self.calls.append(("btia_gemm_bias", M, N, K, resid_rows if resid else 0, tile, grid))
+    def btia_gemm_bias(self, a, w, bias, resid, resid_rows, c, M, N, K, act, tile, grid, stream):
+        self.calls.append(("btia_gemm_bias", M, N, K, resid_rows if resid else 0, act, tile, grid))
         if K % 8 or N % 8 or M < 1 or resid_rows < 1 or tile not in (0, 1) or grid < 1 \
-                or any(p % 16 for p in (a, w, c, resid or 0)):
+                or act not in (0, 1) or (act and resid) or any(p % 16 for p in (a, w, c, resid or 0)):
             return INVALID
         bm, bn = FA.GEMM_TILES[tile]
         tiles_n = -(-N // bn)
@@ -216,7 +223,8 @@ class _StandIn:
         for blk in _blocks(tiles, grid):
             for t in blk:
                 r, cs = slice(t // tiles_n * bm, t // tiles_n * bm + bm), slice(t % tiles_n * bn, t % tiles_n * bn + bn)
-                y = (av[r].float() @ wv[:, cs].float() + bv[cs]).to(BF16)
+                y = av[r].float() @ wv[:, cs].float() + bv[cs]
+                y = (F.gelu(y, approximate="tanh") if act else y).to(BF16)
                 if rv is not None:
                     rows = torch.arange(M)[r] % resid_rows
                     y = (y.float() + rv[rows][:, cs].float()).to(BF16)
@@ -305,7 +313,7 @@ def test_gemm_host_code(M, K, N, rr, stand_in):
     step = lambda x: torch.exp2(torch.floor(torch.log2(x.float().abs().clamp_min(1e-30))) - 7)
     tol = step(want) + (0 if r is None else step(y0)) + 1e-6 * want.float().abs().max()
     assert bool(((got.float() - want.float()).abs() <= tol).all())
-    assert stand_in.calls == [("btia_gemm_bias", M, N, K, rr, *FA.gemm_plan(M, N))]
+    assert stand_in.calls == [("btia_gemm_bias", M, N, K, rr, 0, *FA.gemm_plan(M, N))]
 
 
 def test_launch_error_raises(stand_in, monkeypatch):
@@ -314,3 +322,208 @@ def test_launch_error_raises(stand_in, monkeypatch):
     rng = np.random.RandomState(0)
     with pytest.raises(RuntimeError, match=f"btia_gemm_bias: CUDA error {INVALID}"):
         FA._gemm_cuda(_rand(rng, 4, 8), _rand(rng, 8, 8), torch.zeros(8))
+
+
+def _bf16_step(x):
+    """One bf16 step (2^-7 of the leading binade) at each element's magnitude."""
+    return torch.exp2(torch.floor(torch.log2(x.float().abs().clamp_min(1e-30))) - 7)
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 64, 256), (300, 136, 264), (131 * 128, 16, 256), (129, 768, 3072)])
+def test_gemm_host_code_gelu(M, K, N, stand_in):
+    """With act "gelu_tanh" the wrapper hands the kernel act 1 and the same
+    plan; every output tile is bf16(gelu_tanh(a @ w + b)) taken in f32, one
+    rounding."""
+    rng = np.random.RandomState(M % 1000 + K + 1)
+    a, w = _rand(rng, M, K), (_rand(rng, K, N).float() * K**-0.5).to(BF16)
+    b = torch.from_numpy(rng.randn(N).astype(np.float32)) * 0.02
+    got = FA._gemm_cuda(a, w, b, act="gelu_tanh")
+    want = F.gelu(a.float() @ w.float() + b, approximate="tanh")
+    assert bool(((got.float() - want).abs() <= _bf16_step(want) + 1e-6 * want.abs().max()).all())
+    assert stand_in.calls == [("btia_gemm_bias", M, N, K, 0, 1, *FA.gemm_plan(M, N))]
+
+
+@pytest.mark.parametrize("act,dtype,resid", [("gelu_tanh", BF16, True), ("gelu_tanh", torch.float32, False),
+                                             ("relu", BF16, False)])
+def test_gemm_act_refused(act, dtype, resid, stand_in):
+    """The epilogue's activation takes no residual, no f32 operands and no
+    other name: the wrapper raises before any launch."""
+    rng = np.random.RandomState(3)
+    a, w = _rand(rng, 64, 64).to(dtype), _rand(rng, 64, 64).to(dtype)
+    r = _rand(rng, 64, 64) if resid else None
+    with pytest.raises(ValueError, match="act"):
+        FA._gemm_cuda(a, w, torch.zeros(64), r, 64 if resid else 0, act=act)
+    assert stand_in.calls == []
+
+
+# ---------------------------------------------------------------------------
+# Dense's route: the epilogue GEMM or the chain
+# ---------------------------------------------------------------------------
+
+
+def _dense(K, N, compute_dtype=BF16, seed=0):
+    from btia_tpu_torch.core.dtypes import DTypePolicy
+    from btia_tpu_torch.models.layers import Dense
+
+    torch.manual_seed(seed)
+    d = Dense(K, N, DTypePolicy(compute_dtype=compute_dtype))
+    with torch.no_grad():
+        d.kernel.normal_(0, K**-0.5)
+        d.bias.normal_(0, 0.02)
+    return d
+
+
+# case -> (K, compute dtype, on the card, grad mode, reduce, the route)
+DENSE_ROUTES = {
+    "bf16_card_no_grad": (64, BF16, True, False, False, "epilogue"),
+    "grad_wanted": (64, BF16, True, True, False, "chain"),
+    "fp32": (64, torch.float32, True, False, False, "chain"),
+    "reduce": (64, BF16, True, False, True, "chain"),
+    "k_not_multiple_of_8": (60, BF16, True, False, False, "chain"),
+    "cpu": (64, BF16, False, False, False, "chain"),
+}
+
+
+def _run_dense_case(case, monkeypatch, act="gelu_tanh"):
+    """One Dense call of `case` on (3, 5, K) rows to N = 136; returns
+    (Dense, input, output). "On the card": CPU tensors that report is_cuda,
+    through the stand-in library."""
+    K, cd, card, grad, reduce, _ = DENSE_ROUTES[case]
+    if card:
+        monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True), raising=False)
+    d = _dense(K, 136, cd)
+    x = torch.from_numpy(np.random.RandomState(K).randn(3, 5, K).astype(np.float32)).to(cd)
+    with torch.set_grad_enabled(grad):
+        y = d(x, act=act, reduce=(lambda t: t) if reduce else None)
+    return d, x, y
+
+
+@pytest.mark.parametrize("case", sorted(DENSE_ROUTES))
+def test_dense_route(case, stand_in, monkeypatch):
+    """The epilogue GEMM (one launch: bias and GELU in its epilogue, on the
+    kernel cast once) only for a bf16 input on the card with no gradient
+    wanted, no reduce and K, N multiples of 8; every other call the chain
+    (cast, matmul, bias add, GELU in the compute dtype), bit for bit."""
+    d, x, y = _run_dense_case(case, monkeypatch)
+    K, cd = DENSE_ROUTES[case][:2]
+    x2 = x.reshape(-1, K)
+    if DENSE_ROUTES[case][-1] == "epilogue":
+        assert stand_in.calls == [("btia_gemm_bias", 15, 136, K, 0, 1, *FA.gemm_plan(15, 136))]
+        want = F.gelu(x2.float() @ d.kernel.detach().to(cd).float() + d.bias.detach(), approximate="tanh")
+        assert y.dtype == BF16
+        assert bool(((y.reshape(15, 136).float() - want).abs() <= _bf16_step(want) + 1e-6).all())
+    else:
+        assert stand_in.calls == []
+        want = F.gelu(x2 @ d.kernel.to(cd) + d.bias.to(cd), approximate="tanh")
+        assert torch.equal(y.reshape(15, 136), want)
+    assert y.shape == (3, 5, 136)
+
+
+def test_dense_counters_count_each_route(stand_in, monkeypatch):
+    """``Dense.epilogue_calls`` and ``Dense.chain_calls`` count each call by
+    the route it took; the kernel is cast once per version, not per call."""
+    from btia_tpu_torch.models.layers import Dense
+
+    for case, (*_, route) in sorted(DENSE_ROUTES.items()):
+        before = (Dense.epilogue_calls, Dense.chain_calls)
+        with monkeypatch.context() as m:
+            _run_dense_case(case, m)
+        assert (Dense.epilogue_calls - before[0], Dense.chain_calls - before[1]) == \
+            ((1, 0) if route == "epilogue" else (0, 1)), case
+    with monkeypatch.context() as m:
+        m.setattr(torch.Tensor, "is_cuda", property(lambda self: True), raising=False)
+        d, x = _dense(64, 136), torch.randn(4, 64).to(BF16)
+        builds = FA.prepare_once.builds
+        with torch.no_grad():
+            d(x), d(x, act="gelu_tanh")
+        assert FA.prepare_once.builds == builds + 1
+        with torch.no_grad():
+            d.kernel.add_(1.0)  # a new version of the kernel is cast again
+            d(x)
+        assert FA.prepare_once.builds == builds + 2
+
+
+@pytest.mark.parametrize("compute_dtype", [BF16, torch.float32])
+def test_mlp_on_the_cpu_runs_the_chain_bit_for_bit(compute_dtype):
+    """On the CPU an Mlp runs the chain: fc1's product and bias add in the
+    compute dtype, the GELU (tanh under bf16, exact under fp32), fc2's
+    product and bias add, bit for bit."""
+    from btia_tpu_torch.core.dtypes import DTypePolicy
+    from btia_tpu_torch.models.layers import Mlp
+
+    torch.manual_seed(1)
+    mlp = Mlp(48, 96, DTypePolicy(compute_dtype=compute_dtype))
+    with torch.no_grad():
+        for p in mlp.parameters():
+            p.normal_(0, 0.2)
+    x = torch.randn(2, 7, 48).to(compute_dtype)
+    cd = compute_dtype
+    with torch.no_grad():
+        got = mlp(x)
+        h = x.reshape(-1, 48) @ mlp.fc1.kernel.to(cd) + mlp.fc1.bias.to(cd)
+        h = F.gelu(h, approximate="none" if cd == torch.float32 else "tanh")
+        want = (h @ mlp.fc2.kernel.to(cd) + mlp.fc2.bias.to(cd)).reshape(2, 7, 48)
+    assert torch.equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# On the card: the epilogue GEMM at the serve step's Mlp sites
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card on this host")
+    return torch.device("cuda")
+
+
+# The serve step's Mlp products (streaming_vitl, 16 images x 128 questions):
+# (M, K, N, act): ViT-L, BERT (and BTIA's text rows), BTIA's image rows,
+# the AD head.
+MLP_SITES = [(9232, 1024, 4096, "gelu_tanh"), (9232, 4096, 1024, None), (65536, 768, 3072, "gelu_tanh"),
+             (65536, 3072, 768, None), (102400, 768, 3072, "gelu_tanh"), (102400, 3072, 768, None),
+             (131072, 768, 1536, "gelu_tanh"), (131072, 1536, 768, None)]
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("M,K,N,act", MLP_SITES)
+def test_epilogue_gemm_at_the_mlp_sites(M, K, N, act, card):
+    """``_gemm_cuda`` with the bias (and at fc1 the GELU) in its epilogue
+    against an f32 reference of the same function on the same bf16
+    operands: each element within one bf16 step of the reference, plus a
+    floor of 1e-6 of its largest magnitude for every 768 of K (the tensor
+    cores' f32 accumulation truncates, so its error grows with K: the
+    kernel read up to 1.5e-6 of the largest beyond a step at K = 4096 on an
+    H100, bf16 ``addmm`` 4.4e-5)."""
+    g = torch.Generator(device=card).manual_seed(M + K)
+    a = torch.randn(M, K, generator=g, device=card).to(BF16)
+    w = (torch.randn(K, N, generator=g, device=card) * K**-0.5).to(BF16)
+    b = torch.randn(N, generator=g, device=card) * 0.02
+    got = FA._gemm_cuda(a, w, b, act=act).float()
+    want = a.float() @ w.float() + b
+    if act:
+        want = F.gelu(want, approximate="tanh")
+    assert bool(torch.isfinite(got).all())
+    floor = 1e-6 * max(1.0, K / 768) * want.abs().max()
+    assert bool(((got - want).abs() <= _bf16_step(want) + floor).all())
+
+
+@pytest.mark.chip
+@pytest.mark.parametrize("M,K,N,rr", [(65536, 768, 768, 0), (65536, 768, 1536, 0), (65536, 768, 768, 65536),
+                                      (131072, 768, 768, 64), (12608, 768, 1536, 0)])
+def test_projection_gemm_without_act_at_k1_k2_sites(M, K, N, rr, card):
+    """K1/K2's projection sites (no activation, the kernel's act 0
+    instance): within one bf16 step of ``_proj_plain`` (plus the residual's
+    rounding). That they keep the earlier kernel's bits is
+    ``compare_kernels.py``'s to show (its gemm group, max |parent - this|)."""
+    g = torch.Generator(device=card).manual_seed(M + N)
+    a = torch.randn(M, K, generator=g, device=card).to(BF16)
+    w = (torch.randn(K, N, generator=g, device=card) * K**-0.5).to(BF16)
+    b = torch.randn(N, generator=g, device=card) * 0.02
+    r = torch.randn(rr, N, generator=g, device=card).to(BF16) if rr else None
+    got = FA._gemm_cuda(a, w, b, r, rr)
+    y0 = FA._proj_plain(a, w, b, BF16)
+    want = y0 if r is None else (y0.float() + r.float().repeat(M // rr, 1)).to(BF16)
+    tol = _bf16_step(want) + (0 if r is None else _bf16_step(y0)) + 1e-6 * want.float().abs().max()
+    assert bool(((got.float() - want.float()).abs() <= tol).all())
