@@ -25,7 +25,8 @@ layers and a MoE layer after them.
 
 Only the real tokens of a batch are computed: the layers run on the packed
 rows ``token_index`` (flat (question, position) indices of the ids > 0),
-and only the attention core sees the padded (B, S) grid. The serving path
+the attention core too (``ops/mla.py``: each row attends to its own
+question's rows up to itself). The serving path
 (``infer/predict.py``) hands ``token_index`` over from the host, where it
 knows the ids, so that no count is read back from the card; without it the
 model finds the indices itself, a host read. Padding positions of the
@@ -35,9 +36,11 @@ Kernels on the card: every MLA projection is a ``Dense`` whose kernel is
 held in the compute dtype and whose f32 bias stays zero (the published
 model has none), so it runs on ``Dense``'s epilogue GEMM
 (``ops/fused_attn.py::_gemm_cuda``); the dense SwiGLU and each MoE layer's experts on the grouped GEMM
-(``ops/moe.py``, ``csrc/moe_gemm.cu``: a dense layer is one group); RMSNorm,
-RoPE, the router, the permutation and combine, and the attention core
-(S <= 32) plain PyTorch. Parameters are held in the compute dtype (bf16 on
+(``ops/moe.py``, ``csrc/moe_gemm.cu``: a dense layer is one group); the
+attention core on ``ops/mla.py::mla_attention`` (``csrc/mla_attn.cu``: the
+packed rows, one launch a layer, where S <= 32 and the head widths are at
+most the published ones); RMSNorm, RoPE, the router, the permutation and
+combine plain PyTorch. Parameters are held in the compute dtype (bf16 on
 the serving policy: 15.6 B of them fit one card only so), the router's
 correction bias in f32. Serving only: a train forward raises.
 
@@ -51,7 +54,6 @@ model was made, summed on the card.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Optional, Tuple
 
 import torch
@@ -61,6 +63,7 @@ from torch import nn
 from btia_tpu_torch.core.dtypes import DTypePolicy
 from btia_tpu_torch.models.layers import Dense
 from btia_tpu_torch.ops import moe as M
+from btia_tpu_torch.ops.mla import mla_attention
 from btia_tpu_torch.utils.profiling import span
 
 
@@ -144,27 +147,14 @@ class MLA(nn.Module):
         """h (T, D) the normed real tokens at flat grid indices `index` and
         positions `pos`; mask (B, S) the real keys -> (T, D)."""
         s = self.s
-        T, (B, S) = h.shape[0], mask.shape
+        T = h.shape[0]
         H, dn, dr, dv, r = s.heads, s.qk_nope_dim, s.qk_rope_dim, s.v_dim, s.kv_lora_rank
-        cd = h.dtype
         q = self.q_proj(h).view(T, H, dn + dr)
         ckv = self.kv_a_proj(h)
-        kv = self.kv_b_proj(rms_norm(ckv[:, :r], self.kv_norm.scale, s.rms_eps, cd)).view(T, H, dn + dv)
-        k_pe = rope(ckv[:, None, r:], pos, s.rope_theta).expand(T, H, dr)
-        qg = h.new_zeros(B * S, H, dn + dr)
-        kg = h.new_zeros(B * S, H, dn + dr)
-        vg = h.new_zeros(B * S, H, dv)
-        qg[index] = torch.cat([q[..., :dn], rope(q[..., dn:], pos, s.rope_theta)], -1)
-        kg[index] = torch.cat([kv[..., :dn], k_pe], -1)
-        vg[index] = kv[..., dn:]
-        heads = lambda t: t.view(B, S, H, -1).transpose(1, 2)
-        scores = heads(qg).float() @ heads(kg).float().transpose(-1, -2) / math.sqrt(dn + dr)
-        causal = torch.ones(S, S, dtype=torch.bool, device=h.device).tril()
-        allowed = causal[None, None] & mask[:, None, None, :]
-        # a key-less row (a query of an all-padding question) is never read
-        probs = torch.softmax(scores.masked_fill(~allowed, torch.finfo(torch.float32).min), -1)
-        o = (probs.to(cd) @ heads(vg)).transpose(1, 2).reshape(B * S, H * dv)
-        return self.o_proj(o[index])
+        kv = self.kv_b_proj(rms_norm(ckv[:, :r], self.kv_norm.scale, s.rms_eps, h.dtype)).view(T, H, dn + dv)
+        q_pe = rope(q[..., dn:], pos, s.rope_theta)
+        k_pe = rope(ckv[:, None, r:], pos, s.rope_theta)
+        return self.o_proj(mla_attention(q, kv, q_pe, k_pe, index, mask))
 
 
 class SwiGLU(nn.Module):

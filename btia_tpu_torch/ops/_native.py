@@ -54,6 +54,7 @@ _SIGNATURES = {
     "btia_attn_wide": (_LLP, _I, _F, _F, _I, _I, _I, _I, _I, _P),
     "btia_gemm_f32": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P),
     "btia_moe_gemm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "btia_mla_attn": (_P, _P, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _I, _I, _F, _P),
 }
 
 

@@ -46,7 +46,14 @@ Phases, each fatal on failure:
    per-expert bf16 ``torch.mm`` loop (the yardstick) and the bound; then one
    MoE layer of ``models/mla_moe.py`` at the published widths with the
    kernel's counter set to 0 just before and read just after (2 launches)
-   (``check_moe_gemm``);
+   (``check_moe_gemm``); then the MLA attention core (``ops/mla.py::
+   mla_attention``, ``csrc/mla_attn.cu``) at one layer of that cell
+   (MLA_SHAPE: 2,048 questions of 7-16 real ids of 32, 16 heads, q_nope 128
+   + q_pe 64, v 128) against the twin (``_mla_plain``, the grid code), every
+   element within one bf16 step plus 2^-8 of the largest |v|, timed through
+   its C entry alone, the wrapper and the twin beside the bytes bound; then
+   one ``MLA`` at the published widths with the counter set to 0 just
+   before and read just after (1 launch) (``check_mla_attn``);
    then K3, K5 and the GEMM at the shapes a persistent schedule can get
    wrong (EDGE_ATTN, EDGE_GEMM: work-item and tile counts around one and two
    an SM, one row, M 1 / 127 / 129, every residual form) with the same
@@ -1176,6 +1183,127 @@ def check_moe_gemm(torch, dev):
     del layer, a, h, gu, dn, x, y
     torch.cuda.empty_cache()
     return rows, launches
+
+
+# The MLA attention core at kimivl-fanout-backlog's shapes: questions a
+# launch (16 x 128), S, heads, q_nope, q_pe and v widths; real ids a
+# question 7-16 (WordPiece lengths), lengths 1 and S mixed in.
+MLA_SHAPE = (2048, 32, 16, 128, 64, 128)
+MLA_LAUNCHES_PER_LAYER = 1  # 27 a forward of the 27-layer language model
+
+
+def mla_inputs(torch, dev, seed: int):
+    """One layer's core operands at MLA_SHAPE: q, [k_nope | v], q_pe, k_pe
+    (scores of scale ~1), the real rows' flat indices and the (B, S) mask,
+    one question with a padding id inside."""
+    B, S, H, dn, dr, dv = MLA_SHAPE
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lengths = torch.randint(7, 17, (B,), generator=g, device=dev)
+    lengths[:4] = torch.tensor([1, S, 1, S], device=dev)
+    mask = torch.arange(S, device=dev)[None] < lengths[:, None]
+    mask[5, 3] = False
+    index = torch.nonzero(mask.reshape(-1)).squeeze(1)
+    T, bf = index.numel(), torch.bfloat16
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=dev).to(bf)
+    return rnd(T, H, dn + dr), rnd(T, H, dn + dv), rnd(T, H, dr), rnd(T, 1, dr), index, mask
+
+
+def mla_entry(torch, lib, q, kv, q_pe, k_pe, index, mask):
+    """(launch, o): the C entry ``btia_mla_attn`` of `lib` on the operands
+    as ``ops/mla.py::_mla_cuda`` hands them over; launch() returns its code."""
+    import ctypes
+
+    from btia_tpu_torch.ops import _native
+
+    T, H, _ = q.shape
+    dr = q_pe.shape[-1]
+    dn = q.shape[-1] - dr
+    dv = kv.shape[-1] - dn
+    k2 = k_pe.reshape(T, dr)
+    o = torch.empty(T, H * dv, dtype=torch.bfloat16, device=q.device)
+    strides = (ctypes.c_longlong * 9)(q.stride(0), q.stride(1), q_pe.stride(0), q_pe.stride(1), kv.stride(0),
+                                      kv.stride(1), k2.stride(0), H * dv, dv)
+    stream = _native.stream(q)
+    args = (q.data_ptr(), q_pe.data_ptr(), kv.data_ptr(), k2.data_ptr(), o.data_ptr(), index.data_ptr(), strides,
+            T, H, mask.shape[1], dn, dr, dv, (dn + dr) ** -0.5, stream)
+    return (lambda: lib.btia_mla_attn(*args)), o
+
+
+def mla_bytes(q, kv, q_pe, k_pe, index) -> int:
+    """The core's operands once: q_nope, q_pe, [k_nope | v], k_pe and the
+    indices read, o written."""
+    T, H, _ = q.shape
+    dr = q_pe.shape[-1]
+    dn = q.shape[-1] - dr
+    dv = kv.shape[-1] - dn
+    return 2 * T * (H * dn + H * dr + H * (dn + dv) + dr + H * dv) + 8 * T
+
+
+def check_mla_attn(torch, dev):
+    """Phase 2, the MLA attention core (``ops/mla.py::mla_attention``,
+    ``csrc/mla_attn.cu``) at one layer of the kimivl serve cell (MLA_SHAPE):
+    against the twin (``_mla_plain``, the grid code) on the same bf16
+    operands, every element within one bf16 step plus 2^-8 of the largest
+    |v| (the scores' f32 sums in another order can flip a probability's
+    bf16 rounding), timed through the C entry alone, the wrapper and the
+    twin beside the bytes bound; then ``models/mla_moe.py::MLA`` at the
+    published widths on the same rows with the counter set to 0 just
+    before and read just after. Returns (row, launches)."""
+    from btia_tpu_torch.core.dtypes import BF16_POLICY
+    from btia_tpu_torch.models.mla_moe import MLA, LMSpec
+    from btia_tpu_torch.ops import _native
+    from btia_tpu_torch.ops import mla as A
+
+    B, S, H, dn, dr, dv = MLA_SHAPE
+    q, kv, q_pe, k_pe, index, mask = mla_inputs(torch, dev, 23)
+    T = index.numel()
+    before = A.mla_attention.launches
+    got = A.mla_attention(q, kv, q_pe, k_pe, index, mask).float()
+    want = A._mla_plain(q, kv, q_pe, k_pe, index, mask).float()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("mla attention: kernel output is not finite")
+    diff = (got - want).abs()
+    bad = int((diff > bf16_steps(torch, want) + 2.0**-8 * kv[..., dn:].float().abs().max()).sum())
+    launch, _ = mla_entry(torch, _native.lib(), q, kv, q_pe, k_pe, index, mask)
+    row = {
+        "shape": [T, H, dn, dr, dv], "questions": B, "S": S, "max_abs_err": diff.max().item(), "elements_off": bad,
+        "beyond_one_step": int((diff > bf16_steps(torch, want)).sum()),
+        "ms": cuda_time_ms(lambda: A.mla_attention(q, kv, q_pe, k_pe, index, mask), 20),
+        "entry_ms": cuda_time_ms(launch, 20),
+        "plain_ms": cuda_time_ms(lambda: A._mla_plain(q, kv, q_pe, k_pe, index, mask), 3, warmup=1),
+    }
+    row["bound_ms"], row["bound_by"] = bound_ms(2.0 * T * H * 96 * (dn + dr + dv), mla_bytes(q, kv, q_pe, k_pe,
+                                                                                                   index))
+    row["roofline_pct"] = 100.0 * row["bound_ms"] / row["entry_ms"]
+    log(f"  MLA attention core ({B} questions, {T} real tokens, {H} heads, {dn} + {dr} | {dv}): err "
+        f"{row['max_abs_err']:.4g}, {row['beyond_one_step']} elements beyond one bf16 step, {bad} beyond the limit; "
+        f"C entry {row['entry_ms']:.4f} ms ({row['roofline_pct']:.1f} % of its bound), wrapper {row['ms']:.4f} ms, "
+        f"twin {row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    if bad:
+        raise AssertionError(f"mla attention: {bad} elements disagree with the twin")
+    A.mla_attention.launches = before  # comparison launches are not main-path launches
+    layer = MLA(LMSpec(), BF16_POLICY, dev)
+    g = torch.Generator(device=dev).manual_seed(24)
+    with torch.no_grad():
+        for name, p in layer.named_parameters():
+            p.copy_(torch.randn(p.shape, generator=g, device=dev) * p.shape[0] ** -0.5 if name.endswith("kernel")
+                    else torch.ones_like(p) if name.endswith("scale") else torch.zeros_like(p))
+    h = torch.randn(T, LMSpec().dim, generator=g, device=dev).to(torch.bfloat16)
+    with torch.inference_mode():
+        layer(h, index, index % S, mask)
+        torch.cuda.synchronize()
+        A.mla_attention.launches = 0
+        y = layer(h, index, index % S, mask)
+        torch.cuda.synchronize()
+        launches = A.mla_attention.launches
+    A.mla_attention.launches = before + launches
+    if launches != MLA_LAUNCHES_PER_LAYER or not bool(torch.isfinite(y.float()).all()):
+        raise AssertionError(f"an MLA layer launched the attention kernel {launches} times (want "
+                             f"{MLA_LAUNCHES_PER_LAYER}), its output finite: {bool(torch.isfinite(y.float()).all())}")
+    log(f"  MLA layer ({T} tokens): attention kernel launches {launches}")
+    del layer, q, kv, q_pe, k_pe, got, want, diff, h, y
+    torch.cuda.empty_cache()
+    return row, launches
 
 
 # Phase 2, the shapes a persistent schedule can get wrong: K3 and K5 at
@@ -4652,6 +4780,7 @@ def main() -> int:
     gemm_rows, gemm_step = check_gemm(torch, dev)
     mlp_rows, mlp_step = check_mlp_gemm(torch, dev)
     moe_rows, moe_launches = check_moe_gemm(torch, dev)
+    mla_row, mla_launches = check_mla_attn(torch, dev)
     edges = check_persistent_edges(torch, dev)
     int8_rows = check_int8_kernel(torch, dev)
     counters = launch_counters()
@@ -4942,6 +5071,15 @@ def main() -> int:
         "library_ms_per_layer": sum(x["library_ms"] for x in moe_rows.values()),
         "bound_ms_per_layer": sum(x["bound_ms"] for x in moe_rows.values()),
         "sites": moe_rows,
+    })
+    kernels.append({
+        "name": "mla_attention", "route": "cuda", "source": "btia_tpu_torch/csrc/mla_attn.cu",
+        "replaces": "none (the JAX package has no MLA)", "launches": mla_launches,
+        "launches_by_path": {"mla_layer": mla_launches},
+        "max_abs_err": mla_row["max_abs_err"], "ms": mla_row["ms"], "entry_ms": mla_row["entry_ms"],
+        "plain_ms": mla_row["plain_ms"], "bound_ms": mla_row["bound_ms"], "bound_by": mla_row["bound_by"],
+        "library_ms": None, "library": "none: no PyTorch call computes the packed causal core",
+        "sites": {"serve": mla_row},
     })
     for name, rep, src, replaces, sites in (
         ("simt_attention", "k1_core_f32_i2t", "btia_tpu_torch/csrc/attn_simt.cu",

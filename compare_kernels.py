@@ -7,7 +7,7 @@ another checkout's on one card, in turns.
     python3 compare_kernels.py runs/parent [groups]
 
 groups: a comma-separated subset of k3, k5, k4, k6, core, gemm, mlp, f32,
-wide, gemm_f32, k8, f32_wrap, k7 and k7_bwd (default: all).
+wide, gemm_f32, k8, f32_wrap, k7, k7_bwd and mla (default: all).
 
 Builds both checkouts' kernel libraries (each from its own
 ``btia_tpu_torch/csrc``), then runs each kernel's C entry at the shapes of
@@ -67,7 +67,12 @@ tree's ``btia_layernorm_bwd`` at ``K7_BWD_SHAPES`` in bf16 and f32 against
 the parent's backward, which has no kernel: the vjp of ``_ln_exact``
 (``_ln_exact_vjp``, eager PyTorch), with
 ``torch.ops.aten.native_layer_norm_backward`` as the library call, in the
-same turns. Inputs are
+same turns. The MLA attention core (``mla``) runs at one layer of
+``kimivl-fanout-backlog`` (``chip_smoke.MLA_SHAPE``): each checkout's
+``btia_mla_attn`` C entry in turns (parent, this, this, parent), or, where
+the other checkout has none, its road, the grid code (this tree's twin,
+``ops/mla.py::_mla_plain``, is that code), in the parent's turns; then this
+tree's wrapper; with the bytes bound. Inputs are
 random from a seed; the card's name and power limit are printed first.
 Needs one CUDA card and ``nvcc``.
 """
@@ -113,7 +118,7 @@ def load_native(root: Path, name: str):
 
 
 GROUPS = ("k3", "k5", "k4", "k6", "core", "gemm", "mlp", "f32", "wide", "gemm_f32", "k8", "f32_wrap", "k7",
-          "k7_bwd")
+          "k7_bwd", "mla")
 
 
 def wrapper_times(root: Path) -> int:
@@ -383,6 +388,8 @@ def main() -> int:
         compare_k7(torch, libs, turns, dev, g, stream)
     if "k7_bwd" in groups:
         compare_k7_bwd(torch, libs, time_ms, dev, g, stream)
+    if "mla" in groups:
+        compare_mla(torch, libs, time_ms, dev)
 
     per_step = {}
     for name, M, K, N, rr, launches in (cs.GEMM_SITES + cs.GEMM_TRAIN_SITES) if "gemm" in groups else ():
@@ -731,6 +738,37 @@ def compare_k8(torch, libs, time_ms, dev, g, stream):
           f"this tree {total['this_gemm']:.3f}; this tree's model road {total['this_road']:.3f}; _int_mm "
           f"{total['int_mm']:.3f}; bf16 addmm {total['addmm']:.3f}; bound {total['bound']:.3f}", flush=True)
 
+
+
+def compare_mla(torch, libs, time_ms, dev):
+    """The MLA attention core at ``chip_smoke.MLA_SHAPE`` (the module
+    docstring): the C entries, or the parent's grid code, in turns, the
+    largest difference between the two outputs, this tree's wrapper and the
+    bound."""
+    import chip_smoke as cs
+    from btia_tpu_torch.ops import mla as A
+
+    ops = cs.mla_inputs(torch, dev, 23)
+    roads, outs = {}, {}
+    for who in ("parent", "this"):
+        if hasattr(libs[who], "btia_mla_attn"):
+            launch, outs[who] = cs.mla_entry(torch, libs[who], *ops)
+            if launch() != 0:
+                raise RuntimeError(f"mla: the {who} kernel returned a CUDA error")
+            roads[who] = launch
+        else:  # the grid code the model ran before the kernel
+            roads[who] = lambda: A._mla_plain(*ops)
+            outs[who] = roads[who]()
+    times = {"parent": [], "this": []}
+    for who in ("parent", "this", "this", "parent"):
+        times[who].append(time_ms(roads[who], 10))
+    wrapper = time_ms(lambda: A.mla_attention(*ops), 10)
+    b_ms, by = cs.bound_ms(0.0, cs.mla_bytes(*ops[:5]))
+    diff = (outs["parent"].float() - outs["this"].float()).abs().max().item()
+    print(f"mla core {ops[0].shape[0]} tokens: parent {[round(t, 4) for t in times['parent']]} ms"
+          f"{'' if hasattr(libs['parent'], 'btia_mla_attn') else ' (the grid code)'}, this tree "
+          f"{[round(t, 4) for t in times['this']]} ms, wrapper {wrapper:.4f} ms, bound {b_ms:.4f} ms ({by}; share "
+          f"this {round(b_ms / min(times['this']), 3)}), max |parent - this| {diff:.3g}", flush=True)
 
 
 def compare_mlp(torch, libs, time_ms, dev, g, stream):
