@@ -69,6 +69,7 @@ constexpr int AS_THREADS = 128;  // 8 x 16: rows by ty, keys and output columns 
 constexpr int AS_BK = 64;        // keys a tile
 constexpr int AS_LD = 64 + 4;    // floats a panel row: 64 columns, padded so 16-byte rows cover every bank
 constexpr int AS_MAX_D = 1024;
+constexpr int AS_ARGS = 21;  // int64 a problem in btia_attn_simt's argument array (attn_wide.cu's AW_ARGS)
 
 struct AsProblem {
   const float* q;
@@ -403,19 +404,19 @@ int as_dispatch(const AsArgs& args, long long total, cudaStream_t stream) {
 
 }  // namespace
 
-// ptrs: q, k, v, o, mask of each problem (10 pointers; mask may be null);
-// strides: q, k, v, o (batch, head, row) of each problem (24), in elements,
-// the columns packed; dims: B, H, Sq, Sk of each problem (8); qscale: one a
-// problem. nprob is 1 or 2 (K6's two directions). plan (the host's,
-// ops/attention.py:simt_plan): query rows a block (32 or 64), output columns
-// a block (64 for D <= 64, else 128; a wider head is split into ceil(D /
-// 128) slices) and the load path (1: 16-byte copies and stores, which needs
-// 16-byte aligned pointers and strides and D multiples of 4; 0: 4-byte).
-// Returns 0 or a CUDA error code (cudaErrorInvalidValue for arguments the
-// kernel does not take, a plan among them).
-extern "C" int btia_attn_simt(const void* const* ptrs, const long long* strides, const int* dims,
-                              const float* qscale, int nprob, int D, int mask_bytes, int mult_mask, const int* plan,
-                              void* stream) {
+// args: AS_ARGS int64 a problem, the array attn_wide.cu's entry reads: the
+// device pointers of q, k, v, o and the mask (0: none); the (batch, head,
+// row) strides of q, k, v and o, in elements, the columns packed; B, H, Sq,
+// Sk. qscale0 / qscale1: each problem's q scale. nprob is 1 or 2 (K6's two
+// directions). plan (the host's, ops/attention.py:simt_plan): query rows a
+// block (32 or 64), output columns a block (64 for D <= 64, else 128; a
+// wider head is split into ceil(D / 128) slices) and the load path (1:
+// 16-byte copies and stores, which needs 16-byte aligned pointers and
+// strides and D multiples of 4; 0: 4-byte). Returns 0 or a CUDA error code
+// (cudaErrorInvalidValue for arguments the kernel does not take, a plan
+// among them).
+extern "C" int btia_attn_simt(const long long* args_in, int nprob, float qscale0, float qscale1, int D,
+                              int mask_bytes, int mult_mask, const int* plan, void* stream) {
   const int bq = plan[0], slice_w = plan[1], vec = plan[2];
   if (nprob < 1 || nprob > 2 || D < 1 || D > AS_MAX_D || (mask_bytes != 1 && mask_bytes != 4) ||
       (bq != 32 && bq != 64) || !(slice_w == 128 || (slice_w == 64 && D <= 64)) || (vec != 0 && vec != 1) ||
@@ -432,25 +433,25 @@ extern "C" int btia_attn_simt(const void* const* ptrs, const long long* strides,
   long long total = 0;
   for (int i = 0; i < nprob; ++i) {
     AsProblem& p = args.p[i];
-    p.q = static_cast<const float*>(ptrs[5 * i]);
-    p.k = static_cast<const float*>(ptrs[5 * i + 1]);
-    p.v = static_cast<const float*>(ptrs[5 * i + 2]);
-    p.o = static_cast<float*>(const_cast<void*>(ptrs[5 * i + 3]));
-    p.mask = ptrs[5 * i + 4];
+    const long long* a = args_in + AS_ARGS * i;
+    p.q = reinterpret_cast<const float*>(a[0]);
+    p.k = reinterpret_cast<const float*>(a[1]);
+    p.v = reinterpret_cast<const float*>(a[2]);
+    p.o = reinterpret_cast<float*>(a[3]);
+    p.mask = reinterpret_cast<const void*>(a[4]);
     for (int t = 0; t < 4; ++t)
-      for (int a = 0; a < 3; ++a) {
-        p.st[t][a] = strides[12 * i + 3 * t + a];
-        if (vec && p.st[t][a] % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
+      for (int d = 0; d < 3; ++d) {
+        p.st[t][d] = a[5 + 3 * t + d];
+        if (vec && p.st[t][d] % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
       }
     if (vec)
       for (int t = 0; t < 4; ++t)
-        if (reinterpret_cast<uintptr_t>(ptrs[5 * i + t]) % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
-    p.B = dims[4 * i];
-    p.H = dims[4 * i + 1];
-    p.Sq = dims[4 * i + 2];
-    p.Sk = dims[4 * i + 3];
-    p.qscale = qscale[i];
-    if (p.B < 1 || p.H < 1 || p.Sq < 1 || p.Sk < 1) return static_cast<int>(cudaErrorInvalidValue);
+        if (a[t] % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
+    for (int d = 17; d < 21; ++d)
+      if (a[d] < 1 || a[d] > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+    p.B = static_cast<int>(a[17]), p.H = static_cast<int>(a[18]), p.Sq = static_cast<int>(a[19]);
+    p.Sk = static_cast<int>(a[20]);
+    p.qscale = i == 0 ? qscale0 : qscale1;
     p.q_tiles = (p.Sq + bq - 1) / bq;
     const long long items = static_cast<long long>(p.B) * p.H * p.q_tiles * args.nslices;
     if (items > 0x3fffffff) return static_cast<int>(cudaErrorInvalidValue);

@@ -23,7 +23,8 @@ from btia_tpu_torch.core.dtypes import DTypePolicy
 from btia_tpu_torch.models.layers import (
     Dense, Dropout, LayerNorm, LayerNormParams, Mlp, _param, masked_mean, maybe_drop,
 )
-from btia_tpu_torch.ops.fused_attn import fused_static_q_attention, prepare_once
+from btia_tpu_torch.ops.fused_attn import fused_static_q_attention
+from btia_tpu_torch.ops.gemm import prepare_once
 
 
 class ADHead(nn.Module):

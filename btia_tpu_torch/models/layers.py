@@ -17,9 +17,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from btia_tpu_torch.core.dtypes import DTypePolicy
-from btia_tpu_torch.ops.fused_attn import _gemm_cuda, fused_dense_attention, prepare_once
+from btia_tpu_torch.ops.fused_attn import fused_dense_attention
+from btia_tpu_torch.ops.gemm import apply_act, gemm_bias, gemm_takes, prepare_once
 from btia_tpu_torch.ops.norms import layernorm
-from btia_tpu_torch.ops.quant import apply_act, int8_matmul_nk, int8_matmul_row_parallel, int8_weight
+from btia_tpu_torch.ops.quant import int8_matmul_nk, int8_matmul_row_parallel, int8_weight
 from btia_tpu_torch.parallel.collectives import copy_to_model, reduce_from_model
 from btia_tpu_torch.parallel.mesh import MODEL_AXIS, axis_size
 
@@ -106,7 +107,7 @@ class Dense(nn.Module):
     Where ``epilogue_takes`` holds (a bf16 CUDA input, no gradient wanted,
     no ``reduce``, K and N multiples of 8) the product, the f32 bias and the
     activation are one launch of the projection GEMM
-    (``ops/fused_attn.py::_gemm_cuda``, the bias and GELU in its epilogue,
+    (``ops/gemm.py::gemm_bias``, the bias and GELU in its epilogue,
     one bf16 rounding) on the kernel cast to bf16 once per version of it
     (``prepare_once``); every other call runs the chain (cast, matmul, bias
     add, activation). ``Dense.epilogue_calls`` and ``Dense.chain_calls``
@@ -128,14 +129,13 @@ class Dense(nn.Module):
 
     def epilogue_takes(self, x: torch.Tensor, reduce=None) -> bool:
         """Whether a call on `x` runs on the epilogue GEMM: x on the card,
-        the bf16 compute dtype, no gradient wanted (grad mode off, or
-        neither x nor the parameters require one), no ``reduce``, and K and
-        N multiples of 8 (the kernel's TMA row rule)."""
-        K, N = self.kernel.shape
+        no gradient wanted (grad mode off, or neither x nor the parameters
+        require one), no ``reduce``, and operands the kernel takes
+        (``gemm_takes``: the bf16 compute dtype, K and N multiples of 8)."""
         wants_grad = torch.is_grad_enabled() and (
             x.requires_grad or self.kernel.requires_grad or self.bias.requires_grad)
-        return (x.is_cuda and self.policy.compute_dtype == torch.bfloat16 and not wants_grad and reduce is None
-                and K % 8 == 0 and N % 8 == 0)
+        return (x.is_cuda and not wants_grad and reduce is None
+                and gemm_takes(self.policy.compute_dtype, *self.kernel.shape))
 
     def forward(self, x: torch.Tensor, act: Optional[str] = None, reduce=None) -> torch.Tensor:
         cd = self.policy.compute_dtype
@@ -143,7 +143,7 @@ class Dense(nn.Module):
         if self.epilogue_takes(x2, reduce):
             Dense.epilogue_calls += 1
             w, = prepare_once((self.kernel,), ("cast", cd), lambda: (self.kernel.to(cd),))
-            y = _gemm_cuda(x2, w, self.bias, act=act)
+            y = gemm_bias(x2, w, self.bias, act=act)
         else:
             Dense.chain_calls += 1
             y = torch.matmul(x2, self.kernel.to(cd))

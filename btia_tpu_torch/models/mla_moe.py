@@ -35,7 +35,7 @@ output are zero.
 Kernels on the card: every MLA projection is a ``Dense`` whose kernel is
 held in the compute dtype and whose f32 bias stays zero (the published
 model has none), so it runs on ``Dense``'s epilogue GEMM
-(``ops/fused_attn.py::_gemm_cuda``); the dense SwiGLU and each MoE layer's experts on the grouped GEMM
+(``ops/gemm.py::gemm_bias``); the dense SwiGLU and each MoE layer's experts on the grouped GEMM
 (``ops/moe.py``, ``csrc/moe_gemm.cu``: a dense layer is one group); the
 attention core on ``ops/mla.py::mla_attention`` (``csrc/mla_attn.cu``: the
 packed rows, one launch a layer, where S <= 32 and the head widths are at

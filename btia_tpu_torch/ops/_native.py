@@ -30,12 +30,11 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas=-v",
 )
 LIB_NAME = "libbtia_kernels.so"
+H100_SMS = 132  # the H100's SMs: the persistent kernels' grids count blocks against them
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LLP = ctypes.POINTER(ctypes.c_longlong)  # a host array of strides
 _IP = ctypes.POINTER(ctypes.c_int)  # a host array of plan values
-_FP = ctypes.POINTER(ctypes.c_float)  # a host array of scales
-_PP = ctypes.POINTER(ctypes.c_void_p)  # a host array of device pointers
 _SIGNATURES = {
     "btia_layernorm": (_P, _P, _P, _P, _I, _I, _F, _I, _P),
     "btia_layernorm_bwd": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _P),
@@ -50,7 +49,7 @@ _SIGNATURES = {
     "btia_int8_quant_rows": (_P, _P, _P, _I, _I, _P),
     "btia_int8_gemm": (_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "btia_int8_dequant": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
-    "btia_attn_simt": (_PP, _LLP, _IP, _FP, _I, _I, _I, _I, _IP, _P),
+    "btia_attn_simt": (_LLP, _I, _F, _F, _I, _I, _I, _IP, _P),
     "btia_attn_wide": (_LLP, _I, _F, _F, _I, _I, _I, _I, _I, _P),
     "btia_gemm_f32": (_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P),
     "btia_moe_gemm": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),

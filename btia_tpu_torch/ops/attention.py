@@ -58,6 +58,7 @@ from typing import Optional
 import torch
 
 from btia_tpu_torch.ops import _native
+from btia_tpu_torch.ops._native import H100_SMS
 
 NEG_INF = -1e9
 LOG2E = 1.4426950408889634
@@ -246,12 +247,6 @@ def _tma_ok(ptr: int, col_stride: int, st) -> bool:
         and st[1] > 0 and st[2] > 0 and st[0] >= 0
 
 
-def _packed(t: torch.Tensor) -> torch.Tensor:
-    """t packed, at a 16-byte aligned address."""
-    t = t.contiguous()
-    return t.clone() if t.data_ptr() % 16 else t  # packed, but at an unaligned storage offset
-
-
 def _bhsd_operand(t: torch.Tensor, what: str):
     """A (B, H, S, D) bf16 CUDA operand the tile kernels read in place
     (16-byte rows through its strides, ``_tma_ok``), copied only where its
@@ -260,7 +255,7 @@ def _bhsd_operand(t: torch.Tensor, what: str):
     _native.require(t, what, contiguous=False)
     st = _spans(t)
     if not _tma_ok(t.data_ptr(), t.stride(3), st) or st[0] == 0:
-        t = _packed(t)
+        t = _native.aligned(t)
         st = _spans(t)
     return t, st
 
@@ -344,24 +339,6 @@ def _key_masks(masks):
     return masks, mask_bytes.pop()
 
 
-def _problem_args(problems):
-    """The f32 entry's problem arrays from (q, k, v, o, mask, qscale)
-    operand specs (``operand``): device pointers (q, k, v, o, mask), (batch, head,
-    row) strides, (B, H, Sq, Sk), the q scales, and the masks' element size
-    (``_key_masks``). Returns them with the masks, which must outlive the
-    launch."""
-    masks, mask_bytes = _key_masks([p[4] for p in problems])
-    ptrs, strides, dims, scales = [], [], [], []
-    for (q, k, v, o, _, qscale), m in zip(problems, masks):
-        ptrs += [_ptr(x) for x in (q, k, v, o)] + [None if m is None else m.data_ptr()]
-        strides += [s for x in (q, k, v, o) for s in x[3][:3]]
-        dims += [*q[2][:3], k[2][2]]
-        scales.append(qscale)
-    n = len(problems)
-    return ((ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_longlong * len(strides))(*strides),
-            (ctypes.c_int * len(dims))(*dims), (ctypes.c_float * n)(*scales), mask_bytes, masks)
-
-
 def simt_attention(problems, head_dim: int, mult_mask: bool) -> None:
     """Launch the f32 kernel (``csrc/attn_simt.cu``, CUDA cores) on one or two
     problems (K6's two directions), each ``(q, k, v, o, mask, qscale)``:
@@ -377,11 +354,11 @@ def simt_attention(problems, head_dim: int, mult_mask: bool) -> None:
                 for p in problems]
     if any(p[3][3][3] != 1 for p in problems):
         raise ValueError("CUDA-core attention: the output's columns must be packed")
-    ptrs, strides, dims, scales, mask_bytes, masks = _problem_args(problems)
+    args, (qs0, qs1), mask_bytes, keep, _ = attend_args(problems)
     plan = simt_plan(problems, head_dim)
     _native.check(
-        _native.lib().btia_attn_simt(ptrs, strides, dims, scales, len(problems), head_dim, mask_bytes,
-                                     int(mult_mask), (ctypes.c_int * 3)(*plan), _native.stream(problems[0][0][0])),
+        _native.lib().btia_attn_simt(args, len(problems), qs0, qs1, head_dim, mask_bytes, int(mult_mask),
+                                     (ctypes.c_int * 3)(*plan), _native.stream(keep[0])),
         "btia_attn_simt",
     )
     simt_attention.launches += 1
@@ -404,34 +381,39 @@ def _wide_read(x, dw: int):
     t = operand_view(x)
     if shape[3] != dw:
         t = torch.nn.functional.pad(t, (0, dw - shape[3]))
-    t = _packed(t)
+    t = _native.aligned(t)
     return t, t.data_ptr(), _spans(t)
 
 
-# The wide kernel's argument array (csrc/attn_wide.cu, AW_ARGS): int64 a
-# problem, the device pointers of q, k, v, o and the key mask (0: none), the
-# (batch, head, row) strides of q, k, v and o, and B, H, Sq, Sk.
-WIDE_ARGS = 21
+# The argument array of the f32 and wide kernels (csrc/attn_simt.cu and
+# csrc/attn_wide.cu): int64 a problem, the device pointers of q, k, v, o and
+# the key mask (0: none), the (batch, head, row) strides of q, k, v and o,
+# and B, H, Sq, Sk.
+ATTEND_ARGS = 21
 
 
-def wide_args(problems, dw: int):
-    """The wide kernel's arguments from (q, k, v, o, mask, qscale) problems
-    of bf16 operand specs (``operand``), packed in one pass: the int64 array
-    (``WIDE_ARGS`` a problem), the two q scales, the masks' element size
-    (``_key_masks``), the tensors that must outlive the launch, and the
-    (o, buffer) pairs whose buffer the kernel writes in o's place (o's rows
-    not 16-byte aligned, or D % 8) and the caller copies back."""
+def attend_args(problems, dw: Optional[int] = None):
+    """The f32 (dw None: operands as they lie) or wide kernel's (dw its
+    padded head width: q, k, v by ``_wide_read``) arguments from (q, k, v, o,
+    mask, qscale) problems of operand specs (``operand``), in one pass: the
+    int64 array (``ATTEND_ARGS`` a problem), the two q scales, the masks'
+    element size (``_key_masks``), the tensors that must outlive the launch,
+    and the (o, buffer) pairs whose padded buffer the wide kernel writes in
+    o's place (o's rows not 16-byte aligned, or D != dw) to be copied back."""
     masks, mask_bytes = _key_masks([p[4] for p in problems])
     vals, keep, copies = [], [], []
     for (q, k, v, o, _, _), mask in zip(problems, masks):
-        reads = [_wide_read(x, dw) for x in (q, k, v)]
-        out, _, shape, stride = o
-        ptr, st = _ptr(o), _span_strides(shape, stride)
-        if shape[3] != dw or not _tma_ok(ptr, stride[3], st):
-            out = torch.empty((*shape[:3], dw), dtype=out.dtype, device=out.device)
-            ptr, st = out.data_ptr(), _spans(out)
-            copies.append((o, out))
-        reads.append((out, ptr, st))
+        if dw is None:
+            reads = [(x[0], _ptr(x), x[3][:3]) for x in (q, k, v, o)]
+        else:
+            reads = [_wide_read(x, dw) for x in (q, k, v)]
+            out, _, shape, stride = o
+            ptr, st = _ptr(o), _span_strides(shape, stride)
+            if shape[3] != dw or not _tma_ok(ptr, stride[3], st):
+                out = torch.empty((*shape[:3], dw), dtype=out.dtype, device=out.device)
+                ptr, st = out.data_ptr(), _spans(out)
+                copies.append((o, out))
+            reads.append((out, ptr, st))
         keep += [r[0] for r in reads] + [mask]
         vals += [r[1] for r in reads] + [0 if mask is None else mask.data_ptr()]
         for r in reads:
@@ -451,7 +433,7 @@ def wide_attention(problems, head_dim: int, mult_mask: bool) -> None:
     entry refuses the pointers and strides it cannot read. Counts its
     launches in ``.launches``."""
     dw = _round8(head_dim)
-    args, (qs0, qs1), mask_bytes, keep, copies = wide_args(problems, dw)
+    args, (qs0, qs1), mask_bytes, keep, copies = attend_args(problems, dw)
     sw, n = wide_plan(dw)
     _native.check(
         _native.lib().btia_attn_wide(args, len(problems), qs0, qs1, dw, sw, n, mask_bytes, int(mult_mask),
@@ -488,8 +470,6 @@ def _attend_bshd(route, q, k, v, mask, num_heads, qscale, mult_mask, what):
     return out
 
 
-# The H100's SMs: the persistent kernels' grids count blocks against them.
-H100_SMS = 132
 # Q rows of one work item of K3/K5's persistent kernel (csrc/flash_bshd.cu,
 # head widths padded to 64 or 128), and of one block of its first design
 # (DP 192: 128, DP 256: 64).

@@ -15,13 +15,13 @@ in:
 
 Routing is by device: a CUDA tensor launches the hand-written kernel chain
 (counted in the entry's ``.launches``) or raises; a CPU tensor takes the plain
-PyTorch twin. The chain is K7's LN prologue, the projection GEMM of
-``csrc/fused_attn.cu``, the attention core on the short-sequence kernel of
+PyTorch twin. The chain is K7's LN prologue, the projection GEMM
+(``ops/gemm.py::gemm_bias``), the attention core on the short-sequence kernel of
 ``csrc/short_flash.cuh`` (K4's, entry ``btia_attn_core``; the work items
 planned by ``attention.short_plan``), the output GEMM and K7's post-LN. The
 GEMMs' weights (the scaled q projection, ``[wk|wv]``, wo, the f32 biases and
 K2's projected query table) are prepared once per weight version
-(``prepare_once``), not once a call. The gate is the reference's
+(``gemm.prepare_once``), not once a call. The gate is the reference's
 (``_fuses``, ``fused_attn.py:1027-1035`` with one device): the switch on
 the kernels, a batch of at least ``FANOUT_MIN_BATCH`` (64), a shape the core
 admits (``core_admits``: Sq*Sk <= 32768 and D % 64 == 0), and q/kv input,
@@ -71,17 +71,16 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-import functools
-import weakref
 from typing import Optional, Tuple
 
 import torch
 
 from btia_tpu_torch.ops import _native
 from btia_tpu_torch.ops.attention import (
-    FANOUT_MIN_BATCH, H100_SMS, LOG2E, SMALL_SCORE_TILE, TILE_HEAD_WIDTHS, _resolved_impl, _route_or_raise,
+    FANOUT_MIN_BATCH, LOG2E, SMALL_SCORE_TILE, TILE_HEAD_WIDTHS, _key_masks, _resolved_impl, _route_or_raise,
     attend, attend_log2, mha_bshd, short_plan,
 )
+from btia_tpu_torch.ops.gemm import gemm_bias, prepare_once
 from btia_tpu_torch.ops.norms import _layernorm_cuda, _ln_exact, layernorm
 from btia_tpu_torch.parallel.collectives import copy_to_model, reduce_from_model
 from btia_tpu_torch.parallel.mesh import MODEL_AXIS, axis_size, use_mesh
@@ -200,47 +199,6 @@ def _fused_dense_plain(x_q, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
     return out
 
 
-_PREPARED: dict = {}
-
-
-def prepare_once(sources, tag, make):
-    """``make()``, a tuple of tensors computed from `sources` (tensors), once
-    per version of the sources: kept under their identity and `tag`, and
-    made again when any source is updated in place (an optimizer step,
-    ``load_state_dict``: ``_version`` moves) or gets other storage
-    (``data_ptr``). An entry goes when a source is freed. The tensors are
-    made outside autograd and inference mode, so the cached ones are
-    ordinary tensors wherever they are used. Sources that are inference
-    tensors keep no version counter and are prepared on every call.
-    ``prepare_once.builds`` counts the preparations."""
-    if any(t.is_inference() for t in sources):
-        return make()
-    key = (tag, *map(id, sources))
-    stamp = tuple((t._version, t.data_ptr()) for t in sources)
-    hit = _PREPARED.get(key)
-    if hit is not None and hit[1] == stamp and all(r() is t for r, t in zip(hit[0], sources)):
-        return tuple(sources[x] if isinstance(x, int) else x for x in hit[2])
-    # inference_mode(False) turns grad mode on: no_grad goes inside it.
-    with torch.inference_mode(False), torch.no_grad():
-        out = make()
-    prepare_once.builds += 1
-    # A result that is a source itself (a cast to the dtype it has) is kept
-    # by its index, so that the entry holds no source alive.
-    held = tuple(next((i for i, t in enumerate(sources) if o is t), o) for o in out)
-    drop = lambda _ref, key=key, cache=_PREPARED: cache.pop(key, None)
-    _PREPARED[key] = ([weakref.ref(t, drop) for t in sources], stamp, held)
-    return out
-
-
-prepare_once.builds = 0
-
-
-def prepared_bytes() -> int:
-    """Device and host bytes held by ``prepare_once``'s entries."""
-    return sum(t.numel() * t.element_size() for _, _, held in _PREPARED.values()
-               for t in held if isinstance(t, torch.Tensor))
-
-
 def _dense_weights(wq, bq, wk, bk, wv, bv, wo, bo, num_heads, cd):
     """K1's GEMM operands (``prepare_once``): wq*c in cd and bq*c in f32
     (c = scale*log2(e)), [wk|wv] in cd and [bk|bv] in f32, wo in cd and bo
@@ -264,125 +222,6 @@ def _static_q_weights(queries, wq, bq, wk, bk, wv, bv, wo, bo, num_heads, cd):
                 wo.to(cd).contiguous(), bo.float().contiguous(), queries.to(cd).contiguous())
 
     return prepare_once((queries, wq, bq, wk, bk, wv, bv, wo, bo), ("static_q", num_heads, cd), make)
-
-
-# The f32 GEMM's block tiles (rows, columns), largest first: the C entry's
-# tile argument is the index.
-GEMM_F32_TILES = ((128, 128), (128, 64), (64, 64))
-
-
-def gemm_f32_tile(M: int, N: int) -> int:
-    """The f32 GEMM's block tile, an index into ``GEMM_F32_TILES``: the
-    largest whose grid gives each of the H100's SMs two blocks, else the
-    smallest. At ``vqa_rad_lstm``'s 3136 x 512 -> 512 the 128 x 128 grid has
-    100 blocks for 132 SMs and 128 x 64 has 200, so 64 x 64 (392)."""
-    for i, (bm, bn) in enumerate(GEMM_F32_TILES):
-        if -(-M // bm) * -(-N // bn) >= 2 * H100_SMS:
-            return i
-    return len(GEMM_F32_TILES) - 1
-
-
-def gemm_f32(a2, w, b, resid=None, resid_rows=0):
-    """a2 @ w + b (+ resid rows, repeating every resid_rows) in f32 on the
-    CUDA cores (``csrc/gemm_f32.cu``): the projection GEMM of the fp32
-    policy, every product an f32 FFMA. The block tile is
-    ``gemm_f32_tile``'s; W's loads and the epilogue take 16-byte vectors
-    where N % 4 == 0 and the pointers are 16-byte aligned. Counts its
-    launches in ``.launches``."""
-    M, K = a2.shape
-    N = w.shape[1]
-    a2, w, b = a2.contiguous(), w.contiguous(), b.float().contiguous()
-    _native.require(a2, "f32 GEMM input", torch.float32)
-    _native.require(w, "f32 GEMM weight", torch.float32)
-    if resid is not None:
-        resid = resid.contiguous()
-        _native.require(resid, "f32 GEMM residual", torch.float32)
-    out = torch.empty((M, N), dtype=torch.float32, device=a2.device)
-    vec = N % 4 == 0 and all(t is None or t.data_ptr() % 16 == 0 for t in (w, b, resid, out))
-    _native.check(
-        _native.lib().btia_gemm_f32(
-            a2.data_ptr(), w.data_ptr(), b.data_ptr(), None if resid is None else resid.data_ptr(),
-            max(resid_rows, 1), out.data_ptr(), M, N, K, gemm_f32_tile(M, N), int(vec), _native.stream(a2),
-        ),
-        "btia_gemm_f32",
-    )
-    gemm_f32.launches += 1
-    return out
-
-
-gemm_f32.launches = 0
-
-
-# The bf16 projection GEMM's output tiles (rows, columns): the C entry's
-# tile argument is the index.
-GEMM_TILES = ((128, 256), (128, 128))
-# What a 128 x 256 tile costs against two 128 x 128 tiles (one A read a
-# column of tiles fewer, wgmma at N = 256): the tile choice's weight.
-GEMM_WIDE_TILE_COST = 0.9
-
-
-@functools.lru_cache(maxsize=256)
-def gemm_plan(M: int, N: int) -> tuple:
-    """(tile, grid) of the bf16 projection GEMM (``gemm_bias_ws_kernel``):
-    the tile an index into ``GEMM_TILES``, the grid one persistent block an
-    H100 SM up to one a tile; block i takes tiles i, i + grid, ... (N tiles
-    fastest). 128 x 256 where N is a multiple of 256 and the rounds of
-    tiles a block walks, weighted by ``GEMM_WIDE_TILE_COST``, cost no more
-    than 128 x 128's: at every serve site (text 65,536 rows: 12 rounds
-    against 24); 128 x 128 where the wide tile would leave SMs idle, as at
-    the train sites (12,608 rows: 3 rounds of 297 wide tiles against 5 of
-    594). The same at the serve step's Mlp products (``Dense``'s, with the
-    GELU in the epilogue at fc1): the wide tile everywhere but ViT-L's fc2
-    (9,232 rows to 1,024 columns), where both tiles take the same time."""
-    def tiles(i):
-        bm, bn = GEMM_TILES[i]
-        return -(-M // bm) * -(-N // bn)
-
-    rounds = lambda i: -(-tiles(i) // H100_SMS)
-    tile = 0 if N % 256 == 0 and 2 * GEMM_WIDE_TILE_COST * rounds(0) <= rounds(1) else 1
-    return tile, min(tiles(tile), H100_SMS)
-
-
-# The activations the epilogues of the bf16 projection GEMM and of K8
-# (ops/quant.py) apply after the bias: the C entries' act argument is the
-# index.
-ACTS = (None, "gelu_tanh")
-
-
-def _gemm_cuda(a2, w, b, resid=None, resid_rows=0, act=None):
-    """bf16(act(a2 @ w + b)) (+ resid rows, repeating every resid_rows), on
-    the projection GEMM (``gemm_bias_ws_kernel``, tile and grid by
-    ``gemm_plan``): TMA reads a2 (M, K) and w (K, N) as they lie and stores
-    the output, at 16-byte aligned addresses; act (``ACTS``: None or
-    ``"gelu_tanh"``, Dense's under an Mlp's fc1) is taken in f32 before the
-    one bf16 rounding, and never with a residual. f32 operands take
-    ``gemm_f32``, which has no activation."""
-    if act not in ACTS or (act is not None and (resid is not None or a2.dtype == torch.float32)):
-        raise ValueError(f"bias GEMM kernel takes act in {ACTS} on bf16 operands without a residual, "
-                         f"got {act!r} on {a2.dtype}{' with a residual' if resid is not None else ''}")
-    if a2.dtype == torch.float32:
-        return gemm_f32(a2, w, b, resid, resid_rows)
-    M, K = a2.shape
-    N = w.shape[1]
-    if K % 8 or N % 8:
-        raise ValueError(f"bias GEMM kernel takes K, N multiples of 8, got {K}, {N}")
-    a2 = _native.aligned(a2)
-    w = _native.aligned(w.to(a2.dtype))
-    b = b.float().contiguous()
-    out = torch.empty((M, N), dtype=a2.dtype, device=a2.device)
-    _native.require(a2, "bias GEMM input")
-    if resid is not None:
-        resid = _native.aligned(resid)
-        _native.require(resid, "bias GEMM residual")
-    _native.check(
-        _native.lib().btia_gemm_bias(
-            a2.data_ptr(), w.data_ptr(), b.data_ptr(),
-            None if resid is None else resid.data_ptr(), max(resid_rows, 1),
-            out.data_ptr(), M, N, K, ACTS.index(act), *gemm_plan(M, N), _native.stream(a2),
-        ),
-        "btia_gemm_bias",
-    )
-    return out
 
 
 def core_operands(Sq: int, Sk: int, HD: int, num_heads: int) -> dict:
@@ -422,12 +261,7 @@ def _core_launcher(q, kv, kv_mask, B, Sq, Sk, num_heads, q_shared=False):
     # the [k|v] rows, is aligned only for HD % 8 == 0.
     if HD % 8 or q.data_ptr() % 16 or kv.data_ptr() % 16:
         raise ValueError(f"attention core: q and [k|v] must be 16-byte aligned with HD % 8 == 0, got HD = {HD}")
-    if kv_mask is None:
-        mask, mask_bytes = None, 4
-    elif kv_mask.dtype == torch.bool:
-        mask, mask_bytes = kv_mask.contiguous(), 1
-    else:
-        mask, mask_bytes = kv_mask.to(torch.float32).contiguous(), 4
+    (mask,), mask_bytes = _key_masks([kv_mask])
     if mask is not None and mask.shape != (B, Sk):
         raise ValueError(f"attention core: key mask {tuple(mask.shape)}, expected {(B, Sk)}")
     out = torch.empty((B * Sq, HD), dtype=q.dtype, device=q.device)
@@ -496,10 +330,10 @@ def _fused_dense_cuda(x_q, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
     # The LN prologue and post-LN are K7's kernel, launched as part of K1.
     xq_in = _layernorm_cuda(xq2, *q_ln) if q_ln else xq2
     xkv_in = _layernorm_cuda(xkv2, *kv_ln) if kv_ln else xkv2
-    q = _gemm_cuda(xq_in, wq_c, bq_c)
-    kv = _gemm_cuda(xkv_in, wkv, bkv)
+    q = gemm_bias(xq_in, wq_c, bq_c)
+    kv = gemm_bias(xkv_in, wkv, bkv)
     attn = _core_cuda(q, kv, kv_mask, B, Sq, Sk, num_heads)
-    out = _gemm_cuda(attn, wo_c, bo_c, resid=xq2 if residual else None, resid_rows=B * Sq)
+    out = gemm_bias(attn, wo_c, bo_c, resid=xq2 if residual else None, resid_rows=B * Sq)
     if post_ln:
         _layernorm_cuda(out, *post_ln, out=out)
     return out.view(B, Sq, wo.shape[1])
@@ -692,10 +526,10 @@ def _static_q_cuda(queries, x_kv, kv_mask, wq, bq, wk, bk, wv, bv, wo, bo,
     q2, wkv, bkv, wo_c, bo_c, qraw = _static_q_weights(queries, wq, bq, wk, bk, wv, bv, wo, bo, num_heads, cd)
     xkv2 = x_kv.view(B * Sk, Din)
     xkv_in = _layernorm_cuda(xkv2, *kv_ln) if kv_ln else xkv2
-    kv = _gemm_cuda(xkv_in, wkv, bkv)
+    kv = gemm_bias(xkv_in, wkv, bkv)
     # One query table for every batch row: never expanded over the batch.
     attn = _core_cuda(q2, kv, kv_mask, B, K, Sk, num_heads, q_shared=True)
-    out = _gemm_cuda(attn, wo_c, bo_c, resid=qraw if residual else None, resid_rows=K)
+    out = gemm_bias(attn, wo_c, bo_c, resid=qraw if residual else None, resid_rows=K)
     return out.view(B, K, wo.shape[1])
 
 

@@ -35,9 +35,9 @@ import torch
 import torch.nn.functional as F
 
 from btia_tpu_torch.ops import _native
+from btia_tpu_torch.ops._native import H100_SMS
 
 BLOCK = 128  # the kernel's tile rows: every group starts at a multiple
-H100_SMS = 132
 ACTS = ("swiglu", None)  # the C entry's mode: 0 SwiGLU over [gate | up], 1 the rows scaled
 
 

@@ -27,22 +27,12 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from btia_tpu_torch.ops import _native
-from btia_tpu_torch.ops.attention import H100_SMS
-from btia_tpu_torch.ops.fused_attn import ACTS, prepare_once
+from btia_tpu_torch.ops._native import H100_SMS
+from btia_tpu_torch.ops.gemm import ACTS, apply_act, prepare_once
 from btia_tpu_torch.parallel.collectives import all_reduce_, all_reduce_max_
 from btia_tpu_torch.parallel.mesh import MODEL_AXIS, axis_size
-
-
-def apply_act(y: torch.Tensor, act: Optional[str]) -> torch.Tensor:
-    """The activation named `act` (None or ``"gelu_tanh"``), in y's dtype."""
-    if act is None:
-        return y
-    if act == "gelu_tanh":
-        return F.gelu(y, approximate="tanh")
-    raise ValueError(f"act must be one of {ACTS}, got {act!r}")
 
 
 def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

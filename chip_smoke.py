@@ -957,7 +957,7 @@ def bf16_steps(torch, x):
 
 
 def check_gemm(torch, dev):
-    """Phase 2, the projection GEMM of K1/K2 (``_gemm_cuda``) alone at each
+    """Phase 2, the projection GEMM of K1/K2 (``gemm_bias``) alone at each
     serve and train shape (GEMM_SITES, GEMM_TRAIN_SITES), against
     ``_proj_plain`` on the same inputs:
     each element within one bf16 step at its magnitude (the sums are taken
@@ -967,6 +967,7 @@ def check_gemm(torch, dev):
     Timed beside ``torch.addmm`` (the same function in one PyTorch call, the
     yardstick only) and the bound."""
     from btia_tpu_torch.ops import fused_attn as FA
+    from btia_tpu_torch.ops import gemm as G
 
     g = torch.Generator(device=dev).manual_seed(5)
     bf = torch.bfloat16
@@ -976,7 +977,7 @@ def check_gemm(torch, dev):
         w = (torch.randn(K, N, generator=g, device=dev) * K**-0.5).to(bf)
         b = torch.randn(N, generator=g, device=dev) * 0.02
         r = torch.randn(rr, N, generator=g, device=dev).to(bf) if rr else None
-        kernel = lambda: FA._gemm_cuda(a, w, b, r, rr)
+        kernel = lambda: G.gemm_bias(a, w, b, r, rr)
         out = kernel()
         torch.cuda.synchronize()
         y0 = FA._proj_plain(a, w, b, bf)
@@ -1018,7 +1019,7 @@ def check_gemm(torch, dev):
 
 
 def check_mlp_gemm(torch, dev):
-    """Phase 2, the projection GEMM with Dense's epilogue (``_gemm_cuda``
+    """Phase 2, the projection GEMM with Dense's epilogue (``gemm_bias``
     with the f32 bias, and at fc1 the tanh-GELU, in its epilogue) at the
     bf16 serve step's Mlp products (MLP_SITES), against an f32 reference of
     the same function on the same bf16 operands: each element within one
@@ -1030,7 +1031,7 @@ def check_mlp_gemm(torch, dev):
     and the bound."""
     import torch.nn.functional as F
 
-    from btia_tpu_torch.ops import fused_attn as FA
+    from btia_tpu_torch.ops import gemm as G
 
     g = torch.Generator(device=dev).manual_seed(6)
     bf = torch.bfloat16
@@ -1040,7 +1041,7 @@ def check_mlp_gemm(torch, dev):
         w32 = torch.randn(K, N, generator=g, device=dev) * K**-0.5
         b = torch.randn(N, generator=g, device=dev) * 0.02
         w, b_bf = w32.to(bf), b.to(bf)
-        kernel = lambda: FA._gemm_cuda(a, w, b, act=act)
+        kernel = lambda: G.gemm_bias(a, w, b, act=act)
         gelu = (lambda y: F.gelu(y, approximate="tanh")) if act else (lambda y: y)
         out = kernel().float()
         ref = gelu(a.float() @ w.float() + b)
@@ -1049,7 +1050,7 @@ def check_mlp_gemm(torch, dev):
         diff = (out - ref).abs()
         bad = int((diff > bf16_steps(torch, ref) + 1e-6 * max(1.0, K / 768) * ref.abs().max()).sum())
         row = {
-            "shape": [M, K, N], "act": act, "launches_per_step": per_step, "tile": FA.gemm_plan(M, N),
+            "shape": [M, K, N], "act": act, "launches_per_step": per_step, "tile": G.gemm_plan(M, N),
             "max_abs_err": diff.max().item(), "elements_off": bad,
             "ms": cuda_time_ms(kernel, 20),
             "library_ms": cuda_time_ms(lambda: torch.addmm(b_bf, a, w), 20),
@@ -1334,6 +1335,7 @@ def check_persistent_edges(torch, dev):
     not main-path launches."""
     from btia_tpu_torch.ops import attention as A
     from btia_tpu_torch.ops import fused_attn as FA
+    from btia_tpu_torch.ops import gemm as G
 
     g = torch.Generator(device=dev).manual_seed(7)
     bf = torch.bfloat16
@@ -1370,14 +1372,14 @@ def check_persistent_edges(torch, dev):
         w = (torch.randn(K, N, generator=g, device=dev) * K**-0.5).to(bf)
         b = torch.randn(N, generator=g, device=dev) * 0.02
         r = randn(rr, N) if rr else None
-        got = FA._gemm_cuda(a, w, b, r, rr)
+        got = G.gemm_bias(a, w, b, r, rr)
         y0 = FA._proj_plain(a, w, b, bf)
         ref = y0 if r is None else (y0.float() + r.float().repeat(-(-M // rr), 1)[:M]).to(bf)
         diff = (got.float() - ref.float()).abs()
         tol = bf16_steps(torch, ref) + (0 if r is None else bf16_steps(torch, y0)) + 1e-6 * ref.float().abs().max()
         bad = int((diff > tol).sum())
-        tile, grid = FA.gemm_plan(M, N)
-        bm, bn = FA.GEMM_TILES[tile]
+        tile, grid = G.gemm_plan(M, N)
+        bm, bn = G.GEMM_TILES[tile]
         out["gemm"][name] = {"shape": [M, K, N], "resid_rows": rr, "tile": [bm, bn], "grid": grid,
                              "tiles": -(-M // bm) * -(-N // bn), "max_abs_err": diff.max().item(),
                              "elements_off": bad}
@@ -2672,7 +2674,7 @@ def int8_serve_phase(torch, dev, smi, bf16_model, host_imgs, host_qids, counters
 
     from btia_tpu_torch.configs import get_config
     from btia_tpu_torch.models.model import build_model
-    from btia_tpu_torch.ops import fused_attn as FA
+    from btia_tpu_torch.ops import gemm as G
     from btia_tpu_torch.ops.answers import argmax_real
 
     cfg = get_config("streaming_vitl", **{"model.int8_ffn": True})
@@ -2694,7 +2696,7 @@ def int8_serve_phase(torch, dev, smi, bf16_model, host_imgs, host_qids, counters
     check_layernorm_road(torch, step, "int8 serve step")
     # The first step prepared every weight (K8's 90 int8 weights among them);
     # the timed steps prepare nothing again.
-    builds = FA.prepare_once.builds
+    builds = G.prepare_once.builds
     step(1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2703,7 +2705,7 @@ def int8_serve_phase(torch, dev, smi, bf16_model, host_imgs, host_qids, counters
         step(i)
     torch.cuda.synchronize()
     step_ms = 1e3 * (time.perf_counter() - t0) / TIMED_STEPS
-    rebuilt = FA.prepare_once.builds - builds
+    rebuilt = G.prepare_once.builds - builds
     if rebuilt:
         raise AssertionError(f"int8 serve steps after the first prepared {rebuilt} weight sets again")
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -2866,9 +2868,9 @@ def streaming_phase(torch, dev, smi, model, cfg):
 def new_counters():
     """The f32 and wide-head kernels' launch counters (NEW_KERNELS)."""
     from btia_tpu_torch.ops import attention as A
-    from btia_tpu_torch.ops import fused_attn as FA
+    from btia_tpu_torch.ops import gemm as G
 
-    return (A.simt_attention, FA.gemm_f32, A.wide_attention)
+    return (A.simt_attention, G.gemm_f32, A.wide_attention)
 
 
 def _simt_case(torch, dev, name, entry, dims, dt, g):
@@ -2950,14 +2952,14 @@ def _simt_row(torch, name, kernel, plain, library, flops, nbytes_, dt, iters=5):
 
 def _wide_capture(torch, kernel):
     """Run kernel() (an entry's CUDA half on the wide route) once, recording
-    what its launcher packed (``ops/attention.py::wide_args``, with the
+    what its launcher packed (``ops/attention.py::attend_args``, with the
     tensors the pointers name) and the C call it made. Returns (the C call
     alone, a function that repacks the same problems, the stream lookup on
     the call's first operand, the problems)."""
     from btia_tpu_torch.ops import _native
     from btia_tpu_torch.ops import attention as A
 
-    rec, real_args, real_lib_fn = {}, A.wide_args, _native.lib
+    rec, real_args, real_lib_fn = {}, A.attend_args, _native.lib
     real_lib = real_lib_fn()
 
     def spy_args(problems, dw):
@@ -2973,11 +2975,11 @@ def _wide_capture(torch, kernel):
             rec["call"] = a
             return real_lib.btia_attn_wide(*a)
 
-    A.wide_args, _native.lib = spy_args, (lambda: SpyLib())
+    A.attend_args, _native.lib = spy_args, (lambda: SpyLib())
     try:
         rec["out"] = kernel()
     finally:
-        A.wide_args, _native.lib = real_args, real_lib_fn
+        A.attend_args, _native.lib = real_args, real_lib_fn
     torch.cuda.synchronize()
     t0 = rec["packed"][3][0]
     return (lambda: real_lib.btia_attn_wide(*rec["call"]), lambda: real_args(rec["problems"], rec["dw"]),
@@ -3026,7 +3028,7 @@ def _wide_entry_times(torch, name, entry, kernel, wrapper_ms):
     """The wide kernel's C entry alone on the operands its launcher packed
     (CUDA events), the host's share of the wrapper (wrapper - C entry), and
     the host time a call, line by line (host clock): the whole entry, the
-    packing (``wide_args``), the C call (its tensor maps and launch), the
+    packing (``attend_args``), the C call (its tensor maps and launch), the
     stream lookup, and the rest (the entry's own checks, output and operand
     specs); within the rest, building the call's specs against building
     views of the same operands (``_operand_builders``)."""
@@ -3037,9 +3039,9 @@ def _wide_entry_times(torch, name, entry, kernel, wrapper_ms):
     torch.cuda.synchronize()
     _native.check(code, f"{name}: btia_attn_wide")
     c_ms = cuda_time_ms(c_call, 10)
-    host = {"entry": _host_us(torch, kernel), "wide_args": _host_us(torch, pack),
+    host = {"entry": _host_us(torch, kernel), "attend_args": _host_us(torch, pack),
             "c_call": _host_us(torch, c_call), "stream": _host_us(torch, stream)}
-    host["rest"] = host["entry"] - host["wide_args"] - host["c_call"] - host["stream"]
+    host["rest"] = host["entry"] - host["attend_args"] - host["c_call"] - host["stream"]
     builders = _operand_builders(entry, problems)
     if builders is not None:
         host["views"], host["specs"] = (_host_us(torch, b) for b in builders)
@@ -3109,7 +3111,7 @@ def check_simt(torch, dev):
     import torch.nn.functional as F
 
     from btia_tpu_torch.ops import attention as A
-    from btia_tpu_torch.ops import fused_attn as FA
+    from btia_tpu_torch.ops import gemm as G
 
     g = torch.Generator(device=dev).manual_seed(9)
     attn, wide, gemm = {}, {}, {}
@@ -3136,13 +3138,13 @@ def check_simt(torch, dev):
         w = torch.randn(K, N, generator=g, device=dev) / K**0.5
         b = torch.randn(N, generator=g, device=dev)
         res = torch.randn(rr, N, generator=g, device=dev) if rr else None
-        kernel = lambda: FA.gemm_f32(a, w, b, res, rr)
+        kernel = lambda: G.gemm_f32(a, w, b, res, rr)
         plain = lambda: a @ w + b + (0 if res is None else res)
         wt = w.t().contiguous()
         library = lambda: F.linear(a, wt, b)
         row = _simt_row(torch, f"gemm_f32 {name} {M}x{K}x{N}", kernel, plain, library, 2 * M * N * K,
                         nbytes(a, w, b, res) + M * N * 4, torch.float32, iters=10)
-        gemm[name] = {"M": M, "K": K, "N": N, "residual_rows": rr, "block_tile": FA.GEMM_F32_TILES[FA.gemm_f32_tile(M, N)], **row}
+        gemm[name] = {"M": M, "K": K, "N": N, "residual_rows": rr, "block_tile": G.GEMM_F32_TILES[G.gemm_f32_tile(M, N)], **row}
     return attn, wide, gemm
 
 
@@ -4761,7 +4763,7 @@ def main() -> int:
     from btia_tpu_torch.models.layers import Dense
     from btia_tpu_torch.models.model import build_model
     from btia_tpu_torch.ops import _native
-    from btia_tpu_torch.ops import fused_attn as FA
+    from btia_tpu_torch.ops import gemm as G
 
     dev = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -4863,11 +4865,11 @@ def main() -> int:
     main_counts = counts
     # K1/K2's weights were prepared in the first step; an unchanged model
     # prepares nothing again.
-    builds = FA.prepare_once.builds
+    builds = G.prepare_once.builds
     serve_step(1)
     torch.cuda.synchronize()
-    if FA.prepare_once.builds != builds:
-        raise AssertionError(f"a second serve step prepared {FA.prepare_once.builds - builds} weight sets again")
+    if G.prepare_once.builds != builds:
+        raise AssertionError(f"a second serve step prepared {G.prepare_once.builds - builds} weight sets again")
     map_stats = (ctypes.c_longlong * 2)()
     _native.lib().btia_attn_core_map_stats(map_stats)
     maps_before = list(map_stats)
@@ -4890,8 +4892,8 @@ def main() -> int:
             "pairs_per_s": B_IMG * N_Q / (step_ms / 1e3),
             "ported_kernels_ms_per_step": kernel_ms,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-            "prepared_weight_sets": len(FA._PREPARED), "prepared_weights_mb": FA.prepared_bytes() / 1e6,
-            "weight_sets_prepared_in_timed_steps": FA.prepare_once.builds - builds,
+            "prepared_weight_sets": len(G._PREPARED), "prepared_weights_mb": G.prepared_bytes() / 1e6,
+            "weight_sets_prepared_in_timed_steps": G.prepare_once.builds - builds,
             "core_tensor_maps_in_timed_steps": core_maps,
             "before_k7_ms_per_step": BEFORE_K7_MS["serve"], "card": smi,
         }

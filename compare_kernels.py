@@ -36,10 +36,10 @@ called that way. The f32 attention (``btia_attn_simt``) runs at
 K6's two directions), the wide-head attention (``btia_attn_wide``) at its
 bf16 shapes in turns with SDPA on the same operands (parent, this,
 library, library, this, parent), with the bound: this tree's cluster entry
-on the argument array ``wide_args`` packs, the other checkout's through
-its own signature (a block a slice: pointer, stride and dims arrays and
-the two-value plan; or, where that checkout has no wide entry, its
-``btia_attn_simt`` in its bf16 instance, ``elem`` 1), and the f32 GEMM
+and the other checkout's on the argument array ``attend_args`` packs; each
+checkout's ``btia_attn_simt`` takes the f32 cases in its own argument
+format (the same int64 array, or in an earlier checkout pointer, stride
+and dims arrays); and the f32 GEMM
 (``btia_gemm_f32``) at phase 2c's six sites, each entry called with its
 own checkout's C signature. K8 (``k8``) runs at ``chip_smoke.py``'s
 eight ``INT8_SITES`` and ``INT8_WIDE_K``: each checkout's row quantization
@@ -182,7 +182,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     import chip_smoke as cs
     from btia_tpu_torch.ops.attention import flash_plan
-    from btia_tpu_torch.ops.fused_attn import GEMM_TILES, gemm_plan
+    from btia_tpu_torch.ops.gemm import GEMM_TILES, gemm_plan
 
     libs = {"parent": load_native(Path(sys.argv[1]).resolve(), "parent_native").lib(),
             "this": load_native(REPO, "this_native").lib()}
@@ -493,13 +493,28 @@ def attention_problems(torch, entry, dims, dt, dev, g):
     return (xs, mask), make, D, False, library, (2 * flops, io(*xs, mask, xs[0], xs[3]))
 
 
+def _problem_arrays(packed):
+    """An earlier checkout's ``btia_attn_simt`` arguments, from what
+    ``attend_args`` packed: the pointer, stride, dims and scale arrays, the
+    masks' element size, and the tensors that must outlive the call."""
+    from btia_tpu_torch.ops.attention import ATTEND_ARGS
+
+    args, scales, mask_bytes, keep, _ = packed
+    rows = [args[i:i + ATTEND_ARGS] for i in range(0, len(args), ATTEND_ARGS)]
+    n = len(rows)
+    return ((ctypes.c_void_p * (5 * n))(*(x for r in rows for x in r[:5])),
+            (ctypes.c_longlong * (12 * n))(*(x for r in rows for x in r[5:17])),
+            (ctypes.c_int * (4 * n))(*(x for r in rows for x in r[17:21])),
+            (ctypes.c_float * n)(*scales[:n]), mask_bytes, keep)
+
+
 def compare_f32_and_wide(torch, libs, turns, dev, g, stream, groups):
     """The f32 attention, the wide-head attention and the f32 GEMM, this
     tree against the other checkout, each through its own C signature; the
     wide-head attention also beside SDPA, with the bound."""
     import chip_smoke as cs
-    from btia_tpu_torch.ops.attention import _problem_args, operand, simt_plan, wide_args, wide_plan
-    from btia_tpu_torch.ops.fused_attn import GEMM_F32_TILES, gemm_f32_tile
+    from btia_tpu_torch.ops.attention import attend_args, operand, simt_plan, wide_plan
+    from btia_tpu_torch.ops.gemm import GEMM_F32_TILES, gemm_f32_tile
 
     cases = [(n, e, d, torch.float32) for n, e, d in cs.SIMT_F32_CASES] if "f32" in groups else []
     cases += [(n, e, d, torch.bfloat16) for n, e, d in cs.wide_cases() if d["D"] % 8 == 0] if "wide" in groups else []
@@ -511,22 +526,18 @@ def compare_f32_and_wide(torch, libs, turns, dev, g, stream, groups):
             problems = [(*map(operand, p[:4]), *p[4:]) for p in problems]
             n = len(problems)
             simt = lib.btia_attn_simt
-            if simt.argtypes[8] is ctypes.c_int:  # the earlier signature: one kernel, elem 0 f32 / 1 bf16
-                ptrs, strides, dims_c, scales, mask_bytes, masks = _problem_args(problems)
-                elem = int(dt == torch.bfloat16)
-                return (lambda: simt(ptrs, strides, dims_c, scales, n, D, mask_bytes, int(mult), elem, stream)), outs
             if dt == torch.float32:
-                ptrs, strides, dims_c, scales, mask_bytes, masks = _problem_args(problems)
                 plan = (ctypes.c_int * 3)(*simt_plan(problems, D))
-                return (lambda: simt(ptrs, strides, dims_c, scales, n, D, mask_bytes, int(mult), plan, stream)), outs
-            if lib.btia_attn_wide.argtypes[2] is not ctypes.c_float:  # the earlier signature: a block a slice
-                ptrs, strides, dims_c, scales, mask_bytes, masks = _problem_args(problems)
-                plan = (ctypes.c_int * 2)(*wide_plan(D))
-                return (lambda: lib.btia_attn_wide(ptrs, strides, dims_c, scales, n, D, mask_bytes, int(mult), plan,
-                                                   stream)), outs
-            args, (qs0, qs1), mask_bytes, kept, _ = wide_args(problems, D)
+                packed = attend_args(problems)
+                if simt.argtypes[0] is not ctypes.POINTER(ctypes.c_longlong):  # pointer, stride and dims arrays
+                    arrays = _problem_arrays(packed)
+                    return (lambda: simt(*arrays[:4], n, D, arrays[4], int(mult), plan, stream)), outs
+                args, (qs0, qs1), mask_bytes, kept, _ = packed
+                return (lambda kept=kept: simt(args, n, qs0, qs1, D, mask_bytes, int(mult), plan, stream)), outs
+            args, (qs0, qs1), mask_bytes, kept, _ = attend_args(problems, D)
             sw, ns = wide_plan(D)
-            return (lambda: lib.btia_attn_wide(args, n, qs0, qs1, D, sw, ns, mask_bytes, int(mult), stream)), outs
+            return (lambda kept=kept: lib.btia_attn_wide(args, n, qs0, qs1, D, sw, ns, mask_bytes, int(mult),
+                                                         stream)), outs
 
         b_, sq, sk, h = (dims[k] for k in ("B", "Sq", "Sk", "H"))
         what = f"{'f32' if dt == torch.float32 else 'wide bf16'} {name}: {b_} x {h} heads of {D}, {sq} <- {sk}"
@@ -651,6 +662,7 @@ def compare_k8(torch, libs, time_ms, dev, g, stream):
     launches a step."""
     import chip_smoke as cs
     from btia_tpu_torch.ops import quant as Q
+    from btia_tpu_torch.ops.gemm import ACTS
 
     bf = torch.bfloat16
     names = ("parent", "this", "parent_gemm", "this_gemm", "this_road", "int_mm", "addmm")
@@ -664,7 +676,7 @@ def compare_k8(torch, libs, time_ms, dev, g, stream):
         w_nk = w_i8.t().contiguous()
         xi, sx = Q._quantize_rows_plain(x)
         x_amax = Q._row_amax_plain(x)
-        act_i = Q.ACTS.index(act)
+        act_i = ACTS.index(act)
         _, grid = Q.int8_plan(M, N)
 
         def entry(lib, mode):
@@ -788,8 +800,8 @@ def compare_mlp(torch, libs, time_ms, dev, g, stream):
     import torch.nn.functional as F
 
     import chip_smoke as cs
-    from btia_tpu_torch.ops.attention import H100_SMS
-    from btia_tpu_torch.ops.fused_attn import GEMM_TILES, gemm_plan
+    from btia_tpu_torch.ops._native import H100_SMS
+    from btia_tpu_torch.ops.gemm import GEMM_TILES, gemm_plan
 
     bf = torch.bfloat16
     names = ("parent", "this", "addmm", "addmm_gelu", "chain")

@@ -28,6 +28,7 @@ import torch
 
 from btia_tpu_torch.ops import attention as A
 from btia_tpu_torch.ops import fused_attn as FA
+from btia_tpu_torch.ops import gemm as G
 
 LOG2E = A.LOG2E
 
@@ -139,7 +140,7 @@ def _site_params(seed, din=128, hd=128):
 
 def _dense_formula(wq, bq, wk, bk, wv, bv, wo, bo, num_heads, cd):
     """The per-call preparation K1's chain made before it was cached: the
-    GEMM operands as ``_gemm_cuda`` received and cast them."""
+    GEMM operands as ``gemm_bias`` received and cast them."""
     c = (1.0 / (wq.shape[1] // num_heads) ** 0.5) * LOG2E
     return ((wq.float() * c).to(cd), bq.float() * c, torch.cat([wk, wv], dim=1).to(cd),
             torch.cat([bk, bv]).float(), wo.to(cd), bo.float())
@@ -180,18 +181,18 @@ def test_dense_weights_prepared_once_per_version(num_heads):
     carries autograd history, even when made inside inference mode."""
     w = _site_params(seed=num_heads)
     cd = torch.bfloat16
-    builds = FA.prepare_once.builds
+    builds = G.prepare_once.builds
     with torch.inference_mode():
         first = FA._dense_weights(*w, num_heads, cd)
-    assert FA.prepare_once.builds == builds + 1
+    assert G.prepare_once.builds == builds + 1
     with torch.no_grad():
         _bitwise_equal(first, _dense_formula(*w, num_heads, cd))
     assert not any(t.is_inference() or t.grad_fn is not None for t in first)
     again = FA._dense_weights(*w, num_heads, cd)
-    assert all(a is b for a, b in zip(again, first)) and FA.prepare_once.builds == builds + 1
+    assert all(a is b for a, b in zip(again, first)) and G.prepare_once.builds == builds + 1
     _adamw_step(w)
     after = FA._dense_weights(*w, num_heads, cd)
-    assert FA.prepare_once.builds == builds + 2
+    assert G.prepare_once.builds == builds + 2
     with torch.no_grad():
         _bitwise_equal(after, _dense_formula(*w, num_heads, cd))
     assert not torch.equal(after[0], first[0]) and not torch.equal(after[2], first[2])
@@ -228,9 +229,9 @@ def test_prepared_weights_follow_load_state_dict_and_free_with_their_model():
     with torch.no_grad():
         _bitwise_equal(loaded, _dense_formula(*w, 1, cd))
     assert not torch.equal(loaded[0], first[0])
-    held = len(FA._PREPARED)
+    held = len(G._PREPARED)
     del lin, w, first, loaded
-    assert len(FA._PREPARED) == held - 1
+    assert len(G._PREPARED) == held - 1
 
 
 def test_a_source_prepared_as_itself_is_not_held_alive():
@@ -238,9 +239,9 @@ def test_a_source_prepared_as_itself_is_not_held_alive():
     the entry keeps it by index, so freeing the parameter still frees the
     entry."""
     p = torch.nn.Parameter(torch.ones(4, 8, dtype=torch.bfloat16))
-    out = FA.prepare_once((p,), ("cast", torch.bfloat16), lambda: (p.to(torch.bfloat16),))
+    out = G.prepare_once((p,), ("cast", torch.bfloat16), lambda: (p.to(torch.bfloat16),))
     assert out[0] is p
-    assert FA.prepare_once((p,), ("cast", torch.bfloat16), lambda: (p.to(torch.bfloat16),))[0] is p
-    held = len(FA._PREPARED)
+    assert G.prepare_once((p,), ("cast", torch.bfloat16), lambda: (p.to(torch.bfloat16),))[0] is p
+    held = len(G._PREPARED)
     del p, out
-    assert len(FA._PREPARED) == held - 1
+    assert len(G._PREPARED) == held - 1

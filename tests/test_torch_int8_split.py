@@ -113,7 +113,7 @@ def test_weight_is_prepared_once_per_version():
     """A second call prepares nothing and returns the same tensors; an
     in-place update of the kernel (an optimizer step, ``load_state_dict``)
     prepares it again, with the new values."""
-    from btia_tpu_torch.ops.fused_attn import prepare_once
+    from btia_tpu_torch.ops.gemm import prepare_once
 
     w = _kernel(64, 32, 1)
     builds = prepare_once.builds

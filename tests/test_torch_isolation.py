@@ -139,15 +139,16 @@ def test_bench_raises_without_a_gpu():
 
 _OPS_MODULES = (
     "btia_tpu_torch.ops.bicross", "btia_tpu_torch.ops.norms", "btia_tpu_torch.ops.attention",
-    "btia_tpu_torch.ops",
+    "btia_tpu_torch.ops", "btia_tpu_torch.ops.gemm",
 )
 
 
 @pytest.mark.parametrize("module", _OPS_MODULES)
 def test_ops_api_modules_import_alone(module):
-    """The ops API (K5's, K6's and K7's modules, and the package that exports
-    the reference's names), imported by itself, pulls in no JAX and no module
-    of the reference package, and builds nothing."""
+    """The ops API (K5's, K6's and K7's modules, the dense GEMMs' module and
+    the package that exports the reference's names), imported by itself,
+    pulls in no JAX and no module of the reference package, and builds
+    nothing."""
     probe = (
         "import importlib, sys\n"
         f"importlib.import_module({module!r})\n"
@@ -158,6 +159,20 @@ def test_ops_api_modules_import_alone(module):
     res = subprocess.run([sys.executable, "-c", probe], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "[] 0"
+
+
+def test_models_import_no_private_name_of_the_ops():
+    """The models reach the kernels through the ops modules' public names
+    only: no file under ``btia_tpu_torch/models/`` imports a ``_``-prefixed
+    name from ``btia_tpu_torch.ops``."""
+    import ast
+
+    private = []
+    for path in sorted((REPO / "btia_tpu_torch" / "models").glob("*.py")):
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.ImportFrom) and (node.module or "").startswith("btia_tpu_torch.ops"):
+                private += [f"{path.name}: {node.module}.{a.name}" for a in node.names if a.name.startswith("_")]
+    assert private == []
 
 
 def test_chip_smoke_imports_no_jax():

@@ -1,7 +1,7 @@
 """The MLA's attention core (``ops/mla.py``) on the CPU: its plain twin,
 through ``models/mla_moe.py::MLA.forward``, bit-equal to the grid code the
 layer ran before it (kept here verbatim as ``grid_forward``), and the layer
-against the plain reference's MLA (``tests/lm_reference.py::mla``) on the
+against the plain reference's MLA (``portbench/reference/lm.py::mla``) on the
 same weights; then the route, which sends CPU tensors, f32 tensors, widths
 past the kernel's and S past its window to the twin.
 
@@ -20,10 +20,10 @@ import math
 import pytest
 import torch
 
-import lm_reference as L
 from btia_tpu_torch.core.dtypes import default_policy
 from btia_tpu_torch.models import mla_moe
 from btia_tpu_torch.ops import mla as A
+from portbench.reference import lm as L
 
 DIM, HEADS, DN, DR, DV, RANK = 64, 4, 16, 8, 16, 16
 

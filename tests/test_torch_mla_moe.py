@@ -1,7 +1,7 @@
 """The ``mla_moe`` question encoder (``models/mla_moe.py``) and its MoE
 layer's routing and grouped GEMM (``ops/moe.py``), on the CPU at a tiny
 size: the whole ``BTIAADNet`` against the plain reference
-(``tests/lm_reference.py``, the LM; ``portbench/reference/model.py``, the
+(``portbench/reference/lm.py``, the LM; ``portbench/reference/model.py``, the
 image side, BTIA and the AD head) on seeded weights, the routing against
 the reference's, the permutation and the grouped GEMM's twin against a
 per-expert loop, the config, ``init_params``, the Predictor's host-side
@@ -21,23 +21,20 @@ hidden states): the median token within 3e-2 (measured 1.2-1.4 %), the
 """
 
 import dataclasses
-import filecmp
-from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-import lm_reference as L
 from btia_tpu_torch import get_config
 from btia_tpu_torch.configs.config import Config
 from btia_tpu_torch.convert.hf import kimi_lm_params_from_hf
 from btia_tpu_torch.models import mla_moe
 from btia_tpu_torch.models.model import BTIAADNet, init_params
 from btia_tpu_torch.ops import moe as M
+from portbench.reference import lm as L
 from portbench.reference import model as R
 
-ROOT = Path(__file__).resolve().parents[1]
 TINY = {"model.image_encoder": "vit_test", "model.hidden_dim": 64, "model.num_heads": 2, "model.btia_layers": 1,
         "model.answer_vocab_size": 32, "model.num_answer_queries": 8, "model.max_question_len": 12,
         "model.lm_layers": 4, "model.lm_hidden": 64, "model.lm_heads": 4, "model.lm_vocab_size": 300,
@@ -261,10 +258,6 @@ def test_reference_weights_load_into_the_program():
     lw = L.LayerWeights(m, 2**31 + 5, "cpu")
     for name, t in W.items():
         assert torch.equal(lw[name], t.float())
-
-
-def test_the_benchmark_holds_a_copy_of_the_reference():
-    assert filecmp.cmp(ROOT / "tests" / "lm_reference.py", ROOT / "portbench" / "reference" / "lm.py", shallow=False)
 
 
 def test_published_checkpoint_names_map_onto_the_port():

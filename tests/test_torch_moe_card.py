@@ -140,8 +140,8 @@ def test_grouped_gemm_time_per_moe_layer(card):
 def test_a_moe_layer_runs_without_synchronising_the_host(card):
     """One MoE layer at the published widths, its forward under
     ``torch.cuda.set_sync_debug_mode("error")``, against the f32 reference
-    of the same layer (``tests/lm_reference.py``)."""
-    import lm_reference as L
+    of the same layer (``portbench/reference/lm.py``)."""
+    from portbench.reference import lm as L
     from btia_tpu_torch.models.mla_moe import LMSpec, MoE
 
     s = LMSpec()

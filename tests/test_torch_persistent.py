@@ -1,7 +1,7 @@
 """The host side of the persistent kernels: K3/K5's attention
 (``csrc/flash_bshd.cu``, planned by ``ops/attention.py::flash_plan``) and
 K1/K2's projection GEMM (``csrc/fused_attn.cu``, planned by
-``ops/fused_attn.py::gemm_plan``), on the CPU.
+``ops/gemm.py::gemm_plan``), on the CPU.
 
 The plans: the GEMM's tile by shape and both grids, and that the static
 schedule the kernels walk (block i takes work items i, i + grid, ...)
@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from btia_tpu_torch.ops import _native
 from btia_tpu_torch.ops import attention as A
 from btia_tpu_torch.ops import fused_attn as FA
+from btia_tpu_torch.ops import gemm as G
 
 BF16 = torch.bfloat16
 INVALID = 1  # cudaErrorInvalidValue
@@ -64,8 +65,8 @@ def _blocks(items, grid):
 def gemm_schedule(M, N):
     """Each block's output tiles as (first row, first column), N tiles
     fastest, as gemm_bias_ws_kernel walks them."""
-    tile, grid = FA.gemm_plan(M, N)
-    bm, bn = FA.GEMM_TILES[tile]
+    tile, grid = G.gemm_plan(M, N)
+    bm, bn = G.GEMM_TILES[tile]
     tiles_n = -(-N // bn)
     return [[(t // tiles_n * bm, t % tiles_n * bn) for t in blk] for blk in _blocks(-(-M // bm) * tiles_n, grid)]
 
@@ -91,8 +92,8 @@ GEMM_TILES = [(65536, 768, (128, 256)), (65536, 1536, (128, 256)), (102400, 768,
 def test_gemm_plan_tile_and_grid(M, N, tile):
     """128 x 256 where N is a multiple of 256 and the wide tiles' rounds,
     weighted, cost no more; the grid one block an SM up to one a tile."""
-    t, grid = FA.gemm_plan(M, N)
-    assert FA.GEMM_TILES[t] == tile
+    t, grid = G.gemm_plan(M, N)
+    assert G.GEMM_TILES[t] == tile
     bm, bn = tile
     assert grid == min(-(-M // bm) * -(-N // bn), SMS)
 
@@ -101,9 +102,9 @@ def test_gemm_plan_tile_and_grid(M, N, tile):
                                  (133 * 128, 256), (263 * 128, 256), (264 * 128, 256), (265 * 128, 256),
                                  (264 * 128, 128), (65536, 1536), (12608, 768)])
 def test_gemm_schedule_covers_every_tile_once(M, N):
-    bm, bn = FA.GEMM_TILES[FA.gemm_plan(M, N)[0]]
+    bm, bn = G.GEMM_TILES[G.gemm_plan(M, N)[0]]
     blocks = gemm_schedule(M, N)
-    assert len(blocks) == FA.gemm_plan(M, N)[1] and all(blocks)
+    assert len(blocks) == G.gemm_plan(M, N)[1] and all(blocks)
     got = sorted(t for blk in blocks for t in blk)
     assert got == [(m, n) for m in range(0, M, bm) for n in range(0, N, bn)]
     # The tiles at work at one time run N fastest.
@@ -214,7 +215,7 @@ class _StandIn:
         if K % 8 or N % 8 or M < 1 or resid_rows < 1 or tile not in (0, 1) or grid < 1 \
                 or act not in (0, 1) or (act and resid) or any(p % 16 for p in (a, w, c, resid or 0)):
             return INVALID
-        bm, bn = FA.GEMM_TILES[tile]
+        bm, bn = G.GEMM_TILES[tile]
         tiles_n = -(-N // bn)
         tiles = -(-M // bm) * tiles_n
         av, wv = _view(a, BF16, (M, K), (K, 1)), _view(w, BF16, (K, N), (N, 1))
@@ -307,13 +308,13 @@ def test_gemm_host_code(M, K, N, rr, stand_in):
     a, w = _rand(rng, M, K), (_rand(rng, K, N).float() * K**-0.5).to(BF16)
     b = torch.from_numpy(rng.randn(N).astype(np.float32)) * 0.02
     r = _rand(rng, rr, N) if rr else None
-    got = FA._gemm_cuda(a, w, b, r, rr)
+    got = G.gemm_bias(a, w, b, r, rr)
     y0 = FA._proj_plain(a, w, b, BF16)
     want = y0 if r is None else (y0.float() + r.float().repeat(-(-M // rr), 1)[:M]).to(BF16)
     step = lambda x: torch.exp2(torch.floor(torch.log2(x.float().abs().clamp_min(1e-30))) - 7)
     tol = step(want) + (0 if r is None else step(y0)) + 1e-6 * want.float().abs().max()
     assert bool(((got.float() - want.float()).abs() <= tol).all())
-    assert stand_in.calls == [("btia_gemm_bias", M, N, K, rr, 0, *FA.gemm_plan(M, N))]
+    assert stand_in.calls == [("btia_gemm_bias", M, N, K, rr, 0, *G.gemm_plan(M, N))]
 
 
 def test_launch_error_raises(stand_in, monkeypatch):
@@ -321,7 +322,7 @@ def test_launch_error_raises(stand_in, monkeypatch):
     monkeypatch.setattr(_StandIn, "btia_gemm_bias", lambda self, *a: INVALID)
     rng = np.random.RandomState(0)
     with pytest.raises(RuntimeError, match=f"btia_gemm_bias: CUDA error {INVALID}"):
-        FA._gemm_cuda(_rand(rng, 4, 8), _rand(rng, 8, 8), torch.zeros(8))
+        G.gemm_bias(_rand(rng, 4, 8), _rand(rng, 8, 8), torch.zeros(8))
 
 
 def _bf16_step(x):
@@ -337,10 +338,10 @@ def test_gemm_host_code_gelu(M, K, N, stand_in):
     rng = np.random.RandomState(M % 1000 + K + 1)
     a, w = _rand(rng, M, K), (_rand(rng, K, N).float() * K**-0.5).to(BF16)
     b = torch.from_numpy(rng.randn(N).astype(np.float32)) * 0.02
-    got = FA._gemm_cuda(a, w, b, act="gelu_tanh")
+    got = G.gemm_bias(a, w, b, act="gelu_tanh")
     want = F.gelu(a.float() @ w.float() + b, approximate="tanh")
     assert bool(((got.float() - want).abs() <= _bf16_step(want) + 1e-6 * want.abs().max()).all())
-    assert stand_in.calls == [("btia_gemm_bias", M, N, K, 0, 1, *FA.gemm_plan(M, N))]
+    assert stand_in.calls == [("btia_gemm_bias", M, N, K, 0, 1, *G.gemm_plan(M, N))]
 
 
 @pytest.mark.parametrize("act,dtype,resid", [("gelu_tanh", BF16, True), ("gelu_tanh", torch.float32, False),
@@ -352,7 +353,7 @@ def test_gemm_act_refused(act, dtype, resid, stand_in):
     a, w = _rand(rng, 64, 64).to(dtype), _rand(rng, 64, 64).to(dtype)
     r = _rand(rng, 64, 64) if resid else None
     with pytest.raises(ValueError, match="act"):
-        FA._gemm_cuda(a, w, torch.zeros(64), r, 64 if resid else 0, act=act)
+        G.gemm_bias(a, w, torch.zeros(64), r, 64 if resid else 0, act=act)
     assert stand_in.calls == []
 
 
@@ -408,7 +409,7 @@ def test_dense_route(case, stand_in, monkeypatch):
     K, cd = DENSE_ROUTES[case][:2]
     x2 = x.reshape(-1, K)
     if DENSE_ROUTES[case][-1] == "epilogue":
-        assert stand_in.calls == [("btia_gemm_bias", 15, 136, K, 0, 1, *FA.gemm_plan(15, 136))]
+        assert stand_in.calls == [("btia_gemm_bias", 15, 136, K, 0, 1, *G.gemm_plan(15, 136))]
         want = F.gelu(x2.float() @ d.kernel.detach().to(cd).float() + d.bias.detach(), approximate="tanh")
         assert y.dtype == BF16
         assert bool(((y.reshape(15, 136).float() - want).abs() <= _bf16_step(want) + 1e-6).all())
@@ -433,14 +434,14 @@ def test_dense_counters_count_each_route(stand_in, monkeypatch):
     with monkeypatch.context() as m:
         m.setattr(torch.Tensor, "is_cuda", property(lambda self: True), raising=False)
         d, x = _dense(64, 136), torch.randn(4, 64).to(BF16)
-        builds = FA.prepare_once.builds
+        builds = G.prepare_once.builds
         with torch.no_grad():
             d(x), d(x, act="gelu_tanh")
-        assert FA.prepare_once.builds == builds + 1
+        assert G.prepare_once.builds == builds + 1
         with torch.no_grad():
             d.kernel.add_(1.0)  # a new version of the kernel is cast again
             d(x)
-        assert FA.prepare_once.builds == builds + 2
+        assert G.prepare_once.builds == builds + 2
 
 
 @pytest.mark.parametrize("compute_dtype", [BF16, torch.float32])
@@ -489,7 +490,7 @@ MLP_SITES = [(9232, 1024, 4096, "gelu_tanh"), (9232, 4096, 1024, None), (65536, 
 @pytest.mark.chip
 @pytest.mark.parametrize("M,K,N,act", MLP_SITES)
 def test_epilogue_gemm_at_the_mlp_sites(M, K, N, act, card):
-    """``_gemm_cuda`` with the bias (and at fc1 the GELU) in its epilogue
+    """``gemm_bias`` with the bias (and at fc1 the GELU) in its epilogue
     against an f32 reference of the same function on the same bf16
     operands: each element within one bf16 step of the reference, plus a
     floor of 1e-6 of its largest magnitude for every 768 of K (the tensor
@@ -500,7 +501,7 @@ def test_epilogue_gemm_at_the_mlp_sites(M, K, N, act, card):
     a = torch.randn(M, K, generator=g, device=card).to(BF16)
     w = (torch.randn(K, N, generator=g, device=card) * K**-0.5).to(BF16)
     b = torch.randn(N, generator=g, device=card) * 0.02
-    got = FA._gemm_cuda(a, w, b, act=act).float()
+    got = G.gemm_bias(a, w, b, act=act).float()
     want = a.float() @ w.float() + b
     if act:
         want = F.gelu(want, approximate="tanh")
@@ -522,7 +523,7 @@ def test_projection_gemm_without_act_at_k1_k2_sites(M, K, N, rr, card):
     w = (torch.randn(K, N, generator=g, device=card) * K**-0.5).to(BF16)
     b = torch.randn(N, generator=g, device=card) * 0.02
     r = torch.randn(rr, N, generator=g, device=card).to(BF16) if rr else None
-    got = FA._gemm_cuda(a, w, b, r, rr)
+    got = G.gemm_bias(a, w, b, r, rr)
     y0 = FA._proj_plain(a, w, b, BF16)
     want = y0 if r is None else (y0.float() + r.float().repeat(M // rr, 1)).to(BF16)
     tol = _bf16_step(want) + (0 if r is None else _bf16_step(y0)) + 1e-6 * want.float().abs().max()

@@ -35,6 +35,7 @@ from btia_tpu_torch.ops import _native
 from btia_tpu_torch.ops import attention as A
 from btia_tpu_torch.ops import bicross as BX
 from btia_tpu_torch.ops import fused_attn as FA
+from btia_tpu_torch.ops import gemm as G
 from btia_tpu_torch.ops.norms import _ln_exact
 
 F32, BF16 = torch.float32, torch.bfloat16
@@ -82,7 +83,7 @@ def test_f32_cpu_tensors_take_the_plain_twins(monkeypatch):
     rng = np.random.RandomState(0)
     H, D = 1, 320
     q, k, v = (torch.from_numpy(rng.randn(2, 5, H * D).astype(np.float32)) for _ in range(3))
-    counters = (A.bshd_flash_attention, A.simt_attention, A.wide_attention, FA.gemm_f32)
+    counters = (A.bshd_flash_attention, A.simt_attention, A.wide_attention, G.gemm_f32)
     before = [f.launches for f in counters]
     out = A.bshd_flash_attention(q, k, v, None, H)
     torch.testing.assert_close(out, A._bshd_flash_plain(q, k, v, None, H), atol=0, rtol=0)
@@ -142,32 +143,39 @@ class _FakeLib:
         for c0, w in slices:
             o[..., c0:c0 + w] = out[..., c0:c0 + w]
 
-    def btia_attn_simt(self, ptrs, strides, dims, qscale, nprob, D, mask_bytes, mult, plan, stream):
+    @staticmethod
+    def problems(args, nprob):
+        """Both entries' argument array, ATTEND_ARGS int64 a problem (q, k,
+        v, o, mask pointers; q, k, v, o strides; B, H, Sq, Sk), read back
+        into the (pointers, strides, dims) lists ``_attend`` takes."""
+        a = [args[i] for i in range(A.ATTEND_ARGS * nprob)]
+        ptrs, strides, dims = [], [], []
+        for p in range(nprob):
+            x = a[A.ATTEND_ARGS * p: A.ATTEND_ARGS * (p + 1)]
+            ptrs += x[:5]
+            strides += x[5:17]
+            dims += x[17:21]
+        return ptrs, strides, dims
+
+    def btia_attn_simt(self, args, nprob, qs0, qs1, D, mask_bytes, mult, plan, stream):
         bq, slice_w, vec = plan[:3]
         self.calls.append(("btia_attn_simt", F32, nprob, D, mult, (bq, slice_w, vec)))
         if bq not in (32, 64) or not (slice_w == 128 or (slice_w == 64 and D <= 64)):
             return INVALID
+        ptrs, strides, dims = self.problems(args, nprob)
         if vec and (D % 4 or any(strides[i] % 4 for i in range(12 * nprob))
                     or any(ptrs[5 * p + i] % 16 for p in range(nprob) for i in range(4))):
             return INVALID
         for p in range(nprob):
-            self._attend(ptrs, strides, dims, qscale, p, D, mask_bytes, mult, F32, _slices(D, slice_w))
+            self._attend(ptrs, strides, dims, (qs0, qs1), p, D, mask_bytes, mult, F32, _slices(D, slice_w))
         return 0
 
     def btia_attn_wide(self, args, nprob, qs0, qs1, dw, sw, n, mask_bytes, mult, stream):
-        """The cluster entry: WIDE_ARGS int64 a problem (q, k, v, o, mask
-        pointers; q, k, v, o strides; B, H, Sq, Sk), read back into the
-        arrays ``_attend`` takes."""
+        """The cluster entry, on the f32 entry's argument array."""
         self.calls.append(("btia_attn_wide", BF16, nprob, dw, mult, (sw, n)))
         if dw % 8 or sw not in (192, 256) or not 2 <= n <= 4 or not (n - 1) * sw < dw <= n * sw:
             return INVALID
-        a = [args[i] for i in range(A.WIDE_ARGS * nprob)]
-        ptrs, strides, dims = [], [], []
-        for p in range(nprob):
-            x = a[A.WIDE_ARGS * p: A.WIDE_ARGS * (p + 1)]
-            ptrs += x[:5]
-            strides += x[5:17]
-            dims += x[17:21]
+        ptrs, strides, dims = self.problems(args, nprob)
         for p in range(nprob):
             st = strides[12 * p: 12 * p + 12]
             if any(ptrs[5 * p + i] % 16 or not ptrs[5 * p + i] for i in range(4)) or any(x % 8 or x < 0 for x in st) \
@@ -425,11 +433,11 @@ def test_gemm_f32_tile_by_shape(name, M, K, N, tile, fake_lib):
     """The largest of 128 x 128, 128 x 64 and 64 x 64 whose grid gives the
     H100's 132 SMs two blocks each, else 64 x 64; the wrapper hands the
     choice to the C entry."""
-    assert FA.GEMM_F32_TILES[FA.gemm_f32_tile(M, N)] == tile
+    assert G.GEMM_F32_TILES[G.gemm_f32_tile(M, N)] == tile
     rng = np.random.RandomState(M % 97)
     a, w, b = _rand(rng, 8, K), _rand(rng, K, N), _rand(rng, N)
-    FA.gemm_f32(a, w, b)
-    assert fake_lib.calls[-1][5] == FA.gemm_f32_tile(8, N) == 2  # the call's own shape decides
+    G.gemm_f32(a, w, b)
+    assert fake_lib.calls[-1][5] == G.gemm_f32_tile(8, N) == 2  # the call's own shape decides
 
 
 def _packed(D, H=2, off=0, B=2, S=5):
@@ -494,7 +502,7 @@ def test_launch_error_raises(entry, fake_lib, monkeypatch):
     rng = np.random.RandomState(1)
     with pytest.raises(RuntimeError, match=f"{entry}: CUDA error {INVALID}"):
         if entry == "btia_gemm_f32":
-            FA.gemm_f32(_rand(rng, 4, 8), _rand(rng, 8, 8), _rand(rng, 8))
+            G.gemm_f32(_rand(rng, 4, 8), _rand(rng, 8, 8), _rand(rng, 8))
         else:
             dt, D = (F32, 64) if entry == "btia_attn_simt" else (BF16, 384)
             q = _rand(rng, 2, 3, D, dt=dt)

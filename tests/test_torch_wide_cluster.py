@@ -1,8 +1,8 @@
 """The host side of the wide-head kernel's cluster design
 (``csrc/attn_wide.cu``, ``ops/attention.py``): its plan (a thread block
 cluster of one block a column slice), the argument array its launcher packs
-in one pass (``wide_args``), and the f32 route's arguments, which share
-``attend`` and stay as they were.
+in one pass (``attend_args``), and the f32 route's arguments, the same
+array.
 
 The end-to-end cases run every entry's CUDA half on CPU tensors against
 ``test_torch_simt_route.py``'s stand-in library, which reads the tensors
@@ -68,10 +68,10 @@ def test_wide_plan_takes_a_built_instance(lo, hi, plan):
 
 def _unpack(args, nprob):
     """The argument array as (pointers, strides, dims) lists, a problem each."""
-    a = [args[i] for i in range(A.WIDE_ARGS * nprob)]
-    assert len(args) == A.WIDE_ARGS * nprob
+    a = [args[i] for i in range(A.ATTEND_ARGS * nprob)]
+    assert len(args) == A.ATTEND_ARGS * nprob
     return [(a[i:i + 5], [a[i + 5 + 3 * j: i + 8 + 3 * j] for j in range(4)], a[i + 17:i + 21])
-            for i in range(0, len(a), A.WIDE_ARGS)]
+            for i in range(0, len(a), A.ATTEND_ARGS)]
 
 
 def test_wide_args_shared_query_table():
@@ -87,7 +87,7 @@ def test_wide_args_shared_query_table():
     base = {"q": q, "k": kv, "v": kv, "o": out}
     specs = [(base[n], ops[n][0], (B, H, Sq if n in "qo" else Sk, D), (*ops[n][1], 1)) for n in "qkvo"]
     m = torch.ones(B, Sk, dtype=torch.bool)
-    args, scales, mask_bytes, keep, copies = A.wide_args([(*specs, m, 1.0)], D)
+    args, scales, mask_bytes, keep, copies = A.attend_args([(*specs, m, 1.0)], D)
     [(ptrs, strides, dims)] = _unpack(args, 1)
     assert ptrs == [q.data_ptr(), kv.data_ptr(), kv.data_ptr() + 2 * HD, out.data_ptr(), m.data_ptr()]
     assert strides[0][0] == 0 and strides[0][1:] == [D, HD]
@@ -104,7 +104,7 @@ def test_wide_args_two_problems():
     oi, ot = torch.empty_like(qi), torch.empty_like(qt)
     tm = torch.ones(B, Nt, dtype=torch.bool)
     c = A._log2_scale(D)
-    args, scales, mask_bytes, _, copies = A.wide_args(_specs([(qi, kt, vt, oi, tm, c), (qt, ki, vi, ot, None, c)]), D)
+    args, scales, mask_bytes, _, copies = A.attend_args(_specs([(qi, kt, vt, oi, tm, c), (qt, ki, vi, ot, None, c)]), D)
     (p0, s0, d0), (p1, s1, d1) = _unpack(args, 2)
     assert p0 == [qi.data_ptr(), kt.data_ptr(), vt.data_ptr(), oi.data_ptr(), tm.data_ptr()]
     assert p1 == [qt.data_ptr(), ki.data_ptr(), vi.data_ptr(), ot.data_ptr(), 0]
@@ -119,7 +119,7 @@ def test_wide_args_padded_copy_and_output_buffer():
     rng = np.random.RandomState(3)
     q, k, v = (_rand(rng, 2, 1, n, 300, dt=BF16) for n in (5, 7, 7))
     o = torch.empty_like(q)
-    args, _, _, keep, copies = A.wide_args(_specs([(q, k, v, o, None, 1.0)]), 304)
+    args, _, _, keep, copies = A.attend_args(_specs([(q, k, v, o, None, 1.0)]), 304)
     [(ptrs, strides, _)] = _unpack(args, 1)
     padded = keep[:3]
     assert all(t.shape[3] == 304 and t.data_ptr() == p for t, p in zip(padded, ptrs))
@@ -135,7 +135,7 @@ def test_wide_args_batch_of_one_takes_spans():
     view's own, and nothing is copied."""
     buf = torch.zeros(64 + 9 * 384, dtype=BF16)
     q = buf[64:].as_strided((1, 1, 9, 384), (5, 3, 384, 1))  # odd strides on the size-1 dims
-    args, _, _, keep, copies = A.wide_args(_specs([(q, q, q, torch.zeros(1, 1, 9, 384, dtype=BF16), None, 1.0)]), 384)
+    args, _, _, keep, copies = A.attend_args(_specs([(q, q, q, torch.zeros(1, 1, 9, 384, dtype=BF16), None, 1.0)]), 384)
     [(ptrs, strides, _)] = _unpack(args, 1)
     assert ptrs[0] == q.data_ptr() and keep[0] is q and not copies
     assert strides[0] == [9 * 384, 9 * 384, 384]
@@ -145,24 +145,24 @@ def test_wide_args_misaligned_view_is_copied():
     """A view 8 bytes off a 16-byte boundary is copied once, aligned."""
     buf = torch.zeros(2 * 5 * 384 + 8, dtype=BF16)
     x = buf[4:4 + 2 * 5 * 384].view(2, 1, 5, 384)
-    args, _, _, keep, _ = A.wide_args(_specs([(x, x, x, torch.zeros(2, 1, 5, 384, dtype=BF16), None, 1.0)]), 384)
+    args, _, _, keep, _ = A.attend_args(_specs([(x, x, x, torch.zeros(2, 1, 5, 384, dtype=BF16), None, 1.0)]), 384)
     [(ptrs, _, _)] = _unpack(args, 1)
     assert ptrs[0] % 16 == 0 and ptrs[0] != x.data_ptr() and torch.equal(keep[0], x)
 
 
 def test_attend_specs_give_the_f32_route_its_views(fake_lib):
-    """The f32 route keeps exactly its arguments: K3's operand specs
-    handed to ``attend`` give ``btia_attn_simt`` the pointer, stride and
-    dims arrays of its (B, H, S, D) views, as before specs."""
+    """K3's operand specs handed to ``attend`` give ``btia_attn_simt`` the
+    pointers, strides and dims of its (B, H, S, D) views where they lie, in
+    the wide route's argument array (no mask: pointer 0)."""
     rng = np.random.RandomState(4)
     B, Sq, Sk, H, D = 2, 9, 13, 2, 64
     q, k, v = _rand(rng, B, Sq, H * D), _rand(rng, B, Sk, H * D), _rand(rng, B, Sk, H * D)
     seen = []
     real = _FakeLib.btia_attn_simt
 
-    def spy(self, ptrs, strides, dims, qscale, nprob, *rest):
-        seen.append(([ptrs[i] for i in range(5)], [strides[i] for i in range(12)], [dims[i] for i in range(4)]))
-        return real(self, ptrs, strides, dims, qscale, nprob, *rest)
+    def spy(self, args, nprob, *rest):
+        seen.append(_FakeLib.problems(args, nprob))
+        return real(self, args, nprob, *rest)
 
     _FakeLib.btia_attn_simt = spy
     try:
@@ -171,7 +171,7 @@ def test_attend_specs_give_the_f32_route_its_views(fake_lib):
         _FakeLib.btia_attn_simt = real
     _close(out, A._bshd_flash_plain(q, k, v, None, H), F32)
     views = [t.unflatten(2, (H, D)).transpose(1, 2) for t in (q, k, v, out)]
-    assert seen == [([t.data_ptr() for t in views] + [None], [s for t in views for s in t.stride()[:3]],
+    assert seen == [([t.data_ptr() for t in views] + [0], [s for t in views for s in t.stride()[:3]],
                      [B, H, Sq, Sk])]
 
 
@@ -206,4 +206,4 @@ def test_wide_k6_and_k5_padded(fake_lib):
     m = _mask(rng, 2, 23)
     _close(A._mha_bhsd_cuda(*img, m), A._mha_bhsd_plain(*img, m), BF16)
     assert [(c[2], c[3], c[5]) for c in fake_lib.calls] == [(2, 304, (192, 2)), (1, 304, (192, 2))]
-    assert isinstance(A.wide_args(_specs([(*img, img[0], None, 1.0)]), 304)[0], ctypes.Array)
+    assert isinstance(A.attend_args(_specs([(*img, img[0], None, 1.0)]), 304)[0], ctypes.Array)
